@@ -1,0 +1,15 @@
+"""nanodecoder_tpu_torch: the PyTorch + CUDA port of nanodecoder_tpu.
+
+Greedy basecalling of lean transformer models on one NVIDIA H100:
+
+    from nanodecoder_tpu_torch.config import Config
+    from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
+    from nanodecoder_tpu_torch.decode.translator import Translator
+
+    cfg = Config.from_json(open("bench_results/config.json").read())
+    params = load_params_npz("bench_results/flagship_params.npz", cfg.model)
+    call = Translator(params, cfg).basecall_read(read)   # device="cuda"
+
+Entry points run on the card unless the caller passes device="cpu".
+The package imports torch, numpy and the standard library only.
+"""

@@ -1,0 +1,171 @@
+"""Batch basecalling: host orchestration around encode + greedy decode.
+
+The port's counterpart of the greedy path of
+`nanodecoder_tpu.decode.translator`:
+  * normalize and chunk each read (io.signal) and pack the chunks into
+    fixed-size batches, padding the last with length-0 rows;
+  * per batch: convert to the H2D wire on the host, unpack it on the
+    device, encode, decode greedily, and bring back a compact result
+    (int16 ids and positions, f16 log-probs);
+  * expand tokens to bases with per-base Phred qualities and stitch the
+    chunks back into reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from nanodecoder_tpu_torch.config import Config
+from nanodecoder_tpu_torch.decode.greedy import greedy_decode
+from nanodecoder_tpu_torch.device import resolve_device
+from nanodecoder_tpu_torch.io.fast5 import RawRead
+from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
+                                             normalize_signal, wire_to_f32)
+from nanodecoder_tpu_torch.io.stitch import stitch_chunks, stitch_chunks_attn
+from nanodecoder_tpu_torch.models.model import encode, prepare_serving_params
+from nanodecoder_tpu_torch.vocab import make_vocab
+
+
+@dataclasses.dataclass
+class Basecall:
+    """One basecalled read."""
+
+    read_id: str
+    sequence: str
+    mean_qscore: float
+    n_chunks: int
+    n_samples: int
+    # Per-base Phred scores, positionally aligned with `sequence`.
+    qualities: np.ndarray | None = None
+
+
+def _phred_from_log_probs(token_lps: np.ndarray) -> np.ndarray:
+    """Per-token Phred score from chosen-token log-probs:
+    q = -10 * log10(1 - p), clamped to [1, 50]."""
+    p = np.exp(np.minimum(token_lps, -1e-7))
+    q = -10.0 * np.log10(np.maximum(1.0 - p, 1e-5))
+    return np.clip(q, 1.0, 50.0)
+
+
+def _to_device(node: Any, dev: torch.device) -> Any:
+    if isinstance(node, dict):
+        return {k: _to_device(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_device(v, dev) for v in node]
+    return node.to(dev)
+
+
+class Translator:
+    """Greedy basecaller over one model on one device.
+
+    params: the nested parameter dict of train.checkpoint.load_params_npz.
+    The serving fold runs once here, on the device.  Counters for the
+    record: `batches` (device batches run) and `decode_steps` (decode
+    steps run over all batches)."""
+
+    def __init__(self, params: dict[str, Any], config: Config,
+                 device: str | torch.device = "cuda"):
+        if config.decode.mode != "greedy":
+            raise ValueError(f"decode mode {config.decode.mode!r} is not ported; "
+                             "the port decodes greedily")
+        self.device = resolve_device(device)
+        # Full-precision f32 products: a float32 conv would otherwise run
+        # in TF32 through cuDNN, which the f32 goldens do not tolerate.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            self.params = prepare_serving_params(
+                _to_device(params, self.device), config.model)
+        self.config = config
+        self.vocab = make_vocab(config.model.kmer_k)
+        self._h2d = config.decode.resolve_h2d(config.model.compute_dtype)
+        self.batches = 0
+        self.decode_steps = 0
+
+    @staticmethod
+    def _compact_d2h(tokens, lengths, lps, scores, sample_pos):
+        """Shrink the device->host transfer: ids and sample positions fit
+        int16, f16 log-probs keep ~3 significant digits (far inside Phred
+        rounding).  decode_chunk_batch converts back on the host."""
+        return (tokens.to(torch.int16), lengths, lps.to(torch.float16), scores,
+                sample_pos.to(torch.int16))
+
+    @torch.inference_mode()
+    def _greedy_program(self, wire: np.ndarray, lengths: np.ndarray):
+        cfg = self.config.model
+        signal = wire_to_f32(torch.from_numpy(wire).to(self.device), self._h2d,
+                             self.config.signal.clip_sigma,
+                             self.config.signal.chunk_len)
+        lens = torch.from_numpy(lengths.astype(np.int32)).to(self.device)
+        memory, mem_lengths = encode(self.params, cfg, signal, lens)
+        res = greedy_decode(self.params, cfg, memory, mem_lengths,
+                            min_len=self.config.decode.min_len)
+        self.decode_steps += res.steps
+        # Encoder position -> sample position (center of the conv window).
+        ds = cfg.time_downsample
+        sample_pos = res.attn_pos * ds + ds // 2
+        return self._compact_d2h(res.tokens, res.lengths, res.token_log_probs,
+                                 res.scores, sample_pos)
+
+    def decode_chunk_batch(self, chunks: np.ndarray, lengths: np.ndarray):
+        """chunks: (N, chunk_len) -> (tokens, tok_lengths, token_lps,
+        scores, attn_sample_pos) as numpy, with padding rows stripped."""
+        bsz = self.config.decode.effective_batch_chunks()
+        n = chunks.shape[0]
+        outs: list[list[np.ndarray]] = [[], [], [], [], []]
+        for i in range(0, n, bsz):
+            batch = chunks[i:i + bsz]
+            blen = lengths[i:i + bsz]
+            real = batch.shape[0]
+            if real < bsz:  # pad to the fixed batch shape with length-0 rows
+                batch = np.concatenate(
+                    [batch, np.zeros((bsz - real, batch.shape[1]), batch.dtype)])
+                blen = np.concatenate([blen, np.zeros((bsz - real,), blen.dtype)])
+            wire = convert_h2d(np.asarray(batch, np.float32), self._h2d,
+                               self.config.signal.clip_sigma)
+            results = self._greedy_program(wire, blen)
+            self.batches += 1
+            for acc, r in zip(outs, results):
+                acc.append(r[:real].cpu().numpy())
+        # Restore host working dtypes from the compact forms.
+        host_dtypes = (np.int32, np.int32, np.float32, np.float32, np.int32)
+        return tuple(np.concatenate(acc).astype(dt)
+                     for acc, dt in zip(outs, host_dtypes))
+
+    def basecall_read(self, read: RawRead, stitch_method: str = "trim") -> Basecall:
+        scfg = self.config.signal
+        norm = normalize_signal(read.signal, scfg.normalization, scfg.mad_scale,
+                                scfg.clip_sigma)
+        cb = chunk_signal(norm, scfg.chunk_len, scfg.chunk_overlap,
+                          scfg.min_chunk_fill)
+        tokens, tok_lengths, token_lps, _scores, attn_pos = \
+            self.decode_chunk_batch(cb.chunks, cb.lengths)
+        # Per-token streams (positions, log-probs) expanded per base so
+        # multi-base k-mer tokens stay aligned with the base string.
+        seqs, positions, qs = [], [], []
+        for i in range(cb.n_chunks):
+            tl = int(tok_lengths[i])
+            seq_i, pos_i, lp_i = self.vocab.decode_expand(
+                tokens[i, :tl], attn_pos[i, :tl], token_lps[i, :tl])
+            seqs.append(seq_i)
+            positions.append(pos_i)
+            qs.append(_phred_from_log_probs(lp_i))
+        if stitch_method == "attn":
+            seq, qual = stitch_chunks_attn(seqs, positions, cb.starts,
+                                           cb.lengths, quals=qs)
+        else:
+            seq, qual = stitch_chunks(seqs, cb.starts, cb.lengths,
+                                      scfg.chunk_len, scfg.chunk_overlap,
+                                      method=stitch_method, quals=qs)
+        mean_q = float(qual.mean()) if qual.size else 0.0
+        return Basecall(read_id=read.read_id, sequence=seq, mean_qscore=mean_q,
+                        n_chunks=cb.n_chunks, n_samples=read.n_samples,
+                        qualities=qual)
+
+    def basecall_reads(self, reads: Iterable[RawRead]) -> Iterator[Basecall]:
+        for read in reads:
+            yield self.basecall_read(read)

@@ -1,0 +1,55 @@
+"""FASTA/FASTQ output (the port's copy of the writers in
+`nanodecoder_tpu.io.fastx`)."""
+
+from __future__ import annotations
+
+from typing import Iterable, TextIO
+
+import numpy as np
+
+
+def _phred_char(q: float) -> str:
+    """Mean per-base quality -> Phred+33 char, clamped to [0, 93]."""
+    qi = int(round(q))
+    return chr(33 + max(0, min(qi, 93)))
+
+
+def _phred_string(quals) -> str:
+    """Per-base Phred scores -> Phred+33 string (vectorized — this is
+    host hot-path work, once per read in the streaming engine)."""
+    q = np.asarray(quals, np.float32)
+    codes = (33 + np.clip(np.rint(q), 0, 93)).astype(np.uint8)
+    return codes.tobytes().decode("ascii")
+
+
+def write_fasta(records: Iterable[tuple[str, str]], out: TextIO, width: int = 0) -> int:
+    """records: (read_id, sequence).  width>0 wraps sequence lines."""
+    n = 0
+    for read_id, seq in records:
+        out.write(f">{read_id}\n")
+        if width and width > 0:
+            for i in range(0, len(seq), width):
+                out.write(seq[i : i + width] + "\n")
+        else:
+            out.write(seq + "\n")
+        n += 1
+    return n
+
+
+def write_fastq(records: Iterable[tuple[str, str, object]], out: TextIO) -> int:
+    """records: (read_id, sequence, quality) where quality is either a
+    per-base iterable of Phred scores or one mean score for the read."""
+    n = 0
+    for read_id, seq, qual in records:
+        if qual is None:
+            qstr = _phred_char(20.0) * len(seq)
+        elif isinstance(qual, (int, float)):
+            qstr = _phred_char(float(qual)) * len(seq)
+        else:
+            qstr = _phred_string(qual)
+            if len(qstr) < len(seq):  # pad if decode emitted fewer scores
+                qstr = qstr + qstr[-1:] * (len(seq) - len(qstr)) if qstr else _phred_char(20.0) * len(seq)
+            qstr = qstr[: len(seq)]
+        out.write(f"@{read_id}\n{seq}\n+\n{qstr}\n")
+        n += 1
+    return n

@@ -1,0 +1,165 @@
+"""Lean transformer decoder step with one combined self cache.
+
+The port's counterpart of the serving path in
+`nanodecoder_tpu.models.decoder`: `init_transformer_cache` (lean branch),
+`_ln_normalize`, `_fold_ln_dense`, `fold_lean_params` and
+`_transformer_decoder_step_lean`.
+
+Decode state (a dict, like the JAX package's):
+  layers:        per layer {cross_k, cross_v} (B, S, Hk, Dh), projected once
+  cross_mask:    (B, 1, 1, S) bool
+  mem_lengths:   (B,) int32
+  step:          host int, the position being decoded
+  self_kv:       (B, T, C_pad) every layer's [K|V] row for each position,
+                 C = layers * 2 * Hk * Dh padded up to a multiple of 128
+  self_kv_stage: (B, 8, C_pad) rows of the aligned 8-step block holding
+                 `step`, flushed into self_kv by kernel K2 every step
+
+The step updates `self_kv` (on the card) and `self_kv_stage` in place
+and returns the new state dict.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from nanodecoder_tpu_torch.config import ModelConfig
+from nanodecoder_tpu_torch.models import modules as nn
+from nanodecoder_tpu_torch.ops.cache_update import BLOCK, write_cache_block
+
+
+def init_transformer_cache(p, cfg: ModelConfig, memory: torch.Tensor,
+                           mem_lengths: torch.Tensor, batch: int,
+                           dtype: torch.dtype) -> dict[str, Any]:
+    """Project the cross K/V of every layer once and allocate the zeroed
+    combined self cache of length max_decode_len."""
+    tmax = cfg.max_decode_len
+    hk, dh = cfg.dec_kv, cfg.d_model // cfg.dec_heads
+    if tmax % BLOCK:
+        raise ValueError(f"max_decode_len must be a multiple of {BLOCK}; got {tmax}")
+    layers = []
+    for layer in p["layers"]:
+        ck, cv = nn.mha_project_kv(layer["cross_attn"], cfg.dec_heads, memory,
+                                   kv_heads=hk)
+        layers.append({"cross_k": ck, "cross_v": cv})
+    s = memory.shape[1]
+    c = len(p["layers"]) * 2 * hk * dh
+    c_pad = -(-c // 128) * 128
+    dev = memory.device
+    return {
+        "layers": layers,
+        "cross_mask": nn.length_mask(mem_lengths, s)[:, None, None, :],
+        "mem_lengths": mem_lengths.to(torch.int32),
+        "step": 0,
+        "self_kv": torch.zeros((batch, tmax, c_pad), dtype=dtype, device=dev),
+        "self_kv_stage": torch.zeros((batch, BLOCK, c_pad), dtype=dtype,
+                                     device=dev),
+    }
+
+
+def _ln_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """layer_norm without the affine (folded into the next matmul);
+    statistics in f32."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _fold_ln_dense(ln, dense_p, dtype: torch.dtype):
+    """Fold an LN affine into the dense after it:
+    layer_norm(x) @ W + b == normalize(x) @ (g * W) + (b_ln @ W + b).
+    Returns (w', b') in `dtype`, folded in f32."""
+    g = ln["scale"].to(torch.float32)
+    bl = ln["bias"].to(torch.float32)
+    w = dense_p["w"].to(torch.float32)
+    b = dense_p["b"].to(torch.float32) if "b" in dense_p else 0.0
+    return (g[:, None] * w).to(dtype), (bl @ w + b).to(dtype)
+
+
+def fold_lean_params(p_dec, p_gen, cfg: ModelConfig, dtype: torch.dtype):
+    """Decoder + generator params -> folded decode-step weights.  The
+    generator stays f32 with the ln_out affine folded in."""
+    layers = []
+    for layer in p_dec["layers"]:
+        sa, ca, ff = layer["self_attn"], layer["cross_attn"], layer["ffn"]
+        wq, bq = _fold_ln_dense(layer["ln1"], sa["q"], dtype)
+        wk, bk = _fold_ln_dense(layer["ln1"], sa["k"], dtype)
+        wv, bv = _fold_ln_dense(layer["ln1"], sa["v"], dtype)
+        wcq, bcq = _fold_ln_dense(layer["ln2"], ca["q"], dtype)
+        wf1, bf1 = _fold_ln_dense(layer["ln3"], ff["in"], dtype)
+        layers.append({
+            "w_qkv": torch.cat([wq, wk, wv], dim=1),
+            "b_qkv": torch.cat([bq, bk, bv]),
+            "self_o": {"w": sa["o"]["w"].to(dtype), "b": sa["o"]["b"].to(dtype)},
+            "cross_q": {"w": wcq, "b": bcq},
+            "cross_o": {"w": ca["o"]["w"].to(dtype), "b": ca["o"]["b"].to(dtype)},
+            "w_f1": wf1, "b_f1": bf1,
+            "w_f2": ff["out"]["w"].to(dtype),
+            "b_f2": ff["out"]["b"].to(dtype),
+        })
+    gen_w = p_gen["w"].to(torch.float32)
+    gw = p_dec["ln_out"]["scale"].to(torch.float32)[:, None] * gen_w
+    gb = p_dec["ln_out"]["bias"].to(torch.float32) @ gen_w \
+        + p_gen["b"].to(torch.float32)
+    return {"layers": layers, "gen_w": gw, "gen_b": gb}
+
+
+def _transformer_decoder_step_lean(lean, cfg: ModelConfig, y1: torch.Tensor,
+                                   state: dict[str, Any]):
+    """One-token decode over folded weights.  y1: (B, 1, D) embedded
+    token.  Returns (hidden (B, 1, D) normalized WITHOUT the ln_out
+    affine, which lives in the generator; attn_pos (B,) int, the
+    head-mean cross-attention argmax of the last layer; new state)."""
+    step = state["step"]
+    tmax = cfg.max_decode_len
+    b = y1.shape[0]
+    nh, dh = cfg.dec_heads, cfg.d_model // cfg.dec_heads
+    d = nh * dh
+    hk = cfg.dec_kv
+    dk = hk * dh
+    pos = torch.arange(tmax, device=y1.device)
+    self_mask = (pos <= step)[None, None, None, :]
+    at_cur = (pos == step)[None, :, None, None]   # broadcasts to (B, T, Hk, Dh)
+    kv_read = state["self_kv"]
+    n_layers = len(lean["layers"])
+    new_rows = []
+    amax = None
+    for i, (ll, cache) in enumerate(zip(lean["layers"], state["layers"])):
+        h = _ln_normalize(y1)
+        qkv = h @ ll["w_qkv"] + ll["b_qkv"]                 # (B, 1, D + 2Dk)
+        k1 = nn._split_heads(qkv[..., d:d + dk], hk)
+        v1 = nn._split_heads(qkv[..., d + dk:], hk)
+        k_c = kv_read[:, :, 2 * dk * i:2 * dk * i + dk].reshape(b, tmax, hk, dh)
+        v_c = kv_read[:, :, 2 * dk * i + dk:2 * dk * (i + 1)].reshape(b, tmax, hk, dh)
+        # The current token's K/V replace row `step` by a select: the same
+        # values as writing the cache first.
+        k_use = torch.where(at_cur, k1, k_c)
+        v_use = torch.where(at_cur, v1, v_c)
+        a, _ = nn.attention_core(nn._split_heads(qkv[..., :d], nh), k_use,
+                                 v_use, self_mask)
+        y1 = y1 + nn.dense(ll["self_o"], nn._merge_heads(a))
+        h = _ln_normalize(y1)
+        a, probs = nn.mha_step({"q": ll["cross_q"], "o": ll["cross_o"]}, nh, h,
+                               cache["cross_k"], cache["cross_v"],
+                               state["cross_mask"])
+        if i == n_layers - 1:
+            pm = probs[:, :, 0, :].to(torch.float32).mean(dim=1)
+            amax = pm.argmax(dim=-1).to(torch.int32)
+        y1 = y1 + a
+        h = _ln_normalize(y1)
+        y1 = y1 + torch.relu(h @ ll["w_f1"] + ll["b_f1"]) @ ll["w_f2"] + ll["b_f2"]
+        new_rows.append(qkv[..., d:])                       # (B, 1, 2Dk)
+    # Stage the current aligned 8-step block (rows after `step` zero, the
+    # lane pad zero) and flush it into the cache with kernel K2.
+    stage = state["self_kv_stage"]
+    local = step % BLOCK
+    stage[:, local:] = 0
+    stage[:, local, :n_layers * 2 * dk] = torch.cat(new_rows, dim=2)[:, 0]
+    self_kv = write_cache_block(state["self_kv"], stage, step)
+    out = _ln_normalize(y1)
+    new_state = {**state, "self_kv": self_kv, "self_kv_stage": stage,
+                 "step": step + 1}
+    return out, amax, new_state

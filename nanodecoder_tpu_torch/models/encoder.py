@@ -1,0 +1,104 @@
+"""Signal encoder for serving: conv front-end + lean transformer body.
+
+The port's counterpart of the serving path in
+`nanodecoder_tpu.models.encoder`: `conv_frontend`, `fold_encoder_lean`,
+`transformer_encoder_lean` and `encoder_apply_lean`.  The lean body
+folds each layer norm's affine into the matmul after it, runs one fused
+QKV projection per layer, and calls kernel K1 for the attention.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from nanodecoder_tpu_torch.config import ModelConfig
+from nanodecoder_tpu_torch.models import modules as nn
+from nanodecoder_tpu_torch.models.decoder import _fold_ln_dense, _ln_normalize
+from nanodecoder_tpu_torch.ops.encoder_attention import flash_encoder_attention_qkv
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def conv_frontend(p, cfg: ModelConfig, signal: torch.Tensor,
+                  lengths: torch.Tensor):
+    """signal: (B, S) float; lengths: (B,) valid samples.
+    Returns (x (B, S', d_model), out_lengths), S' = ceil(S / prod(strides)).
+    Conv weights are torch's (O, I, W); each layer pads k//2 on both
+    sides and keeps ceil(length / stride) valid positions."""
+    dtype = compute_dtype(cfg)
+    x = signal.to(dtype)[:, None, :]  # (B, 1, S)
+    out_lengths = lengths
+    for layer, stride in zip(p["convs"], cfg.conv_strides):
+        w = layer["w"].to(dtype)
+        k = w.shape[2]
+        x = F.conv1d(x, w, stride=stride, padding=k // 2)
+        x = torch.relu(x + layer["b"].to(dtype)[None, :, None])
+        out_lengths = torch.div(out_lengths + (stride - 1), stride,
+                                rounding_mode="floor")
+    x = nn.dense(p["proj"], x.transpose(1, 2))
+    x = nn.layer_norm(p["ln"], x)
+    return x, out_lengths
+
+
+def fold_encoder_lean(p_enc, cfg: ModelConfig, dtype: torch.dtype):
+    """Encoder params -> pre-folded serving weights in `dtype`."""
+    fe = p_enc["frontend"]
+    frontend = {
+        "convs": [{"w": l["w"].to(dtype), "b": l["b"].to(dtype)}
+                  for l in fe["convs"]],
+        "proj": {"w": fe["proj"]["w"].to(dtype), "b": fe["proj"]["b"].to(dtype)},
+        # The front-end LN affine cannot fold forward: the positional
+        # encoding is added between it and layer 1's ln1.
+        "ln": fe["ln"],
+    }
+    layers = []
+    for layer in p_enc["body"]["layers"]:
+        ap, ff = layer["attn"], layer["ffn"]
+        wq, bq = _fold_ln_dense(layer["ln1"], ap["q"], dtype)
+        wk, bk = _fold_ln_dense(layer["ln1"], ap["k"], dtype)
+        wv, bv = _fold_ln_dense(layer["ln1"], ap["v"], dtype)
+        wf1, bf1 = _fold_ln_dense(layer["ln2"], ff["in"], dtype)
+        layers.append({
+            "w_qkv": torch.cat([wq, wk, wv], dim=1),
+            "b_qkv": torch.cat([bq, bk, bv]),
+            "o": {"w": ap["o"]["w"].to(dtype), "b": ap["o"]["b"].to(dtype)},
+            "w_f1": wf1, "b_f1": bf1,
+            "w_f2": ff["out"]["w"].to(dtype),
+            "b_f2": ff["out"]["b"].to(dtype),
+        })
+    return {"frontend": frontend, "layers": layers,
+            "ln_out": p_enc["body"]["ln_out"]}
+
+
+def transformer_encoder_lean(lean, cfg: ModelConfig, x: torch.Tensor,
+                             enc_lengths: torch.Tensor) -> torch.Tensor:
+    """Pre-norm transformer over folded weights.  x: (B, T, D) in the
+    compute dtype; returns the memory bank (B, T, D), zero at padded
+    positions."""
+    t = x.shape[1]
+    valid = nn.length_mask(enc_lengths, t)
+    lengths32 = enc_lengths.to(torch.int32).contiguous()
+    for layer in lean["layers"]:
+        h = _ln_normalize(x)
+        qkv = h @ layer["w_qkv"] + layer["b_qkv"]   # (B, T, 3D) one matmul
+        ctx = flash_encoder_attention_qkv(qkv, lengths32, cfg.enc_heads)
+        x = x + nn.dense(layer["o"], ctx)
+        h = _ln_normalize(x)
+        x = x + torch.relu(h @ layer["w_f1"] + layer["b_f1"]) @ layer["w_f2"] \
+            + layer["b_f2"]
+    x = nn.layer_norm(lean["ln_out"], x)
+    return x * valid[:, :, None].to(x.dtype)
+
+
+def encoder_apply_lean(lean, cfg: ModelConfig, signal: torch.Tensor,
+                       lengths: torch.Tensor):
+    """Folded-weights serving encoder: conv front-end + lean body.
+    Returns (memory (B, T, D), enc_lengths (B,))."""
+    x, enc_lengths = conv_frontend(lean["frontend"], cfg, signal, lengths)
+    pe = nn.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    x = x + pe[None, :, :]
+    mem = transformer_encoder_lean(lean, cfg, x, enc_lengths)
+    return mem, enc_lengths

@@ -1,0 +1,85 @@
+"""Seq2seq serving model: encode, prepare serving params, decode step.
+
+The port's counterpart of the lean serving path in
+`nanodecoder_tpu.models.model`.  Params are the nested dict that
+`train.checkpoint.params_from_numpy` builds; `prepare_serving_params`
+adds the folded encoder (`_enc_lean`) and decoder (`_lean`) weights in
+the compute dtype once per run.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from nanodecoder_tpu_torch.config import ModelConfig
+from nanodecoder_tpu_torch.models import decoder as dec
+from nanodecoder_tpu_torch.models import modules as nn
+from nanodecoder_tpu_torch.models.encoder import (compute_dtype,
+                                                  encoder_apply_lean,
+                                                  fold_encoder_lean)
+
+
+def _check_lean(cfg: ModelConfig) -> None:
+    if (cfg.encoder_type != "transformer" or cfg.decoder_type != "transformer"
+            or not cfg.lean_step):
+        raise ValueError("the port serves lean transformer models only "
+                         "(encoder_type = decoder_type = 'transformer', "
+                         "lean_step = true)")
+
+
+def prepare_serving_params(params: dict[str, Any], cfg: ModelConfig):
+    """Add the folded, pre-cast serving weights of the encoder and the
+    decoder (compute dtype) to a copy of `params`."""
+    _check_lean(cfg)
+    dtype = compute_dtype(cfg)
+    out = dict(params)
+    out["_lean"] = dec.fold_lean_params(params["decoder"], params["generator"],
+                                        cfg, dtype)
+    out["_enc_lean"] = fold_encoder_lean(params["encoder"], cfg, dtype)
+    return out
+
+
+def encode(params, cfg: ModelConfig, signal: torch.Tensor,
+           lengths: torch.Tensor):
+    """Raw signal chunk batch (B, S) -> (memory (B, T, D), enc_lengths)."""
+    if "_enc_lean" not in params:
+        raise ValueError("params lack the serving fold; call "
+                         "prepare_serving_params first")
+    return encoder_apply_lean(params["_enc_lean"], cfg, signal, lengths)
+
+
+def init_decode_state(params, cfg: ModelConfig, memory: torch.Tensor,
+                      mem_lengths: torch.Tensor) -> dict[str, Any]:
+    return dec.init_transformer_cache(params["decoder"], cfg, memory,
+                                      mem_lengths, memory.shape[0], memory.dtype)
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  position: int) -> torch.Tensor:
+    """tokens (B, 1) -> (B, 1, D): embedding * sqrt(d) + PE row `position`."""
+    dtype = compute_dtype(cfg)
+    y = nn.embed(params["tgt_embed"], tokens, dtype)
+    y = y * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=dtype,
+                         device=y.device)
+    pe = nn.sinusoidal_positions(cfg.max_decode_len + 1, cfg.d_model,
+                                 y.device).to(dtype)
+    return y + pe[position][None, None, :]
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                state: dict[str, Any]):
+    """One decode step.  tokens: (B,) int current input tokens.
+    Returns (log_probs (B, V) f32, attn_pos (B,) int32 — the head-mean
+    cross-attention argmax over encoder positions — and the new state)."""
+    if "_lean" not in params:
+        raise ValueError("params lack the serving fold; call "
+                         "prepare_serving_params first")
+    lean = params["_lean"]
+    y1 = _embed_tokens(params, cfg, tokens[:, None], state["step"])
+    hidden, attn_pos, new_state = dec._transformer_decoder_step_lean(
+        lean, cfg, y1, state)
+    logits = hidden[:, 0, :].to(torch.float32) @ lean["gen_w"] + lean["gen_b"]
+    return torch.log_softmax(logits, dim=-1), attn_pos, new_state

@@ -1,0 +1,124 @@
+"""Shared neural modules as plain functions over parameter dicts.
+
+The port's counterpart of `nanodecoder_tpu.models.modules`, with the
+same semantics:
+  * params are nested dicts of tensors; a dense `w` is (in, out);
+  * activations run in the compute dtype, with layer-norm statistics
+    and softmax in float32;
+  * masks fill with -1e9, never -inf, so a row with no valid key gives
+    uniform attention instead of NaN;
+  * shapes are batch-major (B, T, D).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e9  # additive mask value; avoids NaN-producing -inf in softmax
+
+
+def dense(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def layer_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    # Reduce in f32 regardless of compute dtype.
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+def embed(p, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return p["table"].to(dtype)[ids]
+
+
+def sinusoidal_positions(max_len: int, dim: int,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """(max_len, dim) f32 sinusoidal table, sin and cos interleaved
+    (sin in even columns, cos in odd ones)."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    ang = pos * div  # (max_len, dim/2)
+    pe = torch.zeros((max_len, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, t, h, dh = x.shape
+    return x.reshape(b, t, h * dh)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor | None = None):
+    """Scaled dot-product attention.
+
+    q: (B, Tq, H, Dh), k/v: (B, Tk, Hk, Dh) with Hk dividing H (GQA:
+    each KV head serves a contiguous group of H/Hk query heads); mask
+    broadcastable to (B, H, Tq, Tk), True = keep.  Logits are
+    accumulated and the softmax taken in float32; the probabilities are
+    cast to v's dtype for the value product.  Returns (out (B, Tq, H,
+    Dh), probs (B, H, Tq, Tk) f32)."""
+    b, tq, hq, dh = q.shape
+    hk = k.shape[2]
+    tk = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    if hk == hq:
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    else:
+        g = hq // hk
+        qg = qf.reshape(b, tq, hk, g, dh)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+        logits = logits.reshape(b, hq, tq, tk)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.tensor(
+            NEG_INF, dtype=logits.dtype, device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    pv = probs.to(v.dtype)
+    if hk == hq:
+        out = torch.einsum("bhqk,bkhd->bqhd", pv, v)
+    else:
+        g = hq // hk
+        pg = pv.reshape(b, hk, g, tq, tk)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", pg, v).reshape(b, tq, hq, dh)
+    return out, probs
+
+
+def mha_project_kv(p, n_heads: int, key_value: torch.Tensor,
+                   kv_heads: int | None = None):
+    """Cross-attention K/V, projected once per chunk batch:
+    (B, Tk, Hk, Dh) each."""
+    k = _split_heads(dense(p["k"], key_value), kv_heads or n_heads)
+    v = _split_heads(dense(p["v"], key_value), kv_heads or n_heads)
+    return k, v
+
+
+def mha_step(p, n_heads: int, query_1: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor, mask: torch.Tensor | None = None):
+    """One-token attention against precomputed K/V.
+    query_1: (B, 1, D); k/v: (B, Tk, Hk, Dh); mask: (B, 1, 1, Tk)."""
+    q = _split_heads(dense(p["q"], query_1), n_heads)
+    out, probs = attention_core(q, k, v, mask)
+    return dense(p["o"], _merge_heads(out)), probs
+
+
+def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B,) lengths -> (B, max_len) bool validity mask."""
+    pos = torch.arange(max_len, device=lengths.device)[None, :]
+    return pos < lengths[:, None]

@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` (one compiler
+process per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ctypes.  The build runs
+at first use and again only when a source is newer than the library.
+Its output goes to `nanodecoder_tpu_torch/_build/`, which git ignores.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIBRARY = os.path.join(BUILD_DIR, "libnanodecoder_kernels.so")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each launcher: all return a cudaError_t as int.
+_SIGNATURES = {
+    # qkv, lengths, out, batch, seq, heads, head_dim, is_bf16, scale, stream
+    "nd_encoder_attention_qkv": [_vp, _vp, _vp, _int, _int, _int, _int,
+                                 _int, _float, _vp],
+    # cache, slab, batch, T, C, elem_bytes, step, stream
+    "nd_write_cache_block": [_vp, _vp, _int, _int, _int, _int, _int, _vp],
+}
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIBRARY):
+        return True
+    deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh"))
+    return max(os.path.getmtime(p) for p in deps) > os.path.getmtime(LIBRARY)
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels if the library is missing or stale.  Returns
+    the compilers' messages (with `verbose`, ptxas's register and
+    shared-memory report per kernel)."""
+    with _lock:
+        if not verbose and not _stale():
+            return ""
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        extra = ["-Xptxas", "-v"] if verbose else []
+        procs = []
+        for src in sources():
+            obj = os.path.join(BUILD_DIR, os.path.basename(src) + ".o")
+            procs.append((src, subprocess.Popen(
+                [nvcc, *CFLAGS, *extra, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = LIBRARY + f".{os.getpid()}.tmp"
+        objs = [os.path.join(BUILD_DIR, os.path.basename(s) + ".o")
+                for s in sources()]
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *objs, "-o", tmp],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+        os.replace(tmp, LIBRARY)
+        return "".join(log)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(LIBRARY)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.nd_error_string.argtypes = [ctypes.c_int]
+        lib.nd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if code != 0:
+        msg = load().nd_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

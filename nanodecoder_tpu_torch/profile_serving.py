@@ -1,0 +1,125 @@
+"""Where one serving batch of the PyTorch port spends its time, on a card.
+
+    python3 -m nanodecoder_tpu_torch.profile_serving [--batch 640] [--dtype bfloat16]
+
+Fills one batch of `--batch` chunks from simulated reads (seed 1), runs
+it once to warm up, then times it with CUDA events split into wire +
+encode and greedy decode, and profiles it with torch.profiler: device
+busy time (the sum of kernel times; one stream, so kernels never
+overlap), the device's idle share of the batch, and the kernels that
+take the most device time.  Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+from nanodecoder_tpu_torch.config import Config
+from nanodecoder_tpu_torch.decode.greedy import greedy_decode
+from nanodecoder_tpu_torch.decode.translator import Translator
+from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
+                                             normalize_signal, wire_to_f32)
+from nanodecoder_tpu_torch.models.model import encode
+from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
+from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=640)
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--h2d", default="int6")
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card)
+    with open(os.path.join(REPO, "bench_results", "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype=args.dtype),
+        decode=dataclasses.replace(cfg.decode, h2d_dtype=args.h2d,
+                                   batch_chunks=args.batch))
+    tr = Translator(load_params_npz(os.path.join(
+        REPO, "bench_results", "flagship_params.npz"), cfg.model), cfg)
+
+    spec, scfg = SimSpec(), cfg.signal
+    levels = spec.level_table()
+    rng = np.random.default_rng(1)
+    chunks, lengths = [], []
+    while sum(c.shape[0] for c in chunks) < args.batch:
+        _seq, sig = simulate_read(rng, 3000, spec, levels)
+        cb = chunk_signal(normalize_signal(sig, scfg.normalization, scfg.mad_scale,
+                                           scfg.clip_sigma),
+                          scfg.chunk_len, scfg.chunk_overlap, scfg.min_chunk_fill)
+        chunks.append(cb.chunks)
+        lengths.append(cb.lengths)
+    chunks = np.concatenate(chunks)[:args.batch]
+    lengths = np.concatenate(lengths)[:args.batch]
+    wire = convert_h2d(chunks, tr._h2d, scfg.clip_sigma)
+
+    @torch.inference_mode()
+    def run():
+        signal = wire_to_f32(torch.from_numpy(wire).to(tr.device), tr._h2d,
+                             scfg.clip_sigma, scfg.chunk_len)
+        lens = torch.from_numpy(lengths).to(tr.device)
+        marks[0].record()
+        memory, mem_lengths = encode(tr.params, cfg.model, signal, lens)
+        marks[1].record()
+        res = greedy_decode(tr.params, cfg.model, memory, mem_lengths)
+        marks[2].record()
+        return res
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    enc_ms, dec_ms = marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
+    print(f"batch {args.batch} {args.dtype}/{args.h2d}: wall {wall_ms:.1f} ms, "
+          f"encode {enc_ms:.2f} ms, decode {dec_ms:.2f} ms over {res.steps} steps "
+          f"({dec_ms / max(res.steps, 1):.3f} ms/step)")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if not kernels:
+        print("profiler recorded no device time")
+        return 1
+    print(f"profiled batch: wall {prof_wall_us / 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / prof_wall_us:.3f}, "
+          f"{len(kernels)} kernels ({len(kernels) / max(res.steps, 1):.1f} per step)")
+    by_name: dict[str, list[float]] = collections.defaultdict(list)
+    for e in kernels:
+        by_name[e.name].append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:args.top]
+    for name, ts in top:
+        print(f"  {sum(ts) / 1e3:9.2f} ms {len(ts):6d}x  {name[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,6 +23,11 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips when none is present")
+
+
 @pytest.fixture(scope="session")
 def tiny_config():
     from nanodecoder_tpu.config import tiny_test_config

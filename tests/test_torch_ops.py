@@ -1,0 +1,124 @@
+"""PyTorch port, kernels K1 (encoder attention) and K2 (cache block write).
+
+On the CPU the wrappers run their plain PyTorch versions, which are held
+against the JAX kernels in interpret mode.  The tests marked `cuda` hold
+the CUDA kernels against the plain versions on the card and skip where
+there is none.  This file imports JAX only inside the tests that compare
+with it, so the card's tests also run where JAX is absent:
+
+    python -m pytest tests/test_torch_ops.py -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nanodecoder_tpu_torch.ops import cache_update, encoder_attention
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _qkv(rng, b, s, h, dh):
+    qkv = rng.normal(size=(b, s, 3 * h * dh)).astype(np.float32)
+    lens = rng.integers(1, s + 1, size=b).astype(np.int32)
+    lens[0] = 0          # a batch-padding row
+    lens[-1] = s         # a full row
+    return qkv, lens
+
+
+@pytest.mark.parametrize("b,s,h,dh", [(3, 16, 2, 32), (4, 40, 2, 64), (2, 24, 1, 128)])
+def test_k1_plain_matches_jax_interpret(b, s, h, dh, rng_np):
+    import jax.numpy as jnp
+    from nanodecoder_tpu.ops.encoder_attention import flash_encoder_attention_qkv
+
+    qkv, lens = _qkv(rng_np, b, s, h, dh)
+    ref = np.asarray(flash_encoder_attention_qkv(
+        jnp.asarray(qkv), jnp.asarray(lens), h, interpret=True))
+    before = encoder_attention.flash_encoder_attention_qkv.launches
+    got = encoder_attention.flash_encoder_attention_qkv(
+        torch.from_numpy(qkv), torch.from_numpy(lens), h)
+    # The CPU path is the plain version and launches nothing.
+    assert encoder_attention.flash_encoder_attention_qkv.launches == before
+    assert got.shape == (b, s, h * dh) and got.dtype == torch.float32
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+    # The length-0 row attends uniformly: every query row is the mean of V.
+    v_mean = qkv[0, :, 2 * h * dh:].mean(axis=0)
+    np.testing.assert_allclose(got.numpy()[0], np.broadcast_to(v_mean, got.shape[1:]),
+                               atol=1e-5)
+
+
+def test_k1_wrapper_rejects_bad_inputs():
+    f = encoder_attention.flash_encoder_attention_qkv
+    lens = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        f(torch.zeros(2, 8, 100), lens, 2)          # 3D not divisible
+    with pytest.raises(ValueError):
+        f(torch.zeros(2, 8, 96), torch.zeros(3, dtype=torch.int32), 2)
+    with pytest.raises(ValueError):
+        f(torch.zeros(2, 8, 96, device="meta"), lens.to("meta"), 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_plain_matches_jax_interpret(dtype, rng_np):
+    import jax.numpy as jnp
+    from nanodecoder_tpu.ops.cache_update import write_cache_block as jax_write
+
+    b, t, c = 3, 24, 256
+    cache = rng_np.normal(size=(b, t, c)).astype(np.float32)
+    tc = torch.from_numpy(cache).to(getattr(torch, dtype))
+    jc = jnp.asarray(cache).astype(dtype)
+    for step in (0, 5, 8, 17, 23):
+        slab = rng_np.normal(size=(b, cache_update.BLOCK, c)).astype(np.float32)
+        ts = torch.from_numpy(slab).to(tc.dtype)
+        before = cache_update.write_cache_block.launches
+        tc = cache_update.write_cache_block(tc, ts, step)
+        assert cache_update.write_cache_block.launches == before
+        jc = jax_write(jc, jnp.asarray(slab).astype(dtype), jnp.int32(step),
+                       interpret=True)
+        got = tc.to(torch.float32).numpy()
+        assert got.tobytes() == np.asarray(jc.astype(jnp.float32)).tobytes(), step
+
+
+def test_k2_wrapper_contract():
+    f = cache_update.write_cache_block
+    cache = torch.zeros(2, 16, 4)
+    with pytest.raises(ValueError):
+        f(torch.zeros(2, 12, 4), torch.zeros(2, 8, 4), 0)   # T % 8 != 0
+    with pytest.raises(ValueError):
+        f(cache, torch.zeros(2, 8, 4), 16)                   # step out of range
+    with pytest.raises(TypeError):
+        f(cache, torch.zeros(2, 8, 4, dtype=torch.bfloat16), 0)
+    out = f(cache, torch.ones(2, 8, 4), 9)
+    assert out[:, 8:].eq(1).all() and out[:, :8].eq(0).all()
+    assert cache.eq(0).all()  # the plain version writes into a clone
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+def test_k1_kernel_matches_plain_on_card(cuda, dtype, atol):
+    qkv, lens = _qkv(np.random.default_rng(0), 6, 256, 2, 128)
+    q = torch.from_numpy(qkv).to(cuda, dtype)
+    n = torch.from_numpy(lens).to(cuda)
+    got = encoder_attention.flash_encoder_attention_qkv(q, n, 2)
+    ref = encoder_attention.encoder_attention_plain(q, n, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_kernel_bit_exact_on_card(cuda, dtype):
+    cache = torch.randn(5, 96, 256, device=cuda).to(dtype)
+    ref = cache.clone()
+    for step in range(0, 96, 7):
+        slab = torch.randn(5, 8, 256, device=cuda).to(dtype)
+        ref = cache_update.write_cache_block_plain(ref, slab, step)
+        cache = cache_update.write_cache_block(cache, slab, step)
+    torch.cuda.synchronize()
+    assert torch.equal(cache, ref)
