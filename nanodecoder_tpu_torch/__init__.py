@@ -1,6 +1,7 @@
 """nanodecoder_tpu_torch: the PyTorch + CUDA port of nanodecoder_tpu.
 
-Greedy basecalling of lean transformer models on one NVIDIA H100:
+Greedy and beam-search basecalling of lean transformer models on one
+NVIDIA H100:
 
     from nanodecoder_tpu_torch.config import Config
     from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
@@ -9,6 +10,9 @@ Greedy basecalling of lean transformer models on one NVIDIA H100:
     cfg = Config.from_json(open("bench_results/config.json").read())
     params = load_params_npz("bench_results/flagship_params.npz", cfg.model)
     call = Translator(params, cfg).basecall_read(read)   # device="cuda"
+
+cfg.decode.mode selects greedy or beam search.  The evaluate CLI:
+`python -m nanodecoder_tpu_torch.cli.evaluate --ckpt x.npz --simulate N --beam 5`.
 
 Entry points run on the card unless the caller passes device="cpu".
 The package imports torch, numpy and the standard library only.

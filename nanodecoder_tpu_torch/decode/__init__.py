@@ -1,1 +1,1 @@
-"""Greedy decoding and batch basecalling."""
+"""Greedy and beam-search decoding, penalties, and batch basecalling."""

@@ -1,0 +1,198 @@
+"""Beam-search decoding with staged cache growth.
+
+The port's counterpart of `nanodecoder_tpu.decode.beam`: the alive /
+finished formulation over one (B * K)-row batch (row b * K + j is beam j
+of chunk b).  Each step:
+
+  decode step -> kernel K3 (score add, top 2K over K * V, new alive
+  set, merged finished set) -> gather the self caches by beam origin.
+
+The loop runs on the host, one step per iteration, as in
+`decode.greedy`; before each step one host read checks the admissible
+early stop (the best score an alive beam can still reach against the
+worst kept finished score).  The self cache grows through the stages of
+`decode_stage_lengths` between steps.
+
+Sequences are kept as backpointers: every step writes the alive beams'
+(token, origin, log-prob, attention position) into one (B, K, T, 4) f32
+history, and the finished set keeps (eos step, parent beam, finished
+flag, EOS log-prob, EOS position) as (B, K, 5) f32 channels (integer
+channels are exact in f32).  `_backtrack` rebuilds the sequences after
+the loop.
+
+The coverage penalty (which needs the per-layer-cache decoder) and the
+path-indirection reorder (`DecodeConfig.path_reorder`) are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from nanodecoder_tpu_torch.config import DecodeConfig, ModelConfig
+from nanodecoder_tpu_torch.decode.greedy import decode_stage_lengths, grow_self_cache
+from nanodecoder_tpu_torch.decode.penalties import length_penalty
+from nanodecoder_tpu_torch.models.model import (decode_step, init_decode_state,
+                                                reorder_decode_state_beam)
+from nanodecoder_tpu_torch.ops.beam_step import NEG_INF, beam_advance
+from nanodecoder_tpu_torch.vocab import BOS_ID, EOS_ID, PAD_ID
+
+
+class BeamResult(NamedTuple):
+    tokens: torch.Tensor           # (B, K, max_len) int32, best first
+    lengths: torch.Tensor          # (B, K) int32, tokens emitted incl. EOS
+    scores: torch.Tensor           # (B, K) f32, length-penalized log-prob
+    finished: torch.Tensor         # (B, K) bool, hypothesis ended with EOS
+    token_log_probs: torch.Tensor  # (B, K, max_len) f32
+    attn_pos: torch.Tensor         # (B, K, max_len) int32, cross-attention argmax
+    steps: int                     # decode steps run
+
+
+def check_ported(dcfg: DecodeConfig) -> None:
+    """Raise for the beam options the port does not have yet."""
+    if dcfg.coverage_penalty != "none" and dcfg.beta != 0.0:
+        raise ValueError(f"coverage_penalty {dcfg.coverage_penalty!r} is not ported "
+                         "(it needs the per-layer-cache decoder)")
+    if dcfg.path_reorder:
+        raise ValueError("path_reorder is not ported; the port reorders the "
+                         "self cache physically")
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, C), idx (B, M) -> (B, M, C)."""
+    return x.gather(1, idx.long()[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def _backtrack(hist, eos_at, start_beam, emit_eos, fin_lp, fin_pos, tmax: int):
+    """Rebuild (tokens, log-probs, positions), each (B, S, tmax), from
+    the backpointer history.
+
+    For each output slot: eos_at is the position of its last token (EOS
+    for a finished hypothesis, one past the last token for an alive
+    fallback; -1 gives an all-PAD row), start_beam the alive beam its
+    path ends in, emit_eos whether position eos_at holds EOS, whose
+    log-prob and position (fin_lp, fin_pos) were kept at finalization.
+    A reverse loop over T of gathers, as the JAX package's reverse scan;
+    it starts at max(eos_at), since every later position is PAD."""
+    b, s = eos_at.shape
+    dev = hist.device
+    tokens = torch.full((b, s, tmax), PAD_ID, dtype=torch.int32, device=dev)
+    lps = torch.zeros((b, s, tmax), dtype=torch.float32, device=dev)
+    pos = torch.zeros((b, s, tmax), dtype=torch.int32, device=dev)
+    cur = start_beam.long()
+    t_last = int(eos_at.max()) if eos_at.numel() else -1
+    for t in range(min(t_last, tmax - 1), -1, -1):
+        r4 = _gather(hist[:, :, t, :], cur)
+        at_eos = (eos_at == t) & emit_eos
+        before = t < eos_at
+        tokens[:, :, t] = torch.where(at_eos, EOS_ID, torch.where(
+            before, r4[..., 0].to(torch.int32), PAD_ID)).to(torch.int32)
+        lps[:, :, t] = torch.where(at_eos, fin_lp, torch.where(before, r4[..., 2], 0.0))
+        pos[:, :, t] = torch.where(at_eos, fin_pos, torch.where(
+            before, r4[..., 3].to(torch.int32), 0)).to(torch.int32)
+        cur = torch.where(before, r4[..., 1].long(), start_beam.long())
+    return tokens, lps, pos
+
+
+@torch.inference_mode()
+def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
+                memory: torch.Tensor, mem_lengths: torch.Tensor,
+                mark: Callable[[str], None] | None = None) -> BeamResult:
+    """Beam-search decode a memory-bank batch (B, S, D).  `params` must
+    carry the serving fold (models.model.prepare_serving_params).
+    `mark`, if given, is called with the name of each phase as it starts
+    ("decode step", "advance + reorder", "backtrack"), for a profiler."""
+    check_ported(dcfg)
+    mark = mark or (lambda _name: None)
+    b = memory.shape[0]
+    k = dcfg.beam_size
+    v = cfg.vocab_size
+    tmax = cfg.max_decode_len
+    dev = memory.device
+    stages = (decode_stage_lengths(tmax, cfg.stage_schedule)
+              if cfg.staged_decode else [tmax])
+    state = init_decode_state(
+        params, dataclasses.replace(cfg, max_decode_len=stages[0]), memory,
+        mem_lengths, beam_k=k)
+
+    cur = torch.full((b * k,), BOS_ID, dtype=torch.int64, device=dev)
+    # Beam 0 starts at 0, the others at -1e9, so step 0 expands beam 0.
+    alive = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    alive[:, 0] = 0.0
+    hist = torch.zeros((b, k, tmax, 4), dtype=torch.float32, device=dev)
+    fin_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    fin_meta = torch.zeros((b, k, 5), dtype=torch.float32, device=dev)
+    fin_meta[..., 0] = -1.0                                  # eos step
+    # Scores at tmax are multiplied by the f32 reciprocal of the penalty,
+    # as XLA compiles the JAX package's division by this constant.
+    inv_max_pen = (1.0 / length_penalty(tmax, dcfg.length_penalty,
+                                        dcfg.alpha)).to(dev)
+
+    def done() -> bool:
+        # Log-probs only decrease, and for negative scores the penalty
+        # divisor is largest at tmax: no alive beam can beat this bound.
+        best_alive_bound = alive[:, 0] * inv_max_pen
+        worst_finished = torch.where(fin_meta[..., 2] > 0.5, fin_scores,
+                                     NEG_INF).min(dim=1).values
+        return bool((worst_finished >= best_alive_bound).all())
+
+    t = 0
+    for i, st in enumerate(stages):
+        scfg = dataclasses.replace(cfg, max_decode_len=st)
+        while t < st and not done():
+            mark("decode step")
+            log_probs, step_attn, state = decode_step(params, scfg, cur, state)
+            mark("advance + reorder")
+            if t < dcfg.min_len:  # EOS is no legal continuation yet
+                log_probs[:, EOS_ID] = NEG_INF
+            lp = log_probs.reshape(b, k, v)
+            pen = float(length_penalty(t + 1, dcfg.length_penalty, dcfg.alpha))
+            top_ids, alive, alive_idx, fin_scores, fin_idx = beam_advance(
+                alive, lp, fin_scores, pen, k, v, EOS_ID)
+            top_ids = top_ids.long()
+            tok = top_ids % v
+            origin = top_ids // v
+            is_eos = tok == EOS_ID
+            # Per candidate: its token's log-prob and its origin beam's
+            # attention position.
+            cand_lp = lp.reshape(b, k * v).gather(1, top_ids)
+            cand_pos = step_attn.reshape(b, k).gather(1, origin).to(torch.float32)
+            cand_pack = torch.stack([tok.to(torch.float32), origin.to(torch.float32),
+                                     cand_lp, cand_pos], dim=2)       # (B, 2K, 4)
+            alive_pack = _gather(cand_pack, alive_idx)                # (B, K, 4)
+            hist[:, :, t, :] = alive_pack
+            cur = alive_pack[..., 0].long().reshape(-1)
+            state = reorder_decode_state_beam(state, alive_pack[..., 1].long())
+            cand_meta = torch.stack([
+                torch.full((b, 2 * k), float(t), device=dev), origin.to(torch.float32),
+                is_eos.to(torch.float32), cand_lp, cand_pos], dim=2)  # (B, 2K, 5)
+            fin_meta = _gather(torch.cat([fin_meta, cand_meta], dim=1), fin_idx)
+            t += 1
+        if i + 1 < len(stages):
+            state = grow_self_cache(state, stages[i + 1])
+
+    mark("backtrack")
+    m_step = fin_meta[..., 0].to(torch.int32)
+    m_origin = fin_meta[..., 1].to(torch.int32)
+    m_flags = fin_meta[..., 2] > 0.5
+    # Rows with no finished hypothesis fall back to their best alive
+    # beams, penalized at tmax.
+    sel = ~m_flags.any(dim=1, keepdim=True)                    # (B, 1)
+    beam_ids = torch.arange(k, dtype=torch.int32, device=dev).expand(b, k)
+    eos_at = torch.where(sel, t, torch.where(m_flags, m_step, -1))
+    start_beam = torch.where(sel, beam_ids, m_origin)
+    emit_eos = ~sel & m_flags
+    tokens, token_lps, attn_pos = _backtrack(
+        hist, eos_at, start_beam, emit_eos,
+        torch.where(sel, 0.0, fin_meta[..., 3]),
+        torch.where(sel, 0, fin_meta[..., 4].to(torch.int32)), tmax)
+    return BeamResult(
+        tokens=tokens,
+        lengths=torch.where(sel, tmax, torch.where(m_flags, m_step + 1, 0)).to(torch.int32),
+        scores=torch.where(sel, alive * inv_max_pen, fin_scores),
+        finished=~sel & m_flags,
+        token_log_probs=token_lps,
+        attn_pos=attn_pos,
+        steps=t)

@@ -1,12 +1,14 @@
-"""Batch basecalling: host orchestration around encode + greedy decode.
+"""Batch basecalling: host orchestration around encode + decode.
 
-The port's counterpart of the greedy path of
-`nanodecoder_tpu.decode.translator`:
+The port's counterpart of `nanodecoder_tpu.decode.translator`, in
+greedy and beam mode:
   * normalize and chunk each read (io.signal) and pack the chunks into
-    fixed-size batches, padding the last with length-0 rows;
+    fixed-size batches (`DecodeConfig.effective_batch_chunks`), padding
+    the last with length-0 rows;
   * per batch: convert to the H2D wire on the host, unpack it on the
-    device, encode, decode greedily, and bring back a compact result
-    (int16 ids and positions, f16 log-probs);
+    device, encode, decode (greedy, or beam search keeping the best
+    hypothesis), and bring back a compact result (int16 ids and
+    positions, f16 log-probs);
   * expand tokens to bases with per-base Phred qualities and stitch the
     chunks back into reads.
 """
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from nanodecoder_tpu_torch.config import Config
+from nanodecoder_tpu_torch.decode.beam import beam_decode, check_ported
 from nanodecoder_tpu_torch.decode.greedy import greedy_decode
 from nanodecoder_tpu_torch.device import resolve_device
 from nanodecoder_tpu_torch.io.fast5 import RawRead
@@ -60,7 +63,8 @@ def _to_device(node: Any, dev: torch.device) -> Any:
 
 
 class Translator:
-    """Greedy basecaller over one model on one device.
+    """Basecaller over one model on one device, greedy or beam search
+    (`config.decode.mode`).
 
     params: the nested parameter dict of train.checkpoint.load_params_npz.
     The serving fold runs once here, on the device.  Counters for the
@@ -69,9 +73,13 @@ class Translator:
 
     def __init__(self, params: dict[str, Any], config: Config,
                  device: str | torch.device = "cuda"):
-        if config.decode.mode != "greedy":
-            raise ValueError(f"decode mode {config.decode.mode!r} is not ported; "
-                             "the port decodes greedily")
+        mode = config.decode.mode
+        if mode == "sample":
+            raise ValueError("decode mode 'sample' is not ported")
+        if mode not in ("greedy", "beam"):
+            raise ValueError(f"unknown decode mode {mode!r}")
+        if mode == "beam":
+            check_ported(config.decode)
         self.device = resolve_device(device)
         # Full-precision f32 products: a float32 conv would otherwise run
         # in TF32 through cuDNN, which the f32 goldens do not tolerate.
@@ -94,22 +102,56 @@ class Translator:
         return (tokens.to(torch.int16), lengths, lps.to(torch.float16), scores,
                 sample_pos.to(torch.int16))
 
-    @torch.inference_mode()
-    def _greedy_program(self, wire: np.ndarray, lengths: np.ndarray):
-        cfg = self.config.model
+    def _encode(self, wire: np.ndarray, lengths: np.ndarray):
         signal = wire_to_f32(torch.from_numpy(wire).to(self.device), self._h2d,
                              self.config.signal.clip_sigma,
                              self.config.signal.chunk_len)
         lens = torch.from_numpy(lengths.astype(np.int32)).to(self.device)
-        memory, mem_lengths = encode(self.params, cfg, signal, lens)
-        res = greedy_decode(self.params, cfg, memory, mem_lengths,
-                            min_len=self.config.decode.min_len)
+        return encode(self.params, self.config.model, signal, lens)
+
+    def _beam(self, wire: np.ndarray, lengths: np.ndarray):
+        res = beam_decode(self.params, self.config.model, self.config.decode,
+                          *self._encode(wire, lengths))
         self.decode_steps += res.steps
+        return res
+
+    @torch.inference_mode()
+    def _decode_program(self, wire: np.ndarray, lengths: np.ndarray):
+        """Encode and decode one batch; the best hypothesis of each chunk
+        in beam mode, with its per-token log-probs and positions."""
+        cfg = self.config.model
+        if self.config.decode.mode == "beam":
+            res = self._beam(wire, lengths)
+            tokens, tok_lengths, lps, scores, attn_pos = (
+                res.tokens[:, 0], res.lengths[:, 0], res.token_log_probs[:, 0],
+                res.scores[:, 0], res.attn_pos[:, 0])
+        else:
+            res = greedy_decode(self.params, cfg, *self._encode(wire, lengths),
+                                min_len=self.config.decode.min_len)
+            self.decode_steps += res.steps
+            tokens, tok_lengths, lps, scores, attn_pos = (
+                res.tokens, res.lengths, res.token_log_probs, res.scores,
+                res.attn_pos)
         # Encoder position -> sample position (center of the conv window).
         ds = cfg.time_downsample
-        sample_pos = res.attn_pos * ds + ds // 2
-        return self._compact_d2h(res.tokens, res.lengths, res.token_log_probs,
-                                 res.scores, sample_pos)
+        sample_pos = attn_pos * ds + ds // 2
+        return self._compact_d2h(tokens, tok_lengths, lps, scores, sample_pos)
+
+    def decode_nbest(self, chunks: np.ndarray, lengths: np.ndarray):
+        """Beam mode's n-best hypotheses of each chunk, all chunks in one
+        batch: (tokens (N, n_best, T), lengths (N, n_best), scores
+        (N, n_best)) as numpy."""
+        dcfg = self.config.decode
+        if dcfg.mode != "beam":
+            raise ValueError("decode_nbest requires beam mode")
+        wire = convert_h2d(np.asarray(chunks, np.float32), self._h2d,
+                           self.config.signal.clip_sigma)
+        with torch.inference_mode():
+            res = self._beam(wire, np.asarray(lengths))
+        self.batches += 1
+        nb = min(dcfg.n_best, dcfg.beam_size)
+        return (res.tokens[:, :nb].cpu().numpy(), res.lengths[:, :nb].cpu().numpy(),
+                res.scores[:, :nb].cpu().numpy())
 
     def decode_chunk_batch(self, chunks: np.ndarray, lengths: np.ndarray):
         """chunks: (N, chunk_len) -> (tokens, tok_lengths, token_lps,
@@ -127,7 +169,7 @@ class Translator:
                 blen = np.concatenate([blen, np.zeros((bsz - real,), blen.dtype)])
             wire = convert_h2d(np.asarray(batch, np.float32), self._h2d,
                                self.config.signal.clip_sigma)
-            results = self._greedy_program(wire, blen)
+            results = self._decode_program(wire, blen)
             self.batches += 1
             for acc, r in zip(outs, results):
                 acc.append(r[:real].cpu().numpy())

@@ -3,17 +3,21 @@
 The port's counterpart of the serving path in
 `nanodecoder_tpu.models.decoder`: `init_transformer_cache` (lean branch),
 `_ln_normalize`, `_fold_ln_dense`, `fold_lean_params` and
-`_transformer_decoder_step_lean`.
+`_transformer_decoder_step_lean`, with the beam-grouped cross attention
+of `_attn_step`.
 
-Decode state (a dict, like the JAX package's):
+Decode state (a dict, like the JAX package's), for B chunks decoded in
+R = B * beam_k rows (row b * beam_k + j is beam j of chunk b):
   layers:        per layer {cross_k, cross_v} (B, S, Hk, Dh), projected once
   cross_mask:    (B, 1, 1, S) bool
   mem_lengths:   (B,) int32
   step:          host int, the position being decoded
-  self_kv:       (B, T, C_pad) every layer's [K|V] row for each position,
+  self_kv:       (R, T, C_pad) every layer's [K|V] row for each position,
                  C = layers * 2 * Hk * Dh padded up to a multiple of 128
-  self_kv_stage: (B, 8, C_pad) rows of the aligned 8-step block holding
+  self_kv_stage: (R, 8, C_pad) rows of the aligned 8-step block holding
                  `step`, flushed into self_kv by kernel K2 every step
+
+Cross K/V and masks stay per chunk: the beams of a chunk share them.
 
 The step updates `self_kv` (on the card) and `self_kv_stage` in place
 and returns the new state dict.
@@ -21,6 +25,7 @@ and returns the new state dict.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -32,9 +37,10 @@ from nanodecoder_tpu_torch.ops.cache_update import BLOCK, write_cache_block
 
 def init_transformer_cache(p, cfg: ModelConfig, memory: torch.Tensor,
                            mem_lengths: torch.Tensor, batch: int,
-                           dtype: torch.dtype) -> dict[str, Any]:
-    """Project the cross K/V of every layer once and allocate the zeroed
-    combined self cache of length max_decode_len."""
+                           dtype: torch.dtype, beam_k: int = 1) -> dict[str, Any]:
+    """Project the cross K/V of every layer once (per chunk) and allocate
+    the zeroed combined self cache of length max_decode_len for
+    batch * beam_k decode rows."""
     tmax = cfg.max_decode_len
     hk, dh = cfg.dec_kv, cfg.d_model // cfg.dec_heads
     if tmax % BLOCK:
@@ -53,8 +59,9 @@ def init_transformer_cache(p, cfg: ModelConfig, memory: torch.Tensor,
         "cross_mask": nn.length_mask(mem_lengths, s)[:, None, None, :],
         "mem_lengths": mem_lengths.to(torch.int32),
         "step": 0,
-        "self_kv": torch.zeros((batch, tmax, c_pad), dtype=dtype, device=dev),
-        "self_kv_stage": torch.zeros((batch, BLOCK, c_pad), dtype=dtype,
+        "self_kv": torch.zeros((batch * beam_k, tmax, c_pad), dtype=dtype,
+                               device=dev),
+        "self_kv_stage": torch.zeros((batch * beam_k, BLOCK, c_pad), dtype=dtype,
                                      device=dev),
     }
 
@@ -107,6 +114,32 @@ def fold_lean_params(p_dec, p_gen, cfg: ModelConfig, dtype: torch.dtype):
     return {"layers": layers, "gen_w": gw, "gen_b": gb}
 
 
+def _cross_attn_step(p, n_heads: int, h: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, mask: torch.Tensor):
+    """One-token cross attention of h (R, 1, D) against the per-chunk
+    cache (B, S, Hk, Dh).  R = B: nn.mha_step.  R = B * group (beam
+    decode): the `group` consecutive rows of a chunk share its cache row,
+    which is never repeated; only the query carries the beam dim.
+    Returns (out (R, 1, D), probs (R, H, 1, S) f32)."""
+    b, s, hk, dh = k_cache.shape
+    group = h.shape[0] // b
+    if group == 1:
+        return nn.mha_step(p, n_heads, h, k_cache, v_cache, mask)
+    r = n_heads // hk
+    q5 = nn.dense(p["q"], h).reshape(b, group, hk, r, dh)
+    scores = torch.einsum("bgkrd,btkd->bgkrt", q5.to(torch.float32),
+                          k_cache.to(torch.float32))
+    # The JAX branch divides by sqrt(dh), a constant that XLA turns into
+    # a multiply by its f32 reciprocal: the same scale as attention_core.
+    scores = scores * (1.0 / math.sqrt(dh))
+    scores = torch.where(mask.reshape(b, 1, 1, 1, s), scores, torch.tensor(
+        nn.NEG_INF, dtype=scores.dtype, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bgkrt,btkd->bgkrd", probs.to(v_cache.dtype), v_cache)
+    out = nn.dense(p["o"], ctx.reshape(b * group, 1, n_heads * dh))
+    return out, probs.reshape(b * group, n_heads, 1, s)
+
+
 def _transformer_decoder_step_lean(lean, cfg: ModelConfig, y1: torch.Tensor,
                                    state: dict[str, Any]):
     """One-token decode over folded weights.  y1: (B, 1, D) embedded
@@ -142,9 +175,9 @@ def _transformer_decoder_step_lean(lean, cfg: ModelConfig, y1: torch.Tensor,
                                  v_use, self_mask)
         y1 = y1 + nn.dense(ll["self_o"], nn._merge_heads(a))
         h = _ln_normalize(y1)
-        a, probs = nn.mha_step({"q": ll["cross_q"], "o": ll["cross_o"]}, nh, h,
-                               cache["cross_k"], cache["cross_v"],
-                               state["cross_mask"])
+        a, probs = _cross_attn_step({"q": ll["cross_q"], "o": ll["cross_o"]}, nh,
+                                    h, cache["cross_k"], cache["cross_v"],
+                                    state["cross_mask"])
         if i == n_layers - 1:
             pm = probs[:, :, 0, :].to(torch.float32).mean(dim=1)
             amax = pm.argmax(dim=-1).to(torch.int32)

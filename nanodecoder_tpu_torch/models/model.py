@@ -52,9 +52,26 @@ def encode(params, cfg: ModelConfig, signal: torch.Tensor,
 
 
 def init_decode_state(params, cfg: ModelConfig, memory: torch.Tensor,
-                      mem_lengths: torch.Tensor) -> dict[str, Any]:
+                      mem_lengths: torch.Tensor, beam_k: int = 1) -> dict[str, Any]:
+    """Decode state for the (B, S, D) memory bank.  beam_k > 1: B * beam_k
+    chunk-major decode rows sharing each chunk's cross K/V."""
     return dec.init_transformer_cache(params["decoder"], cfg, memory,
-                                      mem_lengths, memory.shape[0], memory.dtype)
+                                      mem_lengths, memory.shape[0], memory.dtype,
+                                      beam_k=beam_k)
+
+
+def reorder_decode_state_beam(state: dict[str, Any],
+                              beam_origin: torch.Tensor) -> dict[str, Any]:
+    """Gather the path-dependent self caches by beam origin.
+    beam_origin: (B, K) int, the within-chunk origin beam of each new
+    beam.  Cross K/V and masks are beam-invariant and stay as they are.
+    The gathers make fresh tensors, so the decode step's in-place writes
+    (K2 into self_kv, the staged block) never reach an earlier alias."""
+    bsz, k = beam_origin.shape
+    flat = (torch.arange(bsz, device=beam_origin.device)[:, None] * k
+            + beam_origin.long()).reshape(-1)
+    return {**state, "self_kv": state["self_kv"].index_select(0, flat),
+            "self_kv_stage": state["self_kv_stage"].index_select(0, flat)}
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,

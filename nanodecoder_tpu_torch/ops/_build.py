@@ -34,6 +34,12 @@ _SIGNATURES = {
                                  _int, _float, _vp],
     # cache, slab, batch, T, C, elem_bytes, step, stream
     "nd_write_cache_block": [_vp, _vp, _int, _int, _int, _int, _int, _vp],
+    # alive, log_probs, fin, pen, batch, k, v, eos_id, top_ids, alive_s,
+    # alive_sel, fin_s, fin_sel, stream
+    "nd_beam_advance": [_vp, _vp, _vp, _float, _int, _int, _int, _int, _vp, _vp,
+                        _vp, _vp, _vp, _vp],
+    # alive, log_probs, batch, k, v, n_out, scores, ids, stream
+    "nd_beam_topk": [_vp, _vp, _int, _int, _int, _int, _vp, _vp, _vp],
 }
 
 

@@ -1,13 +1,17 @@
 """Where one serving batch of the PyTorch port spends its time, on a card.
 
-    python3 -m nanodecoder_tpu_torch.profile_serving [--batch 640] [--dtype bfloat16]
+    python3 -m nanodecoder_tpu_torch.profile_serving [--mode greedy|beam]
+        [--batch N] [--dtype bfloat16]
 
-Fills one batch of `--batch` chunks from simulated reads (seed 1), runs
-it once to warm up, then times it with CUDA events split into wire +
-encode and greedy decode, and profiles it with torch.profiler: device
-busy time (the sum of kernel times; one stream, so kernels never
-overlap), the device's idle share of the batch, and the kernels that
-take the most device time.  Needs one CUDA card.
+Fills one batch of `--batch` chunks from simulated reads (seed 1; by
+default 640 chunks greedy, 256 chunks in beam mode, with the config's
+beam size 5), runs it
+once to warm up, then times it with CUDA events split into phases
+(greedy: encode, decode; beam: encode, decode steps, advance + reorder,
+backtrack), and profiles it with torch.profiler: device busy time (the
+sum of kernel times; one stream, so kernels never overlap), the
+device's idle share of the batch, and the kernels that take the most
+device time.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from torch.autograd import DeviceType
 
 from nanodecoder_tpu_torch.config import Config
+from nanodecoder_tpu_torch.decode.beam import beam_decode
 from nanodecoder_tpu_torch.decode.greedy import greedy_decode
 from nanodecoder_tpu_torch.decode.translator import Translator
 from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
@@ -38,7 +43,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=640)
+    ap.add_argument("--mode", choices=["greedy", "beam"], default="greedy")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="chunks per batch (default 640 greedy, 256 beam)")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--h2d", default="int6")
     ap.add_argument("--top", type=int, default=12)
@@ -50,12 +57,14 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card)
+    args.batch = args.batch or (256 if args.mode == "beam" else 640)
     with open(os.path.join(REPO, "bench_results", "config.json")) as f:
         cfg = Config.from_json(f.read())
     cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, compute_dtype=args.dtype),
-        decode=dataclasses.replace(cfg.decode, h2d_dtype=args.h2d,
-                                   batch_chunks=args.batch))
+        decode=dataclasses.replace(cfg.decode, mode=args.mode, h2d_dtype=args.h2d,
+                                   batch_chunks=args.batch,
+                                   batch_chunks_beam=args.batch))
     tr = Translator(load_params_npz(os.path.join(
         REPO, "bench_results", "flagship_params.npz"), cfg.model), cfg)
 
@@ -74,29 +83,46 @@ def main() -> int:
     lengths = np.concatenate(lengths)[:args.batch]
     wire = convert_h2d(chunks, tr._h2d, scfg.clip_sigma)
 
+    marks: list[tuple[str, torch.cuda.Event]] = []
+
+    def mark(name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
     @torch.inference_mode()
     def run():
+        marks.clear()
         signal = wire_to_f32(torch.from_numpy(wire).to(tr.device), tr._h2d,
                              scfg.clip_sigma, scfg.chunk_len)
         lens = torch.from_numpy(lengths).to(tr.device)
-        marks[0].record()
+        mark("encode")
         memory, mem_lengths = encode(tr.params, cfg.model, signal, lens)
-        marks[1].record()
-        res = greedy_decode(tr.params, cfg.model, memory, mem_lengths)
-        marks[2].record()
+        if args.mode == "beam":
+            res = beam_decode(tr.params, cfg.model, cfg.decode, memory, mem_lengths,
+                              mark=mark)
+        else:
+            mark("decode")
+            res = greedy_decode(tr.params, cfg.model, memory, mem_lengths)
+        mark("end")
         return res
 
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    enc_ms, dec_ms = marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
-    print(f"batch {args.batch} {args.dtype}/{args.h2d}: wall {wall_ms:.1f} ms, "
-          f"encode {enc_ms:.2f} ms, decode {dec_ms:.2f} ms over {res.steps} steps "
+    phase_ms: dict[str, float] = collections.defaultdict(float)
+    for (name, start), (_next, end) in zip(marks, marks[1:]):
+        phase_ms[name] += start.elapsed_time(end)
+    rows = args.batch * (cfg.decode.beam_size if args.mode == "beam" else 1)
+    dec_ms = sum(ms for name, ms in phase_ms.items() if name != "encode")
+    print(f"{args.mode} batch {args.batch} chunks ({rows} rows) {args.dtype}/{args.h2d}: "
+          f"wall {wall_ms:.1f} ms, decode {dec_ms:.2f} ms over {res.steps} steps "
           f"({dec_ms / max(res.steps, 1):.3f} ms/step)")
+    for name, ms in phase_ms.items():
+        print(f"  {name:18s} {ms:9.2f} ms")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

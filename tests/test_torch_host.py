@@ -250,6 +250,7 @@ def test_chip_smoke_fails_outside_checkout(tmp_path, monkeypatch, capsys):
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
+    from nanodecoder_tpu_torch.cli import evaluate
     from nanodecoder_tpu_torch.config import Config
     from nanodecoder_tpu_torch.decode.translator import Translator
     from nanodecoder_tpu_torch.device import resolve_device
@@ -262,4 +263,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     params = load_params_npz(NPZ, cfg.model, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Translator(params, cfg)
+    beam = dataclasses.replace(cfg, decode=dataclasses.replace(cfg.decode, mode="beam"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Translator(params, beam)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate.main(["--ckpt", NPZ, "--simulate", "1", "--beam", "5"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,4 +1,6 @@
-"""PyTorch port, kernels K1 (encoder attention) and K2 (cache block write).
+"""PyTorch port, kernels K1 (encoder attention) and K2 (cache block write),
+and the card's tests of K3 (beam advance) and K7 (beam top-k), whose
+CPU tests against the JAX package are in test_torch_beam.py.
 
 On the CPU the wrappers run their plain PyTorch versions, which are held
 against the JAX kernels in interpret mode.  The tests marked `cuda` hold
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from nanodecoder_tpu_torch.ops import cache_update, encoder_attention
+from nanodecoder_tpu_torch.ops import beam_step, cache_update, encoder_attention
 
 
 @pytest.fixture()
@@ -122,3 +124,42 @@ def test_k2_kernel_bit_exact_on_card(cuda, dtype):
         cache = cache_update.write_cache_block(cache, slab, step)
     torch.cuda.synchronize()
     assert torch.equal(cache, ref)
+
+
+def _beam_inputs_on(dev, case, b=256, k=5, v=344, seed=0):
+    """Flagship-shaped beam step inputs: random scores with some EOS-heavy
+    rows, the first step (alive [0, -1e9, ...], nothing finished), or
+    all ties."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lp = torch.log_softmax(2 * torch.randn(b, k, v, device=dev, generator=gen), -1)
+    alive = -torch.rand(b, k, device=dev, generator=gen).mul(9).sort(dim=1,
+                                                                   descending=True).values
+    fin = torch.full((b, k), -1e9, device=dev)
+    fin[:, :2] = -torch.rand(b, 2, device=dev, generator=gen)
+    if case == "step0":
+        alive = torch.full((b, k), -1e9, device=dev)
+        alive[:, 0] = 0.0
+        fin = torch.full((b, k), -1e9, device=dev)
+    elif case == "ties":
+        lp, alive = torch.zeros_like(lp), torch.zeros_like(alive)
+    return alive, lp, fin
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "step0", "ties"])
+def test_k3_k7_kernels_bit_exact_on_card(cuda, case):
+    alive, lp, fin = _beam_inputs_on(cuda, case)
+    lp[:8, :, 2] = -0.05  # EOS-heavy rows
+    got = beam_step.beam_advance(alive, lp, fin, 3.5, 5, 344, 2)
+    ref = beam_step.beam_advance_plain(alive, lp, fin, 3.5, 5, 344, 2)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(_bits(g), _bits(r))
+    s, i = beam_step.beam_topk(alive, lp, 10)
+    rs, ri = beam_step.beam_topk_plain(alive, lp, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(s), _bits(rs)) and torch.equal(i, ri)
