@@ -8,11 +8,15 @@ this file; the first phase builds the kernels from nanodecoder_tpu_torch/csrc.
 Phases, in order; any failure exits non-zero before the last line:
 
   1. the card's name and power limit (nvidia-smi) and the kernel build;
-  2. kernels: K1 (encoder attention) in f32 and bf16, K2 (cache block
-     write, bit-exact), K3 (beam advance) and K7 (beam top-k), both
-     bit-exact in f32, against their plain PyTorch versions at the
-     flagship's main-path shapes, with the kernel's, the plain version's
-     and one PyTorch library call's time (CUDA events, median of 25);
+  2. kernels, each against its plain PyTorch version at the main path's
+     shapes, with the kernel's, the plain version's and one PyTorch
+     library call's time (CUDA events, median of 25) beside its bound:
+     K1 (encoder attention on the QKV slab), K5 and K6 (the same on
+     separate q/k/v and on the (B, S, H, Dh) layout) in f32 and bf16;
+     K2 (cache block write, bit-exact) at the MQA and the MHA self-cache
+     widths; K3 (beam advance) and K7 (beam top-k), bit-exact in f32;
+     K4a (decode attention, B 640) and K4b (grouped, B 256 x G 5) in
+     f32, bf16 and int8;
   3. golden: f32 compute, float32 wire, the flagship checkpoint, the 3
      golden reads (identity to the stored string must reach 0.99);
   4. serving: bf16 compute, int6 wire, batch_chunks 640, 100 simulated
@@ -23,9 +27,17 @@ Phases, in order; any failure exits non-zero before the last line:
   6. beam serving: bf16, int6 wire, beam 5, one full batch of 256 chunks
      (1280 decode rows), then the first 20 reads of phase 4 (mean
      identity must reach 0.90);
-  7. a `kernels` JSON line: launches during the greedy path (phases 3-4)
-     and the beam path (phases 5-6), errors, times;
-  8. the last line: {"ok": true, "device": {...}}.
+  7. lean MHA: the flagship in MHA form (every decoder K/V projection
+     tiled across the 8 heads, the same function) through K4a/K4b:
+     golden f32 (0.99), 20 reads bf16/int6 (0.90), the same with int8
+     cross caches (0.90, the gap to exact printed), beam 5 f32 on golden
+     read 101 (0.99 to phase 5's card call) and one full beam batch;
+  8. unfolded MHA (lean_step false: K5 encoder, per-layer self caches):
+     golden f32 (0.99), 20 reads bf16/int6 (0.90), beam 5 f32 on golden
+     read 101 (0.99 to phase 5's card call);
+  9. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+     beam, 5-6; mha, 7; unfolded, 8), errors, times;
+ 10. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -52,10 +64,12 @@ GOLDEN_READS = [(101, 900), (202, 2500), (303, 5200)]  # (seed, n_bases)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
-# Kernel-vs-plain tolerances.  f32: both sides accumulate in f32 in
-# another order.  bf16: one bf16 rounding step (2^-8 relative) on an
-# output or on a probability that sits at a rounding boundary.
+# Kernel-vs-plain tolerances (atol, rtol).  f32: both sides accumulate in
+# f32 in another order.  bf16: one bf16 rounding step (2^-8 relative) on
+# an output or on a probability that sits at a rounding boundary.  int8:
+# f32 sums of integers up to 127 in another order, then scaled.
 K1_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (3e-2, 2e-2)}
+K4_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2), "int8": (2e-5, 1e-5)}
 
 
 class SmokeError(RuntimeError):
@@ -111,7 +125,9 @@ def phase_build() -> None:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
 
-def phase_k1(dtype, dev, rng) -> dict:
+def phase_enc_attn(name, dtype, dev, rng) -> dict:
+    """K1 (QKV slab), K5 (separate q/k/v) or K6 ((B, S, H, Dh)) at the
+    flagship encoder's shape."""
     import torch.nn.functional as F
 
     from nanodecoder_tpu_torch.ops import encoder_attention as ea
@@ -122,22 +138,31 @@ def phase_k1(dtype, dev, rng) -> dict:
     lengths = rng.integers(1, s + 1, size=b).astype(np.int32)
     lengths[:3] = (0, 100, s)  # a padding row, a partial row, a full row
     lens = torch.from_numpy(lengths).to(dev)
-    got = ea.flash_encoder_attention_qkv(qkv, lens, h)
-    ref = ea.encoder_attention_plain(qkv, lens, h)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].contiguous() for i in range(3))
+    heads = [x.view(b, s, h, dh) for x in (q, k, v)]
+    if name == "K1":
+        run = lambda: ea.flash_encoder_attention_qkv(qkv, lens, h)  # noqa: E731
+        plain = lambda: ea.encoder_attention_plain(qkv, lens, h)  # noqa: E731
+    elif name == "K5":
+        run = lambda: ea.flash_encoder_attention_nld(q, k, v, lens, h)  # noqa: E731
+        plain = lambda: ea.encoder_attention_nld_plain(q, k, v, lens, h)  # noqa: E731
+    else:
+        run = lambda: ea.flash_encoder_attention(*heads, lens)  # noqa: E731
+        plain = lambda: ea.encoder_attention_heads_plain(*heads, lens)  # noqa: E731
+    got, ref = run(), plain()
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), f"K1 {dtype}: non-finite output")
+    check(bool(torch.isfinite(got).all()), f"{name} {dtype}: non-finite output")
     err = (got.float() - ref.float()).abs()
     atol, rtol = K1_TOL[dtype]
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
     max_err = float(err.max())
-    check(ok, f"K1 {dtype}: max |kernel - plain| {max_err} over tolerance")
+    check(ok, f"{name} {dtype}: max |kernel - plain| {max_err} over tolerance")
 
-    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, s, h, dh).transpose(1, 2)
-               .contiguous() for i in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in heads)
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    ms = cuda_ms(lambda: ea.flash_encoder_attention_qkv(qkv, lens, h))
-    plain_ms = cuda_ms(lambda: ea.encoder_attention_plain(qkv, lens, h))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
     # Work this data needs: every query row; keys up to each row's length
     # (all S for a length-0 row, whose attention is uniform).
     n_eff = np.where(lengths > 0, lengths, s).astype(np.float64)
@@ -145,16 +170,110 @@ def phase_k1(dtype, dev, rng) -> dict:
     nbytes = qkv.numel() * qkv.element_size() + got.numel() * got.element_size() \
         + lens.numel() * 4
     bms, by = bound(nbytes, flops, dtype)
-    print(f"K1 {str(dtype)[6:]}: max_abs_err {max_err:.3g}  kernel {ms:.4f} ms  "
+    print(f"{name} {str(dtype)[6:]}: max_abs_err {max_err:.3g}  kernel {ms:.4f} ms  "
           f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
-def phase_k2(dtype, dev) -> dict:
+def head_sum_gap(q, k, lens, heads, group, row, t_a, t_b, k_scale=None) -> float:
+    """Relative gap, in f64, between the head-summed attention
+    probabilities of query row `row` at positions t_a and t_b."""
+    bi = row // group
+    qq = q[row].double() * (k_scale[bi].double() if k_scale is not None else 1.0)
+    t, d = k.shape[1], k.shape[2]
+    dh = d // heads
+    s = (k[bi].double().view(t, heads, dh) * qq.view(1, heads, dh)).sum(-1) / dh ** 0.5
+    n = int(lens[bi])
+    if n > 0:
+        s[n:] = -1e9
+    p = torch.softmax(s, dim=0).sum(dim=1)
+    return float((p[t_a] - p[t_b]).abs() / p.max())
+
+
+def phase_k4(kind: str, group: int, dev, rng) -> dict:
+    """K4a (group 1, B 640) or K4b (B 256, group 5): T 256, D 256, 8 heads
+    of 32, the MHA flagship's cross attention; kind float32, bfloat16 or
+    int8 (int8 caches, f32 queries)."""
+    import torch.nn.functional as F
+
+    from nanodecoder_tpu_torch.ops import attention as at
+
+    b = 640 if group == 1 else 256
+    t, h, dh = 256, 8, 32
+    d = h * dh
+    qdt = torch.float32 if kind == "int8" else getattr(torch, kind)
+    q = torch.from_numpy(rng.standard_normal((b * group, d), np.float32)).to(dev, qdt)
+    kf, vf = (torch.from_numpy(rng.standard_normal((b, t, d), np.float32)).to(dev)
+              for _ in range(2))
+    # Cross attention reads encoder lengths: most chunks full, the last
+    # chunk of a read partial, batch padding rows 0.
+    lengths = np.full(b, t, np.int32)
+    lengths[3::16] = rng.integers(1, t + 1, size=len(lengths[3::16]))
+    lengths[:3] = (0, 100, t)
+    lens = torch.from_numpy(lengths).to(dev)
+    if kind == "int8":
+        (k, ks), (v, vs) = at.quantize_cache_int8(kf), at.quantize_cache_int8(vf)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v, scales = kf.to(qdt), vf.to(qdt), {}
+    if group == 1:
+        name = "K4a"
+        run = lambda: at.decode_attention(q, k, v, lens, h, **scales)  # noqa: E731
+        plain = lambda: at.decode_attention_plain(q, k, v, lens, h, **scales)  # noqa: E731
+    else:
+        name = "K4b"
+        run = lambda: at.decode_attention_grouped(  # noqa: E731
+            q, k, v, lens, h, group, **scales)
+        plain = lambda: at.decode_attention_grouped_plain(  # noqa: E731
+            q, k, v, lens, h, group, **scales)
+    (out, amax), (rout, ramax) = run(), plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{name} {kind}: non-finite output")
+    err = (out.float() - rout.float()).abs()
+    atol, rtol = K4_TOL[kind]
+    max_err = float(err.max())
+    check(bool((err <= atol + rtol * rout.float().abs()).all()),
+          f"{name} {kind}: max |kernel - plain| {max_err} over tolerance")
+    # Attention positions: equal, except at a near-tie of the head sums
+    # (the two sides sum exp in another order).
+    bad = (amax != ramax).nonzero()[:, 0].tolist()
+    check(len(bad) <= max(1, amax.numel() // 1000),
+          f"{name} {kind}: {len(bad)} attention positions differ")
+    for row in bad:
+        gap = head_sum_gap(q.float(), k.float(), lens, h, group, row, int(amax[row]),
+                           int(ramax[row]), scales.get("k_scale"))
+        check(gap < 1e-5, f"{name} {kind}: row {row} position differs, gap {gap}")
+
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain)
+    lib_ms = None
+    if kind != "int8":  # no library call takes int8 caches
+        qt = q.view(b, group, h, dh).transpose(1, 2).contiguous()
+        kt, vt = (x.view(b, t, h, dh).transpose(1, 2).contiguous() for x in (k, v))
+        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                attn_mask=mask))
+    # Work this data needs: the rows below each chunk's length (all T for
+    # a length-0 row), read once for the chunk's `group` queries.
+    n_eff = float(np.where(lengths > 0, lengths, t).astype(np.float64).sum())
+    nbytes = 2 * n_eff * d * k.element_size() + 2 * q.numel() * q.element_size() \
+        + lens.numel() * 4 + amax.numel() * 4 + (2 * b * d * 4 if scales else 0)
+    flops = 4.0 * group * n_eff * d
+    bms, by = bound(nbytes, flops, torch.float32 if kind == "int8" else qdt)
+    lib = f"sdpa {lib_ms:.4f} ms" if lib_ms is not None else "sdpa n/a (int8)"
+    print(f"{name} {kind} B{b} G{group}: max_abs_err {max_err:.3g}, {len(bad)} near-tie "
+          f"positions  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {lib}  bound "
+          f"{bms:.4f} ms ({by})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_k2(dtype, dev, c=256) -> dict:
+    """K2 at the MQA (C 256) or the MHA (C 1536) self-cache width."""
     from nanodecoder_tpu_torch.ops import cache_update as cu
 
-    b, t, c = 640, 96, 256
+    b, t = 640, 96
     gen = torch.Generator(device=dev).manual_seed(2)
     cache = torch.randn(b, t, c, device=dev, generator=gen).to(dtype)
     ref = cache.clone()
@@ -170,7 +289,7 @@ def phase_k2(dtype, dev) -> dict:
     plain_ms = cuda_ms(lambda: cu.write_cache_block_plain(cache, slab, step))
     lib_ms = cuda_ms(lambda: cache[:, t0:t0 + cu.BLOCK].copy_(slab))
     bms, by = bound(2 * slab.numel() * slab.element_size(), 0.0, dtype)
-    print(f"K2 {str(dtype)[6:]}: bit-exact over {t} steps  kernel {ms:.4f} ms  "
+    print(f"K2 {str(dtype)[6:]} C{c}: bit-exact over {t} steps  kernel {ms:.4f} ms  "
           f"plain {plain_ms:.4f} ms  copy_ {lib_ms:.4f} ms  bound {bms:.4f} ms ({by})")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
@@ -256,15 +375,31 @@ def phase_k7(dev) -> dict:
             "bound_by": by, "library_ms": lib_ms}
 
 
-def load_config(compute_dtype: str, h2d: str, batch_chunks: int, **decode):
+def load_config(compute_dtype: str, h2d: str, batch_chunks: int, model=None,
+                **decode):
+    """The flagship config with these serving settings; `model` holds
+    ModelConfig overrides (the MHA form, lean_step, int8 caches)."""
     from nanodecoder_tpu_torch.config import Config
 
     with open(CONFIG) as f:
         cfg = Config.from_json(f.read())
     return dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, compute_dtype=compute_dtype),
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype=compute_dtype,
+                                       **(model or {})),
         decode=dataclasses.replace(cfg.decode, h2d_dtype=h2d,
                                    batch_chunks=batch_chunks, **decode))
+
+
+def expand_kv_heads(flat: dict, heads: int) -> dict:
+    """Flat MQA params -> the same model in MHA form: every decoder K/V
+    projection (self and cross, w (D, Dh) and b (Dh,)) tiled across the
+    heads.  The MHA model computes the same function."""
+    out = dict(flat)
+    for key, arr in flat.items():
+        if key.startswith("decoder/layers/") and any(
+                f"_attn/{p}/" in key for p in "kv"):
+            out[key] = np.tile(arr, (1,) * (arr.ndim - 1) + (heads,))
+    return out
 
 
 def simulated_reads(n_reads: int, n_bases: int = 3000):
@@ -293,7 +428,7 @@ def call_reads(tr, reads) -> tuple[list[float], int, float]:
     return idents, sum(bc.n_samples for bc in calls), wall
 
 
-def phase_golden(params, cfg) -> tuple[int, int]:
+def phase_golden(params, cfg, label="golden f32") -> tuple[int, int]:
     from nanodecoder_tpu_torch.decode.translator import Translator
     from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.fast5 import RawRead
@@ -314,29 +449,31 @@ def phase_golden(params, cfg) -> tuple[int, int]:
         idents.append(read_identity(bc.sequence, want))
         check(bool(np.isfinite(bc.qualities).all())
               and len(bc.qualities) == len(bc.sequence), f"{rid}: bad qualities")
-    print(f"golden f32: {exact}/3 exact, identity to golden "
+    print(f"{label}: {exact}/3 exact, identity to golden "
           + ", ".join(f"{x:.4f}" for x in idents))
-    check(min(idents) >= 0.99, f"golden identity {min(idents)} below 0.99")
+    check(min(idents) >= 0.99, f"{label}: identity {min(idents)} below 0.99")
     return tr.batches, tr.decode_steps
 
 
-def phase_serving(params, cfg, n_reads=100):
+def phase_serving(params, cfg, n_reads=100, label=None):
     """Returns (batches, decode steps, per-read identities)."""
     from nanodecoder_tpu_torch.decode.translator import Translator
 
+    label = label or f"serving bf16/int6/b{cfg.decode.batch_chunks}"
     tr = Translator(params, cfg)
     idents, samples, wall = call_reads(tr, simulated_reads(n_reads))
     mean_id = float(np.mean(idents))
-    print(f"serving bf16/int6/b{cfg.decode.batch_chunks}: {n_reads} reads, "
-          f"{tr.batches} batches, {tr.decode_steps} decode steps, "
-          f"mean identity {mean_id:.4f} (min {min(idents):.4f}), "
+    print(f"{label}: {n_reads} reads, {tr.batches} batches, {tr.decode_steps} decode "
+          f"steps, mean identity {mean_id:.4f} (min {min(idents):.4f}), "
           f"{samples / wall / 1e3:.1f} ksamples/s wall ({wall:.2f} s)")
-    check(mean_id >= 0.90, f"serving mean identity {mean_id} below 0.90")
+    check(mean_id >= 0.90, f"{label}: mean identity {mean_id} below 0.90")
     return tr.batches, tr.decode_steps, idents
 
 
-def phase_beam_parity(params, cfg) -> tuple[int, int]:
-    """Golden read 101 beam-called on the card and on the CPU."""
+def phase_beam_parity(params, cfg, ref=None, label=None):
+    """Golden read 101 beam-called on the card, against the CPU's call
+    (ref None) or the sequence `ref`.  Returns (batches, decode steps,
+    the card's sequence)."""
     from nanodecoder_tpu_torch.decode.translator import Translator
     from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.fast5 import RawRead
@@ -346,22 +483,27 @@ def phase_beam_parity(params, cfg) -> tuple[int, int]:
     _truth, sig = simulate_read(np.random.default_rng(101), 900, spec,
                                 spec.level_table())
     tr = Translator(params, cfg)
-    cpu = Translator(params, cfg, device="cpu")
     got = tr.basecall_read(RawRead("golden_101", sig, "sim"))
-    ref = cpu.basecall_read(RawRead("golden_101", sig, "sim"))
-    ident = read_identity(got.sequence, ref.sequence)
-    print(f"beam parity f32/K{cfg.decode.beam_size}: golden_101 card vs CPU "
-          f"{'exact' if got.sequence == ref.sequence else 'not exact'}, identity "
-          f"{ident:.4f} ({len(got.sequence)} / {len(ref.sequence)} bases, "
+    if ref is None:
+        cpu = Translator(params, cfg, device="cpu")
+        ref, against = cpu.basecall_read(RawRead("golden_101", sig, "sim")).sequence, "CPU"
+    else:
+        against = "phase 5's card call (MQA)"
+    ident = read_identity(got.sequence, ref)
+    label = label or f"beam parity f32/K{cfg.decode.beam_size}"
+    print(f"{label}: golden_101 card vs {against} "
+          f"{'exact' if got.sequence == ref else 'not exact'}, identity "
+          f"{ident:.4f} ({len(got.sequence)} / {len(ref)} bases, "
           f"{tr.decode_steps} decode steps; GPU f32 sums run in another order)")
     check(bool(np.isfinite(got.qualities).all())
-          and len(got.qualities) == len(got.sequence), "beam parity: bad qualities")
-    check(ident >= 0.99, f"beam parity identity {ident} below 0.99")
-    return tr.batches, tr.decode_steps
+          and len(got.qualities) == len(got.sequence), f"{label}: bad qualities")
+    check(ident >= 0.99, f"{label}: identity {ident} below 0.99")
+    return tr.batches, tr.decode_steps, got.sequence
 
 
-def phase_beam_serving(params, cfg, greedy_idents, n_reads=20):
-    """One full beam batch, then the first n_reads reads of phase 4."""
+def phase_beam_serving(params, cfg, greedy_idents=None, n_reads=20, label="beam"):
+    """One full beam batch, then (with greedy_idents) the first n_reads
+    reads of phase 4."""
     from nanodecoder_tpu_torch.decode.translator import Translator
     from nanodecoder_tpu_torch.io.signal import chunk_signal, normalize_signal
 
@@ -387,10 +529,12 @@ def phase_beam_serving(params, cfg, greedy_idents, n_reads=20):
     wall_ms = (time.perf_counter() - t0) * 1e3
     steps = tr.decode_steps - steps0
     check(out[0].shape[0] == bsz and bool((out[1] > 0).all()),
-          "beam batch: missing or empty hypotheses")
-    print(f"beam batch bf16/int6: {bsz} chunks x K{cfg.decode.beam_size} = "
+          f"{label} batch: missing or empty hypotheses")
+    print(f"{label} batch bf16/int6: {bsz} chunks x K{cfg.decode.beam_size} = "
           f"{bsz * cfg.decode.beam_size} rows, wall {wall_ms:.1f} ms, {steps} decode "
           f"steps, {wall_ms / max(steps, 1):.3f} ms/step")
+    if greedy_idents is None:
+        return tr.batches, tr.decode_steps
     idents, samples, wall = call_reads(tr, simulated_reads(n_reads))
     mean_id = float(np.mean(idents))
     greedy = float(np.mean(greedy_idents[:n_reads]))
@@ -413,13 +557,18 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from nanodecoder_tpu_torch.ops.attention import (decode_attention,
+                                                     decode_attention_grouped)
     from nanodecoder_tpu_torch.ops.beam_step import beam_advance, beam_topk
     from nanodecoder_tpu_torch.ops.cache_update import write_cache_block
-    from nanodecoder_tpu_torch.ops.encoder_attention import flash_encoder_attention_qkv
-    from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
+    from nanodecoder_tpu_torch.ops.encoder_attention import (
+        flash_encoder_attention, flash_encoder_attention_nld, flash_encoder_attention_qkv)
+    from nanodecoder_tpu_torch.train.checkpoint import load_params_npz, params_from_numpy
 
     wrappers = {"K1": flash_encoder_attention_qkv, "K2": write_cache_block,
-                "K3": beam_advance, "K7": beam_topk}
+                "K3": beam_advance, "K4a": decode_attention,
+                "K4b": decode_attention_grouped, "K5": flash_encoder_attention_nld,
+                "K6": flash_encoder_attention, "K7": beam_topk}
 
     def reset():
         for fn in wrappers.values():
@@ -428,76 +577,150 @@ def main() -> int:
     def counts():
         return {name: fn.launches for name, fn in wrappers.items()}
 
+    def expect(path, got, **want):
+        for name, n in want.items():
+            check(got[name] == n, f"{path} path: {name} launched {got[name]} times, "
+                  f"expected {n}")
+
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     try:
         phase_card()
         phase_build()
         rng = np.random.default_rng(0)
-        k1 = {dt: phase_k1(dt, dev, rng) for dt in (torch.float32, torch.bfloat16)}
-        k2 = {dt: phase_k2(dt, dev) for dt in (torch.float32, torch.bfloat16)}
-        k3, k7 = phase_k3(dev), phase_k7(dev)
+        f32, bf16 = torch.float32, torch.bfloat16
+        stats = {name: {str(dt)[6:]: phase_enc_attn(name, dt, dev, rng)
+                        for dt in (f32, bf16)} for name in ("K1", "K5", "K6")}
+        stats["K2"] = {f"{str(dt)[6:]}{'' if c == 256 else f'_c{c}'}":
+                       phase_k2(dt, dev, c) for c in (256, 1536) for dt in (f32, bf16)}
+        stats["K3"], stats["K7"] = {"float32": phase_k3(dev)}, {"float32": phase_k7(dev)}
+        for name, group in (("K4a", 1), ("K4b", 5)):
+            stats[name] = {kind: phase_k4(kind, group, dev, rng)
+                           for kind in ("float32", "bfloat16", "int8")}
 
         golden_cfg = load_config("float32", "float32", 640)
         serve_cfg = load_config("bfloat16", "int6", 640)
         params = load_params_npz(NPZ, golden_cfg.model, device=dev)
-        layers = golden_cfg.model.enc_layers
+        enc_layers, dec_layers = golden_cfg.model.enc_layers, golden_cfg.model.dec_layers
+        paths = {}
 
         reset()  # the greedy path: phases 3-4
         gb, gs = phase_golden(params, golden_cfg)
         sb, ss, greedy_idents = phase_serving(params, serve_cfg)
-        greedy = counts()
+        paths["greedy"] = greedy = counts()
         batches, steps = gb + sb, gs + ss
-        check(greedy["K1"] == layers * batches,
-              f"K1 launched {greedy['K1']} times for {batches} greedy batches")
         check(greedy["K2"] >= steps > 0,
               f"K2 launched {greedy['K2']} times for {steps} greedy decode steps")
+        expect("greedy", greedy, K1=enc_layers * batches, K3=0, K4a=0, K4b=0, K5=0)
 
         beam = {"mode": "beam", "beam_size": 5, "batch_chunks_beam": 256}
+        parity_beam = {**beam, "batch_chunks_beam": 8}
         reset()  # the beam path: phases 5-6
-        pb, ps = phase_beam_parity(params, load_config(
-            "float32", "float32", 640, **{**beam, "batch_chunks_beam": 8}))
+        pb, ps, mqa_beam_seq = phase_beam_parity(
+            params, load_config("float32", "float32", 640, **parity_beam))
         bb, bsteps = phase_beam_serving(params, load_config("bfloat16", "int6", 640,
                                                             **beam), greedy_idents)
-        beamc = counts()
+        paths["beam"] = beamc = counts()
         batches, steps = pb + bb, ps + bsteps
-        check(beamc["K1"] == layers * batches,
-              f"K1 launched {beamc['K1']} times for {batches} beam batches")
         check(beamc["K2"] >= steps > 0,
               f"K2 launched {beamc['K2']} times for {steps} beam decode steps")
-        check(beamc["K3"] == steps,
-              f"K3 launched {beamc['K3']} times for {steps} beam decode steps")
-        check(greedy["K3"] == greedy["K7"] == beamc["K7"] == 0,
-              "a beam kernel launched where no path runs it")
-        print(f"launches: greedy path {greedy}, beam path {beamc}")
+        expect("beam", beamc, K1=enc_layers * batches, K3=steps, K4a=0, K4b=0, K5=0)
+
+        # Phases 7-8: the flagship in MHA form.
+        mha = {"dec_kv_heads": 0}
+        with np.load(NPZ) as data:
+            flat = expand_kv_heads({k: data[k] for k in data.files},
+                                   golden_cfg.model.dec_heads)
+        mha_params = params_from_numpy(
+            flat, load_config("float32", "float32", 640, model=mha).model, device=dev)
+
+        reset()  # lean MHA: phase 7
+        gb, gs = phase_golden(mha_params, load_config("float32", "float32", 640,
+                                                      model=mha), "lean MHA golden f32")
+        sb, ss, mha_idents = phase_serving(
+            mha_params, load_config("bfloat16", "int6", 640, model=mha), 20,
+            "lean MHA bf16/int6/b640")
+        ib, isteps, int8_idents = phase_serving(
+            mha_params, load_config("bfloat16", "int6", 640,
+                                    model={**mha, "cross_cache_int8": True}), 20,
+            "lean MHA int8 cross caches bf16/int6/b640")
+        gap = float(np.mean(int8_idents)) - float(np.mean(mha_idents))
+        print(f"lean MHA: int8 cross caches minus exact, mean identity on the same 20 "
+              f"reads {gap:+.4f}; exact MHA minus phase 4 (MQA) "
+              f"{float(np.mean(mha_idents)) - float(np.mean(greedy_idents[:20])):+.4f}")
+        pb, ps, _ = phase_beam_parity(
+            mha_params, load_config("float32", "float32", 640, model=mha, **parity_beam),
+            mqa_beam_seq, "lean MHA beam f32/K5")
+        bb, bsteps = phase_beam_serving(
+            mha_params, load_config("bfloat16", "int6", 640, model=mha, **beam),
+            label="lean MHA beam")
+        paths["mha"] = mhac = counts()
+        greedy_steps, beam_steps = gs + ss + isteps, ps + bsteps
+        check(mhac["K2"] >= greedy_steps + beam_steps,
+              f"K2 launched {mhac['K2']} times on the lean MHA path")
+        expect("mha", mhac, K1=enc_layers * (gb + sb + ib + pb + bb),
+               K4a=dec_layers * greedy_steps, K4b=dec_layers * beam_steps, K3=beam_steps,
+               K5=0)
+
+        reset()  # unfolded MHA: phase 8
+        unf = {**mha, "lean_step": False}
+        gb, gs = phase_golden(mha_params, load_config("float32", "float32", 640,
+                                                      model=unf),
+                              "unfolded MHA golden f32")
+        sb, ss, _ = phase_serving(mha_params, load_config("bfloat16", "int6", 640,
+                                                          model=unf), 20,
+                                  "unfolded MHA bf16/int6/b640")
+        pb, ps, _ = phase_beam_parity(
+            mha_params, load_config("float32", "float32", 640, model=unf, **parity_beam),
+            mqa_beam_seq, "unfolded MHA beam f32/K5")
+        paths["unfolded"] = unfc = counts()
+        expect("unfolded", unfc, K1=0, K2=0, K4a=dec_layers * (gs + ss),
+               K4b=dec_layers * ps, K3=ps, K5=enc_layers * (gb + sb + pb))
+        check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
+              "K6 or K7 launched on a serving path")
+        for path, c in paths.items():
+            print(f"launches, {path} path: {c}")
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    def entry(name, source, replaces, stats, note=""):
+    def entry(name, source, replaces, kernel_stats, note=""):
         key = name.split()[0]
-        by_path = {"greedy": greedy[key], "beam": beamc[key]}
-        if torch.float32 in stats:
-            stats = {**stats[torch.bfloat16], "dtype": "bfloat16",
-                     "float32": stats[torch.float32]}
-        else:
-            stats = {**stats, "dtype": "float32"}
+        by_path = {path: c[key] for path, c in paths.items()}
+        primary = "bfloat16" if "bfloat16" in kernel_stats else "float32"
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": sum(by_path.values()), "launches_by_path": by_path, **stats}
+               "launches": sum(by_path.values()), "launches_by_path": by_path,
+               **kernel_stats[primary], "dtype": primary,
+               **{k: v for k, v in kernel_stats.items() if k != primary}}
         return {**out, "note": note} if note else out
 
+    enc, dec = "nanodecoder_tpu_torch/csrc/encoder_attention.cu", \
+        "nanodecoder_tpu_torch/csrc/decode_attention.cu"
+    beam_src = "nanodecoder_tpu_torch/csrc/beam_step.cu"
     kernels = [
-        entry("K1 flash_encoder_attention_qkv",
-              "nanodecoder_tpu_torch/csrc/encoder_attention.cu",
-              "nanodecoder_tpu/ops/encoder_attention.py:154", k1),
+        entry("K1 flash_encoder_attention_qkv", enc,
+              "nanodecoder_tpu/ops/encoder_attention.py:154", stats["K1"]),
         entry("K2 write_cache_block", "nanodecoder_tpu_torch/csrc/cache_update.cu",
-              "nanodecoder_tpu/ops/cache_update.py:35", k2),
-        entry("K3 beam_advance", "nanodecoder_tpu_torch/csrc/beam_step.cu",
-              "nanodecoder_tpu/ops/beam_step.py:68", k3,
-              "one launch per beam decode step"),
-        entry("K7 beam_topk", "nanodecoder_tpu_torch/csrc/beam_step.cu",
-              "nanodecoder_tpu/ops/beam_step.py:37", k7,
+              "nanodecoder_tpu/ops/cache_update.py:35", stats["K2"],
+              "top-level times at C 256 (MQA); *_c1536 at the MHA self-cache width"),
+        entry("K3 beam_advance", beam_src, "nanodecoder_tpu/ops/beam_step.py:68",
+              stats["K3"], "one launch per beam decode step"),
+        entry("K4a decode_attention", dec, "nanodecoder_tpu/ops/attention.py:62",
+              stats["K4a"], "B 640, T 256, D 256, 8 heads; 3 launches per MHA greedy "
+              "step; int8: int8 caches, f32 queries"),
+        entry("K4b decode_attention_grouped", dec, "nanodecoder_tpu/ops/attention.py:201",
+              stats["K4b"], "B 256, G 5; 3 launches per MHA beam step"),
+        entry("K5 flash_encoder_attention_nld", enc,
+              "nanodecoder_tpu/ops/encoder_attention.py:85", stats["K5"],
+              "one launch per encoder layer of the unfolded path"),
+        entry("K6 flash_encoder_attention", enc,
+              "nanodecoder_tpu/ops/encoder_attention.py:28", stats["K6"],
               "on no serving path (its only JAX caller is a test); launched only "
               "in phase 2"),
+        entry("K7 beam_topk", beam_src, "nanodecoder_tpu/ops/beam_step.py:37",
+              stats["K7"], "on no serving path (its only JAX caller is a test); "
+              "launched only in phase 2"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """nanodecoder_tpu_torch: the PyTorch + CUDA port of nanodecoder_tpu.
 
-Greedy and beam-search basecalling of lean transformer models on one
+Greedy and beam-search basecalling of transformer models (lean or
+unfolded, MQA/GQA or MHA decoders, exact or int8 cross caches) on one
 NVIDIA H100:
 
     from nanodecoder_tpu_torch.config import Config

@@ -67,7 +67,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     choices=["", "float32", "float16", "int8", "int6", "int4"],
                     help="signal H2D wire dtype override")
     ap.add_argument("--int8-cross", action="store_true",
-                    help="int8 cross-K/V decode caches (not ported)")
+                    help="int8 cross-K/V decode caches")
     ap.add_argument("--json", action="store_true", help="emit one JSON line")
     return ap
 
@@ -79,13 +79,13 @@ def _simulated_pairs(args, log) -> list[tuple[str, str, str]]:
     from nanodecoder_tpu_torch.io.fast5 import RawRead
     from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
 
-    if args.int8_cross:
-        raise ValueError("--int8-cross is not ported")
     device = resolve_device("cpu" if args.cpu else "cuda")
     params, config = load_params_and_config(args.ckpt, device)
     # The served mode (bf16) by default; --dtype float32 is the parity mode.
     model = dataclasses.replace(config.model, compute_dtype=args.dtype or "bfloat16",
-                                staged_decode=config.model.staged_decode or args.staged)
+                                staged_decode=config.model.staged_decode or args.staged,
+                                cross_cache_int8=config.model.cross_cache_int8
+                                or args.int8_cross)
     decode = config.decode
     if args.batch:
         decode = dataclasses.replace(decode, batch_chunks=args.batch)

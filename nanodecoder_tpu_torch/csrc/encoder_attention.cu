@@ -1,24 +1,29 @@
-// Encoder self-attention over the fused QKV slab (kernel K1).
+// Encoder self-attention (kernels K1, K5, K6).
 //
 // Replaces: nanodecoder_tpu/ops/encoder_attention.py `_enc_attn_kernel_qkv`
-// (the Pallas body of `flash_encoder_attention_qkv`), which keeps one
-// batch row's (S, S) score tile in VMEM so the probabilities never reach
-// device memory.
+// (the Pallas body of `flash_encoder_attention_qkv`, K1: Q, K and V as
+// column slices of the fused (B, S, 3D) QKV slab), `_enc_attn_kernel_flat`
+// (`flash_encoder_attention_nld`, K5: separate (B, S, D) q, k and v) and
+// `_enc_attn_kernel` (`flash_encoder_attention`, K6: the (B, S, H, Dh)
+// layout, which is K5's on the contiguous (B, S, H * Dh) view).  Each
+// Pallas kernel keeps one batch row's (S, S) score tile in VMEM so the
+// probabilities never reach device memory.  One CUDA kernel serves all
+// three: it takes a q, a k and a v pointer and the row stride between
+// consecutive positions (3D for the slab, D otherwise).
 //
 // Math, per (batch row b, head h): logits = q.k^T * scale accumulated in
 // f32; keys at positions >= lengths[b] are set to -1e9 (select, not add,
 // so a length-0 padding row comes out uniform, never NaN); f32 softmax;
 // probabilities rounded to the input dtype; P.V accumulated in f32 and
-// rounded to the output dtype.  Q, K and V are column slices of the
-// (B, S, 3D) slab at offsets 0, D and 2D; heads are concatenated in the
-// (B, S, D) output.
+// rounded to the output dtype.  Heads are concatenated in the (B, S, D)
+// output.
 //
 // What bounds it on the H100: at the flagship shape (B 640, S 256, D 256,
 // 2 heads of 128) one call does 42.9 GFLOP against 335 MB (bf16) or
 // 671 MB (f32) of traffic.  In f32 the exact-f32 requirement keeps it off
 // the tensor cores, so it is bound by the 67 TFLOP/s CUDA-core f32 rate
 // (~0.64 ms); in bf16 the data sheet says memory (~0.10 ms) would bound a
-// tensor-core kernel.
+// tensor-core kernel.  K5 and K6 read the same bytes from three tensors.
 //
 // Design (simple and exact first): one block of 256 threads per (query
 // tile of 32 rows, head, batch row).  Q's tile is converted to f32 in
@@ -68,7 +73,7 @@ size_t smem_bytes(int dh, int s) {
 }
 
 // Load rows [r0, r0 + rows) of one head's column slice (offset `col`) of
-// the slab into an f32 tile with row stride DH + 1 (the +1 keeps the
+// an operand with row stride `ld` into an f32 tile with row stride DH + 1 (the +1 keeps the
 // column-wise reads of the score loop free of bank conflicts).  Rows past
 // the sequence end are zero.
 template <typename T, int DH>
@@ -82,8 +87,9 @@ __device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ bas
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
-enc_attn_qkv_kernel(const T* __restrict__ qkv, const int* __restrict__ lengths,
-                    T* __restrict__ out, int s, int heads, float scale) {
+enc_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const int* __restrict__ lengths,
+                T* __restrict__ out, int s, int heads, int ld, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                        // [kTQ][DH + 1]
   float* kv = qs + kTQ * (DH + 1);         // [kTK][DH + 1]
@@ -93,18 +99,17 @@ enc_attn_qkv_kernel(const T* __restrict__ qkv, const int* __restrict__ lengths,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int d = heads * DH;
-  const int ld = 3 * d;
   const int n = lengths[b];
-  const T* base = qkv + (size_t)b * s * ld;
+  const size_t row0 = (size_t)b * s * ld;
   const int tid = threadIdx.x;
 
-  load_tile<T, DH>(qs, base, q0, kTQ, s, ld, h * DH);
+  load_tile<T, DH>(qs, q + row0, q0, kTQ, s, ld, h * DH);
 
   // Scores: thread (rg, cg) owns rows 2rg, 2rg+1 and columns cg + 16j.
   const int rg = tid / 16, cg = tid % 16;
   for (int k0 = 0; k0 < s; k0 += kTK) {
     __syncthreads();  // Q tile ready; previous K tile consumed
-    load_tile<T, DH>(kv, base, k0, kTK, s, ld, d + h * DH);
+    load_tile<T, DH>(kv, k + row0, k0, kTK, s, ld, h * DH);
     __syncthreads();
     float acc[2][4] = {};
 #pragma unroll 8
@@ -152,18 +157,18 @@ enc_attn_qkv_kernel(const T* __restrict__ qkv, const int* __restrict__ lengths,
   float o[4][kCols] = {};
   for (int k0 = 0; k0 < s; k0 += kTK) {
     __syncthreads();  // probs complete; previous V tile consumed
-    load_tile<T, DH>(kv, base, k0, kTK, s, ld, 2 * d + h * DH);
+    load_tile<T, DH>(kv, v + row0, k0, kTK, s, ld, h * DH);
     __syncthreads();
     const int kmax = min(kTK, s - k0);
     for (int j = 0; j < kmax; ++j) {
-      float v[kCols];
+      float vj[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) v[c] = kv[j * (DH + 1) + lane + 32 * c];
+      for (int c = 0; c < kCols; ++c) vj[c] = kv[j * (DH + 1) + lane + 32 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = ss[(r0 + i) * s + k0 + j];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) o[i][c] = fmaf(p, v[c], o[i][c]);
+        for (int c = 0; c < kCols; ++c) o[i][c] = fmaf(p, vj[c], o[i][c]);
       }
     }
   }
@@ -178,41 +183,49 @@ enc_attn_qkv_kernel(const T* __restrict__ qkv, const int* __restrict__ lengths,
 }
 
 template <typename T, int DH>
-cudaError_t launch(const void* qkv, const int* lengths, void* out, int b, int s,
-                   int heads, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
+                   void* out, int b, int s, int heads, int ld, float scale,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(DH, s);
-  cudaError_t err = cudaFuncSetAttribute(enc_attn_qkv_kernel<T, DH>,
+  cudaError_t err = cudaFuncSetAttribute(enc_attn_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kTQ - 1) / kTQ, heads, b);
-  enc_attn_qkv_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), lengths, static_cast<T*>(out), s, heads, scale);
+  enc_attn_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      lengths, static_cast<T*>(out), s, heads, ld, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dh(const void* qkv, const int* lengths, void* out, int b, int s,
-                        int heads, int dh, float scale, cudaStream_t stream) {
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const int* lengths,
+                        void* out, int b, int s, int heads, int dh, int ld, float scale,
+                        cudaStream_t stream) {
   switch (dh) {
-    case 32: return launch<T, 32>(qkv, lengths, out, b, s, heads, scale, stream);
-    case 64: return launch<T, 64>(qkv, lengths, out, b, s, heads, scale, stream);
-    case 128: return launch<T, 128>(qkv, lengths, out, b, s, heads, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, lengths, out, b, s, heads, ld, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, lengths, out, b, s, heads, ld, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, lengths, out, b, s, heads, ld, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int nd_encoder_attention_qkv(const void* qkv, const void* lengths, void* out,
-                                        int b, int s, int heads, int dh, int is_bf16,
-                                        float scale, void* stream) {
+// q, k, v: the first element of position 0 of batch row 0 of each
+// operand; position p of batch row b starts at (b * s + p) * ld elements
+// after it.  out: (B, S, heads * dh), contiguous.
+extern "C" int nd_encoder_attention(const void* q, const void* k, const void* v,
+                                    const void* lengths, void* out, int b, int s,
+                                    int heads, int dh, int ld, int is_bf16, float scale,
+                                    void* stream) {
   if (b <= 0 || s <= 0 || heads <= 0 || b > 65535 || heads > 65535 ||
-      smem_bytes(dh, s) > 227u * 1024u)
+      ld < heads * dh || smem_bytes(dh, s) > 227u * 1024u)
     return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16
-                   ? dispatch_dh<__nv_bfloat16>(qkv, len, out, b, s, heads, dh, scale, st)
-                   : dispatch_dh<float>(qkv, len, out, b, s, heads, dh, scale, st));
+                   ? dispatch_dh<__nv_bfloat16>(q, k, v, len, out, b, s, heads, dh, ld,
+                                                scale, st)
+                   : dispatch_dh<float>(q, k, v, len, out, b, s, heads, dh, ld, scale, st));
 }

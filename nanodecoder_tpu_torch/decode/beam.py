@@ -10,8 +10,9 @@ of chunk b).  Each step:
 The loop runs on the host, one step per iteration, as in
 `decode.greedy`; before each step one host read checks the admissible
 early stop (the best score an alive beam can still reach against the
-worst kept finished score).  The self cache grows through the stages of
-`decode_stage_lengths` between steps.
+worst kept finished score).  On the lean path with `staged_decode` the
+self cache grows through the stages of `decode_stage_lengths` between
+steps.
 
 Sequences are kept as backpointers: every step writes the alive beams'
 (token, origin, log-prob, attention position) into one (B, K, T, 4) f32
@@ -20,8 +21,8 @@ flag, EOS log-prob, EOS position) as (B, K, 5) f32 channels (integer
 channels are exact in f32).  `_backtrack` rebuilds the sequences after
 the loop.
 
-The coverage penalty (which needs the per-layer-cache decoder) and the
-path-indirection reorder (`DecodeConfig.path_reorder`) are not ported.
+The coverage penalty and the path-indirection reorder
+(`DecodeConfig.path_reorder`) are not ported.
 """
 
 from __future__ import annotations
@@ -53,8 +54,7 @@ class BeamResult(NamedTuple):
 def check_ported(dcfg: DecodeConfig) -> None:
     """Raise for the beam options the port does not have yet."""
     if dcfg.coverage_penalty != "none" and dcfg.beta != 0.0:
-        raise ValueError(f"coverage_penalty {dcfg.coverage_penalty!r} is not ported "
-                         "(it needs the per-layer-cache decoder)")
+        raise ValueError(f"coverage_penalty {dcfg.coverage_penalty!r} is not ported")
     if dcfg.path_reorder:
         raise ValueError("path_reorder is not ported; the port reorders the "
                          "self cache physically")
@@ -111,8 +111,9 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
     v = cfg.vocab_size
     tmax = cfg.max_decode_len
     dev = memory.device
+    # Staged growth needs the lean step's combined cache.
     stages = (decode_stage_lengths(tmax, cfg.stage_schedule)
-              if cfg.staged_decode else [tmax])
+              if cfg.staged_decode and cfg.lean_step else [tmax])
     state = init_decode_state(
         params, dataclasses.replace(cfg, max_decode_len=stages[0]), memory,
         mem_lengths, beam_k=k)

@@ -2,9 +2,9 @@
 
 The port's counterpart of `nanodecoder_tpu.decode.greedy`.  The loop
 runs on the host, one decode step per iteration, and stops early once
-every row has emitted EOS.  The self cache grows through the stages of
-`decode_stage_lengths` (for a max length of 96: 24, 48, 96 rows), so
-each step reads only the live prefix.
+every row has emitted EOS.  On the lean path with `staged_decode` the
+self cache grows through the stages of `decode_stage_lengths` (for a max
+length of 96: 24, 48, 96 rows), so each step reads only the live prefix.
 
 Tie-breaking: torch.argmax returns the lowest index on ties, like
 jnp.argmax.
@@ -64,8 +64,9 @@ def greedy_decode(params, cfg: ModelConfig, memory: torch.Tensor,
     b = memory.shape[0]
     dev = memory.device
     tmax = cfg.max_decode_len
+    # Staged growth needs the lean step's combined cache.
     stages = (decode_stage_lengths(tmax, cfg.stage_schedule)
-              if cfg.staged_decode else [tmax])
+              if cfg.staged_decode and cfg.lean_step else [tmax])
     state = init_decode_state(
         params, dataclasses.replace(cfg, max_decode_len=stages[0]), memory,
         mem_lengths)

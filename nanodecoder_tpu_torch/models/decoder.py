@@ -1,26 +1,34 @@
-"""Lean transformer decoder step with one combined self cache.
+"""Transformer decoder steps: lean (one combined self cache) and unfolded
+(per-layer self caches).
 
 The port's counterpart of the serving path in
-`nanodecoder_tpu.models.decoder`: `init_transformer_cache` (lean branch),
-`_ln_normalize`, `_fold_ln_dense`, `fold_lean_params` and
-`_transformer_decoder_step_lean`, with the beam-grouped cross attention
-of `_attn_step`.
+`nanodecoder_tpu.models.decoder`: `init_transformer_cache`, `_attn_step`,
+`_ln_normalize`, `_fold_ln_dense`, `fold_lean_params`,
+`_transformer_decoder_step_lean` and `transformer_decoder_step`.
 
 Decode state (a dict, like the JAX package's), for B chunks decoded in
 R = B * beam_k rows (row b * beam_k + j is beam j of chunk b):
-  layers:        per layer {cross_k, cross_v} (B, S, Hk, Dh), projected once
+  layers:        per layer {cross_k, cross_v} (B, S, Hk, Dh), projected
+                 once; with cross_cache_int8 they are int8 and the layer
+                 also holds cross_k_scale, cross_v_scale (B, Hk * Dh) f32;
+                 unfolded (lean_step false): also self_k, self_v
+                 (R, T, Hk, Dh), written at `step` in place
   cross_mask:    (B, 1, 1, S) bool
   mem_lengths:   (B,) int32
   step:          host int, the position being decoded
+  lean only:
   self_kv:       (R, T, C_pad) every layer's [K|V] row for each position,
                  C = layers * 2 * Hk * Dh padded up to a multiple of 128
   self_kv_stage: (R, 8, C_pad) rows of the aligned 8-step block holding
                  `step`, flushed into self_kv by kernel K2 every step
 
 Cross K/V and masks stay per chunk: the beams of a chunk share them.
+Cross attention of an MHA model (Hk == H) runs kernel K4a (one row per
+chunk) or K4b (the beams of a chunk against its one cache row); GQA/MQA
+runs plain PyTorch, over dequantized caches when they are int8.
 
-The step updates `self_kv` (on the card) and `self_kv_stage` in place
-and returns the new state dict.
+The steps update their self caches (on the card) in place and return the
+new state dict.
 """
 
 from __future__ import annotations
@@ -32,38 +40,58 @@ import torch
 
 from nanodecoder_tpu_torch.config import ModelConfig
 from nanodecoder_tpu_torch.models import modules as nn
+from nanodecoder_tpu_torch.ops.attention import (decode_attention,
+                                                 decode_attention_grouped,
+                                                 dequantize_cache_int8,
+                                                 quantize_cache_int8)
 from nanodecoder_tpu_torch.ops.cache_update import BLOCK, write_cache_block
 
 
 def init_transformer_cache(p, cfg: ModelConfig, memory: torch.Tensor,
                            mem_lengths: torch.Tensor, batch: int,
                            dtype: torch.dtype, beam_k: int = 1) -> dict[str, Any]:
-    """Project the cross K/V of every layer once (per chunk) and allocate
-    the zeroed combined self cache of length max_decode_len for
-    batch * beam_k decode rows."""
+    """Project the cross K/V of every layer once (per chunk), quantized to
+    int8 with cross_cache_int8, and allocate the zeroed self caches of
+    length max_decode_len for batch * beam_k decode rows: one combined
+    cache on the lean path, per-layer caches otherwise."""
     tmax = cfg.max_decode_len
     hk, dh = cfg.dec_kv, cfg.d_model // cfg.dec_heads
-    if tmax % BLOCK:
+    rows = batch * beam_k
+    dev = memory.device
+    combined = cfg.lean_step
+    if combined and tmax % BLOCK:
         raise ValueError(f"max_decode_len must be a multiple of {BLOCK}; got {tmax}")
     layers = []
     for layer in p["layers"]:
         ck, cv = nn.mha_project_kv(layer["cross_attn"], cfg.dec_heads, memory,
                                    kv_heads=hk)
-        layers.append({"cross_k": ck, "cross_v": cv})
+        entry = {} if combined else {
+            "self_k": torch.zeros((rows, tmax, hk, dh), dtype=dtype, device=dev),
+            "self_v": torch.zeros((rows, tmax, hk, dh), dtype=dtype, device=dev),
+        }
+        if cfg.cross_cache_int8:
+            b_, s_ = ck.shape[:2]
+            kq, ks = quantize_cache_int8(ck.reshape(b_, s_, hk * dh))
+            vq, vs = quantize_cache_int8(cv.reshape(b_, s_, hk * dh))
+            entry.update(cross_k=kq.reshape(ck.shape), cross_v=vq.reshape(cv.shape),
+                         cross_k_scale=ks, cross_v_scale=vs)
+        else:
+            entry.update(cross_k=ck, cross_v=cv)
+        layers.append(entry)
     s = memory.shape[1]
-    c = len(p["layers"]) * 2 * hk * dh
-    c_pad = -(-c // 128) * 128
-    dev = memory.device
-    return {
+    state = {
         "layers": layers,
         "cross_mask": nn.length_mask(mem_lengths, s)[:, None, None, :],
         "mem_lengths": mem_lengths.to(torch.int32),
         "step": 0,
-        "self_kv": torch.zeros((batch * beam_k, tmax, c_pad), dtype=dtype,
-                               device=dev),
-        "self_kv_stage": torch.zeros((batch * beam_k, BLOCK, c_pad), dtype=dtype,
-                                     device=dev),
     }
+    if combined:
+        c = len(p["layers"]) * 2 * hk * dh
+        c_pad = -(-c // 128) * 128
+        state["self_kv"] = torch.zeros((rows, tmax, c_pad), dtype=dtype, device=dev)
+        state["self_kv_stage"] = torch.zeros((rows, BLOCK, c_pad), dtype=dtype,
+                                             device=dev)
+    return state
 
 
 def _ln_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -114,17 +142,42 @@ def fold_lean_params(p_dec, p_gen, cfg: ModelConfig, dtype: torch.dtype):
     return {"layers": layers, "gen_w": gw, "gen_b": gb}
 
 
-def _cross_attn_step(p, n_heads: int, h: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, mask: torch.Tensor):
-    """One-token cross attention of h (R, 1, D) against the per-chunk
-    cache (B, S, Hk, Dh).  R = B: nn.mha_step.  R = B * group (beam
-    decode): the `group` consecutive rows of a chunk share its cache row,
-    which is never repeated; only the query carries the beam dim.
-    Returns (out (R, 1, D), probs (R, H, 1, S) f32)."""
-    b, s, hk, dh = k_cache.shape
+def _attn_step(p, n_heads: int, h: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, mask: torch.Tensor, valid_lens: torch.Tensor,
+               use_kernel: bool, k_scale=None, v_scale=None):
+    """One-token attention of h (R, 1, D) against a cache (B, T, Hk, Dh).
+    R = B * group: the `group` consecutive rows of a chunk share its cache
+    row.  k_scale/v_scale ((B, Hk * Dh) f32) mark int8 caches.
+
+    use_kernel and MHA (Hk == H): kernel K4a (group 1) or K4b, which
+    return the head-summed attention argmax and no probabilities.
+    Otherwise plain PyTorch over the (dequantized) cache: the grouped
+    einsum for group > 1, else mha_step.
+    Returns (out (R, 1, D), probs (R, H, 1, T) f32 or None, amax (R,) or
+    None)."""
+    b, t, hk, dh = k_cache.shape
     group = h.shape[0] // b
+    d = hk * dh
+    if use_kernel and hk == n_heads:
+        q = nn.dense(p["q"], h)[:, 0, :]
+        kc, vc = k_cache.reshape(b, t, d), v_cache.reshape(b, t, d)
+        if group > 1:
+            ctx, amax = decode_attention_grouped(q, kc, vc, valid_lens, n_heads, group,
+                                                 k_scale, v_scale)
+        else:
+            ctx, amax = decode_attention(q, kc, vc, valid_lens, n_heads, k_scale,
+                                         v_scale)
+        return nn.dense(p["o"], ctx[:, None, :]), None, amax
+    if k_scale is not None:
+        k_cache = dequantize_cache_int8(k_cache.reshape(b, t, d), k_scale,
+                                        h.dtype).reshape(b, t, hk, dh)
+        v_cache = dequantize_cache_int8(v_cache.reshape(b, t, d), v_scale,
+                                        h.dtype).reshape(b, t, hk, dh)
     if group == 1:
-        return nn.mha_step(p, n_heads, h, k_cache, v_cache, mask)
+        out, probs = nn.mha_step(p, n_heads, h, k_cache, v_cache, mask)
+        return out, probs, None
+    # Beam-grouped: the cache stays per chunk, only the query carries the
+    # beam dim.
     r = n_heads // hk
     q5 = nn.dense(p["q"], h).reshape(b, group, hk, r, dh)
     scores = torch.einsum("bgkrd,btkd->bgkrt", q5.to(torch.float32),
@@ -132,20 +185,27 @@ def _cross_attn_step(p, n_heads: int, h: torch.Tensor, k_cache: torch.Tensor,
     # The JAX branch divides by sqrt(dh), a constant that XLA turns into
     # a multiply by its f32 reciprocal: the same scale as attention_core.
     scores = scores * (1.0 / math.sqrt(dh))
-    scores = torch.where(mask.reshape(b, 1, 1, 1, s), scores, torch.tensor(
+    scores = torch.where(mask.reshape(b, 1, 1, 1, t), scores, torch.tensor(
         nn.NEG_INF, dtype=scores.dtype, device=scores.device))
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bgkrt,btkd->bgkrd", probs.to(v_cache.dtype), v_cache)
     out = nn.dense(p["o"], ctx.reshape(b * group, 1, n_heads * dh))
-    return out, probs.reshape(b * group, n_heads, 1, s)
+    return out, probs.reshape(b * group, n_heads, 1, t), None
+
+
+def _head_mean_argmax(probs: torch.Tensor) -> torch.Tensor:
+    """probs (R, H, 1, T) -> (R,) int32 argmax of the head mean."""
+    return probs[:, :, 0, :].to(torch.float32).mean(dim=1).argmax(dim=-1).to(
+        torch.int32)
 
 
 def _transformer_decoder_step_lean(lean, cfg: ModelConfig, y1: torch.Tensor,
                                    state: dict[str, Any]):
     """One-token decode over folded weights.  y1: (B, 1, D) embedded
     token.  Returns (hidden (B, 1, D) normalized WITHOUT the ln_out
-    affine, which lives in the generator; attn_pos (B,) int, the
-    head-mean cross-attention argmax of the last layer; new state)."""
+    affine, which lives in the generator; attn_pos (B,) int32, the last
+    layer's cross-attention argmax (head sum from K4a/K4b, head mean
+    otherwise); new state)."""
     step = state["step"]
     tmax = cfg.max_decode_len
     b = y1.shape[0]
@@ -175,12 +235,14 @@ def _transformer_decoder_step_lean(lean, cfg: ModelConfig, y1: torch.Tensor,
                                  v_use, self_mask)
         y1 = y1 + nn.dense(ll["self_o"], nn._merge_heads(a))
         h = _ln_normalize(y1)
-        a, probs = _cross_attn_step({"q": ll["cross_q"], "o": ll["cross_o"]}, nh,
-                                    h, cache["cross_k"], cache["cross_v"],
-                                    state["cross_mask"])
-        if i == n_layers - 1:
-            pm = probs[:, :, 0, :].to(torch.float32).mean(dim=1)
-            amax = pm.argmax(dim=-1).to(torch.int32)
+        a, probs, am = _attn_step(
+            {"q": ll["cross_q"], "o": ll["cross_o"]}, nh, h, cache["cross_k"],
+            cache["cross_v"], state["cross_mask"], state["mem_lengths"], True,
+            cache.get("cross_k_scale"), cache.get("cross_v_scale"))
+        if am is not None:
+            amax = am
+        elif i == n_layers - 1:
+            amax = _head_mean_argmax(probs)
         y1 = y1 + a
         h = _ln_normalize(y1)
         y1 = y1 + torch.relu(h @ ll["w_f1"] + ll["b_f1"]) @ ll["w_f2"] + ll["b_f2"]
@@ -196,3 +258,37 @@ def _transformer_decoder_step_lean(lean, cfg: ModelConfig, y1: torch.Tensor,
     new_state = {**state, "self_kv": self_kv, "self_kv_stage": stage,
                  "step": step + 1}
     return out, amax, new_state
+
+
+def transformer_decoder_step(p, cfg: ModelConfig, y1: torch.Tensor,
+                             state: dict[str, Any]):
+    """One-token decode over the unfolded weights and per-layer self
+    caches.  y1: (R, 1, D) embedded token.  Writes this token's self K/V
+    into the caches at `step` in place.  Returns (hidden (R, 1, D) after
+    ln_out, (probs (R, H, 1, S) f32 or None, amax (R,) or None) of the
+    last layer's cross attention, new state)."""
+    if "self_kv" in state:
+        raise ValueError("state was built for the lean (combined-cache) step")
+    step = state["step"]
+    hk = cfg.dec_kv
+    pos = torch.arange(cfg.max_decode_len, device=y1.device)
+    self_mask = (pos <= step)[None, None, None, :]
+    probs = amax = None
+    for layer, cache in zip(p["layers"], state["layers"]):
+        h = nn.layer_norm(layer["ln1"], y1)
+        sa = layer["self_attn"]
+        cache["self_k"][:, step] = nn._split_heads(nn.dense(sa["k"], h), hk)[:, 0]
+        cache["self_v"][:, step] = nn._split_heads(nn.dense(sa["v"], h), hk)[:, 0]
+        a, _, _ = _attn_step(sa, cfg.dec_heads, h, cache["self_k"], cache["self_v"],
+                             self_mask, None, False)
+        y1 = y1 + a
+        h = nn.layer_norm(layer["ln2"], y1)
+        a, probs, amax = _attn_step(
+            layer["cross_attn"], cfg.dec_heads, h, cache["cross_k"], cache["cross_v"],
+            state["cross_mask"], state["mem_lengths"], True,
+            cache.get("cross_k_scale"), cache.get("cross_v_scale"))
+        y1 = y1 + a
+        h = nn.layer_norm(layer["ln3"], y1)
+        y1 = y1 + nn.ffn(layer["ffn"], h)
+    out = nn.layer_norm(p["ln_out"], y1)
+    return out, (probs, amax), {**state, "step": step + 1}

@@ -1,10 +1,12 @@
-"""Signal encoder for serving: conv front-end + lean transformer body.
+"""Signal encoder for serving: conv front-end + transformer body.
 
 The port's counterpart of the serving path in
-`nanodecoder_tpu.models.encoder`: `conv_frontend`, `fold_encoder_lean`,
-`transformer_encoder_lean` and `encoder_apply_lean`.  The lean body
+`nanodecoder_tpu.models.encoder`: `conv_frontend`, `transformer_encoder`
+and `encoder_apply` (the unfolded body, which projects q, k and v apart
+and calls kernel K5 for the attention), and `fold_encoder_lean`,
+`transformer_encoder_lean` and `encoder_apply_lean` (the lean body, which
 folds each layer norm's affine into the matmul after it, runs one fused
-QKV projection per layer, and calls kernel K1 for the attention.
+QKV projection per layer, and calls kernel K1).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch.nn.functional as F
 from nanodecoder_tpu_torch.config import ModelConfig
 from nanodecoder_tpu_torch.models import modules as nn
 from nanodecoder_tpu_torch.models.decoder import _fold_ln_dense, _ln_normalize
-from nanodecoder_tpu_torch.ops.encoder_attention import flash_encoder_attention_qkv
+from nanodecoder_tpu_torch.ops.encoder_attention import (flash_encoder_attention_nld,
+                                                         flash_encoder_attention_qkv)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -41,6 +44,40 @@ def conv_frontend(p, cfg: ModelConfig, signal: torch.Tensor,
     x = nn.dense(p["proj"], x.transpose(1, 2))
     x = nn.layer_norm(p["ln"], x)
     return x, out_lengths
+
+
+def transformer_encoder(p, cfg: ModelConfig, x: torch.Tensor,
+                        enc_lengths: torch.Tensor) -> torch.Tensor:
+    """Pre-norm transformer over the master weights, inference only.
+    x: (B, T, D) in the compute dtype; returns the memory bank (B, T, D),
+    zero at padded positions."""
+    valid = nn.length_mask(enc_lengths, x.shape[1])
+    lengths32 = enc_lengths.to(torch.int32).contiguous()
+    for layer in p["layers"]:
+        h = nn.layer_norm(layer["ln1"], x)
+        ap = layer["attn"]
+        ctx = flash_encoder_attention_nld(nn.dense(ap["q"], h), nn.dense(ap["k"], h),
+                                          nn.dense(ap["v"], h), lengths32,
+                                          cfg.enc_heads)
+        x = x + nn.dense(ap["o"], ctx)
+        x = x + nn.ffn(layer["ffn"], nn.layer_norm(layer["ln2"], x))
+    x = nn.layer_norm(p["ln_out"], x)
+    return x * valid[:, :, None].to(x.dtype)
+
+
+def _add_positions(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    pe = nn.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    return x + pe[None, :, :]
+
+
+def encoder_apply(p, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor):
+    """Unfolded serving encoder: conv front-end + transformer body.
+    Returns (memory (B, T, D), enc_lengths (B,))."""
+    if cfg.encoder_type != "transformer":
+        raise ValueError(f"encoder_type {cfg.encoder_type!r} is not ported")
+    x, enc_lengths = conv_frontend(p["frontend"], cfg, signal, lengths)
+    return transformer_encoder(p["body"], cfg, _add_positions(x, cfg),
+                               enc_lengths), enc_lengths
 
 
 def fold_encoder_lean(p_enc, cfg: ModelConfig, dtype: torch.dtype):
@@ -98,7 +135,5 @@ def encoder_apply_lean(lean, cfg: ModelConfig, signal: torch.Tensor,
     """Folded-weights serving encoder: conv front-end + lean body.
     Returns (memory (B, T, D), enc_lengths (B,))."""
     x, enc_lengths = conv_frontend(lean["frontend"], cfg, signal, lengths)
-    pe = nn.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
-    x = x + pe[None, :, :]
-    mem = transformer_encoder_lean(lean, cfg, x, enc_lengths)
-    return mem, enc_lengths
+    return transformer_encoder_lean(lean, cfg, _add_positions(x, cfg),
+                                    enc_lengths), enc_lengths

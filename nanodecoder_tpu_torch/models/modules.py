@@ -100,6 +100,18 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, probs
 
 
+def mha(p, n_heads: int, query: torch.Tensor, key_value: torch.Tensor,
+        mask: torch.Tensor | None = None, kv_heads: int | None = None):
+    """Full (non-incremental) multi-head attention, inference only.
+    query: (B, Tq, D); key_value: (B, Tk, D).  Returns (out (B, Tq, D),
+    probs (B, H, Tq, Tk) f32)."""
+    q = _split_heads(dense(p["q"], query), n_heads)
+    k = _split_heads(dense(p["k"], key_value), kv_heads or n_heads)
+    v = _split_heads(dense(p["v"], key_value), kv_heads or n_heads)
+    out, probs = attention_core(q, k, v, mask)
+    return dense(p["o"], _merge_heads(out)), probs
+
+
 def mha_project_kv(p, n_heads: int, key_value: torch.Tensor,
                    kv_heads: int | None = None):
     """Cross-attention K/V, projected once per chunk batch:
@@ -116,6 +128,11 @@ def mha_step(p, n_heads: int, query_1: torch.Tensor, k: torch.Tensor,
     q = _split_heads(dense(p["q"], query_1), n_heads)
     out, probs = attention_core(q, k, v, mask)
     return dense(p["o"], _merge_heads(out)), probs
+
+
+def ffn(p, x: torch.Tensor) -> torch.Tensor:
+    """Position-wise feed-forward, inference only: dense, ReLU, dense."""
+    return dense(p["out"], torch.relu(dense(p["in"], x)))
 
 
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:

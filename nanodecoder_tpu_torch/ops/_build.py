@@ -29,9 +29,14 @@ _lib: ctypes.CDLL | None = None
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each launcher: all return a cudaError_t as int.
 _SIGNATURES = {
-    # qkv, lengths, out, batch, seq, heads, head_dim, is_bf16, scale, stream
-    "nd_encoder_attention_qkv": [_vp, _vp, _vp, _int, _int, _int, _int,
-                                 _int, _float, _vp],
+    # q, k, v, lengths, out, batch, seq, heads, head_dim, row stride,
+    # is_bf16, scale, stream
+    "nd_encoder_attention": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                             _int, _int, _float, _vp],
+    # q, k, v, valid_lens, k_scale, v_scale, out, amax, batch, group, T, D,
+    # heads, is_bf16, is_int8, scale, stream
+    "nd_decode_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
+                            _int, _int, _int, _int, _int, _float, _vp],
     # cache, slab, batch, T, C, elem_bytes, step, stream
     "nd_write_cache_block": [_vp, _vp, _int, _int, _int, _int, _int, _vp],
     # alive, log_probs, fin, pen, batch, k, v, eos_id, top_ids, alive_s,

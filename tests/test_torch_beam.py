@@ -361,13 +361,31 @@ def test_evaluate_cli_beam_matches_jax(small_ckpt, capsys, monkeypatch):
 
 @pytest.mark.parametrize("what", ["coverage", "path_reorder", "int8_cross",
                                   "ckpt_dir", "sample"])
-def test_unported_options_raise(what, small_ckpt, tmp_path):
+def test_unported_options_raise(what, small_ckpt, tmp_path, capsys, monkeypatch):
+    """Each option the port lacks raises.  --int8-cross is ported now: the
+    CLI's JSON summary with it equals the JAX CLI's (the small MQA model
+    reads its int8 cross caches through the dequantize fallback)."""
     from nanodecoder_tpu_torch.cli import evaluate
     from nanodecoder_tpu_torch.decode.beam import beam_decode
     from nanodecoder_tpu_torch.decode.translator import Translator
 
     served, cfg = _port_served()
     beam = dataclasses.replace(cfg.decode, mode="beam", beam_size=3)
+    if what == "int8_cross":
+        argv = ["--ckpt", small_ckpt, "--cpu", "--simulate", "1", "--read-bases", "200",
+                "--dtype", "float32", "--json"]
+        from nanodecoder_tpu.cli import evaluate as jeval
+        from nanodecoder_tpu.utils import cache
+
+        argv += ["--int8-cross"]
+        assert evaluate.main(argv) == 0
+        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+        monkeypatch.setattr(cache, "setup_compilation_cache", lambda *a: "")
+        assert jeval.main(argv) == 0
+        assert got == json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert got["n_reads"] == 1 and got["mean_length_ratio"] > 0
+        return
     with pytest.raises(ValueError, match="not ported"):
         if what == "coverage":
             dcfg = dataclasses.replace(beam, coverage_penalty="wu", beta=0.2)
@@ -376,9 +394,6 @@ def test_unported_options_raise(what, small_ckpt, tmp_path):
         elif what == "path_reorder":
             Translator(served, dataclasses.replace(
                 cfg, decode=dataclasses.replace(beam, path_reorder=True)), device="cpu")
-        elif what == "int8_cross":
-            evaluate.main(["--ckpt", small_ckpt, "--cpu", "--simulate", "1",
-                           "--int8-cross"])
         elif what == "ckpt_dir":
             evaluate.main(["--ckpt", str(tmp_path), "--cpu", "--simulate", "1"])
         else:

@@ -214,6 +214,7 @@ def test_port_imports_no_jax_ast():
                 if name.split(".")[0] in FORBIDDEN:
                     offenders.append(f"{os.path.relpath(path, REPO)}: {name}")
     assert len(_port_files()) > 20
+    assert os.path.join(PORT, "ops", "attention.py") in _port_files()
     assert not offenders, offenders
 
 
@@ -268,4 +269,26 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Translator(params, beam)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         evaluate.main(["--ckpt", NPZ, "--simulate", "1", "--beam", "5"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate.main(["--ckpt", NPZ, "--simulate", "1", "--int8-cross"])
+    unfolded = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, lean_step=False, dec_kv_heads=0, cross_cache_int8=True))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Translator(params, unfolded)
     assert resolve_device("cpu") == torch.device("cpu")
+    # ops/attention.py: the plain version only for CPU tensors; any other
+    # device goes to the kernel or raises.
+    from nanodecoder_tpu_torch.ops import attention
+
+    q, kv = torch.zeros(2, 64), torch.zeros(2, 8, 64)
+    n = torch.full((2,), 8, dtype=torch.int32)
+    before = attention.decode_attention.launches
+    assert attention.decode_attention(q, kv, kv, n, 4)[0].device.type == "cpu"
+    assert attention.decode_attention.launches == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        attention.decode_attention(q.to("meta"), kv.to("meta"), kv.to("meta"),
+                                   n.to("meta"), 4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        attention.decode_attention_grouped(torch.zeros(4, 64, device="meta"),
+                                           kv.to("meta"), kv.to("meta"),
+                                           n.to("meta"), 4, 2)
