@@ -10,7 +10,12 @@ Phases, in order; any failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi) and the kernel build;
   2. kernels, each against its plain PyTorch version at the main path's
      shapes, with the kernel's, the plain version's and one PyTorch
-     library call's time (CUDA events, median of 25) beside its bound:
+     library call's time (CUDA events, median of 25) beside its bound and
+     the bound's share of the kernel's time.  The per-call time includes
+     the wrapper's host dispatch (tens of microseconds of Python), so
+     every kernel and its library call are also timed device-only: N
+     calls (10 for the encoder attention, 50 for K4a/K4b, 100 for the
+     short kernels) captured into one CUDA graph, its replay over N:
      K1 (encoder attention on the QKV slab), K5 and K6 (the same on
      separate q/k/v and on the (B, S, H, Dh) layout) in f32 and bf16;
      K2 (cache block write, bit-exact) at the MQA and the MHA self-cache
@@ -45,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -98,6 +104,23 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, n: int = 100, reps: int = 10) -> float:
+    """Device time of one call of fn without host dispatch, in ms: n calls
+    captured back to back into one CUDA graph, its replay timed with CUDA
+    events (median of reps), over n."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=1) / n
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -120,9 +143,16 @@ def phase_build() -> None:
     _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({len(_build.sources())} sources)")
-    for line in log.splitlines():
-        if "Used" in line or "Compiling entry" in line:
-            print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    # One line per kernel: its mangled name without the namespace prefix,
+    # registers and spills (shared memory is dynamic, sized at launch).
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line:
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "",
+                          line.split("'")[1])
+            info = [x.split(":")[-1].strip() for x in lines[i + 1:i + 4]
+                    if "Used" in x or "spill" in x]
+            print("  ptxas:", name[:60], "|", " | ".join(info))
 
 
 def phase_enc_attn(name, dtype, dev, rng) -> dict:
@@ -160,9 +190,11 @@ def phase_enc_attn(name, dtype, dev, rng) -> dict:
 
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in heads)
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
     ms = cuda_ms(run)
     plain_ms = cuda_ms(plain)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    lib_ms = cuda_ms(sdpa)
+    g_ms, g_lib = graph_ms(run, 10), graph_ms(sdpa, 10)
     # Work this data needs: every query row; keys up to each row's length
     # (all S for a length-0 row, whose attention is uniform).
     n_eff = np.where(lengths > 0, lengths, s).astype(np.float64)
@@ -171,9 +203,28 @@ def phase_enc_attn(name, dtype, dev, rng) -> dict:
         + lens.numel() * 4
     bms, by = bound(nbytes, flops, dtype)
     print(f"{name} {str(dtype)[6:]}: max_abs_err {max_err:.3g}  kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by})")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+          f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}); "
+          f"device only (CUDA graph): kernel {g_ms:.4f} ms  sdpa {g_lib:.4f} ms, bound "
+          f"share {bms / g_ms:.3f}, kernel / sdpa {g_ms / g_lib:.3f}")
+    out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+           "graph_ms": g_ms, "library_graph_ms": g_lib}
+    if name == "K1":
+        # Device time against the keys each row needs: every length 1, 64
+        # (one 64-key tile) and 256 (no key skipped).
+        sweep = {}
+        for n in (1, 64, 256):
+            lens_n = torch.full((b,), n, dtype=torch.int32, device=dev)
+            mask_n = (torch.arange(s, device=dev) < n)[None, None, None, :]
+            sweep[str(n)] = [
+                graph_ms(lambda: ea.flash_encoder_attention_qkv(qkv, lens_n, h), 10),
+                graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                attn_mask=mask_n), 10)]
+        print(f"{name} {str(dtype)[6:]} device only by length (kernel / sdpa ms): "
+              + ", ".join(f"all {n}: {k:.4f} / {l:.4f}" for n, (k, l) in sweep.items()))
+        out["graph_ms_by_length"] = {n: k for n, (k, _l) in sweep.items()}
+        out["library_graph_ms_by_length"] = {n: l for n, (_k, l) in sweep.items()}
+    return out
 
 
 def head_sum_gap(q, k, lens, heads, group, row, t_a, t_b, k_scale=None) -> float:
@@ -247,13 +298,15 @@ def phase_k4(kind: str, group: int, dev, rng) -> dict:
 
     ms = cuda_ms(run)
     plain_ms = cuda_ms(plain)
-    lib_ms = None
+    g_ms = graph_ms(run, 50)
+    lib_ms = g_lib = None
     if kind != "int8":  # no library call takes int8 caches
         qt = q.view(b, group, h, dh).transpose(1, 2).contiguous()
         kt, vt = (x.view(b, t, h, dh).transpose(1, 2).contiguous() for x in (k, v))
         mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                attn_mask=mask))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
+                                                      attn_mask=mask)
+        lib_ms, g_lib = cuda_ms(sdpa), graph_ms(sdpa, 50)
     # Work this data needs: the rows below each chunk's length (all T for
     # a length-0 row), read once for the chunk's `group` queries.
     n_eff = float(np.where(lengths > 0, lengths, t).astype(np.float64).sum())
@@ -262,11 +315,15 @@ def phase_k4(kind: str, group: int, dev, rng) -> dict:
     flops = 4.0 * group * n_eff * d
     bms, by = bound(nbytes, flops, torch.float32 if kind == "int8" else qdt)
     lib = f"sdpa {lib_ms:.4f} ms" if lib_ms is not None else "sdpa n/a (int8)"
+    glib = f"sdpa {g_lib:.4f} ms, kernel / sdpa {g_ms / g_lib:.3f}" \
+        if g_lib is not None else "sdpa n/a"
     print(f"{name} {kind} B{b} G{group}: max_abs_err {max_err:.3g}, {len(bad)} near-tie "
           f"positions  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {lib}  bound "
-          f"{bms:.4f} ms ({by})")
+          f"{bms:.4f} ms ({by}); device only (CUDA graph): kernel {g_ms:.4f} ms  {glib}, "
+          f"bound share {bms / g_ms:.3f}")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "graph_ms": g_ms, "library_graph_ms": g_lib}
 
 
 def phase_k2(dtype, dev, c=256) -> dict:
@@ -285,14 +342,18 @@ def phase_k2(dtype, dev, c=256) -> dict:
     check(torch.equal(cache, ref), f"K2 {dtype}: kernel differs from plain")
     step = 61
     t0 = (step // cu.BLOCK) * cu.BLOCK
-    ms = cuda_ms(lambda: cu.write_cache_block(cache, slab, step))
+    run = lambda: cu.write_cache_block(cache, slab, step)  # noqa: E731
+    lib = lambda: cache[:, t0:t0 + cu.BLOCK].copy_(slab)  # noqa: E731
+    ms, lib_ms = cuda_ms(run), cuda_ms(lib)
     plain_ms = cuda_ms(lambda: cu.write_cache_block_plain(cache, slab, step))
-    lib_ms = cuda_ms(lambda: cache[:, t0:t0 + cu.BLOCK].copy_(slab))
+    g_ms, g_lib = graph_ms(run), graph_ms(lib)
     bms, by = bound(2 * slab.numel() * slab.element_size(), 0.0, dtype)
     print(f"K2 {str(dtype)[6:]} C{c}: bit-exact over {t} steps  kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  copy_ {lib_ms:.4f} ms  bound {bms:.4f} ms ({by})")
+          f"plain {plain_ms:.4f} ms  copy_ {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}); "
+          f"device only (CUDA graph): kernel {g_ms:.4f} ms  copy_ {g_lib:.4f} ms")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "graph_ms": g_ms, "library_graph_ms": g_lib}
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -334,9 +395,11 @@ def phase_k3(dev) -> dict:
                   for g, r in zip(got, ref)), f"K3 {name}: kernel differs from plain")
     alive, lp, fin = cases["mid"]
     flat = (alive[:, :, None] + lp).reshape(b, k * v)
-    ms = cuda_ms(lambda: bs.beam_advance(alive, lp, fin, pen, k, v, EOS_ID))
+    run = lambda: bs.beam_advance(alive, lp, fin, pen, k, v, EOS_ID)  # noqa: E731
+    lib = lambda: torch.topk(flat, 2 * k, dim=1)  # noqa: E731
+    ms, lib_ms = cuda_ms(run), cuda_ms(lib)
     plain_ms = cuda_ms(lambda: bs.beam_advance_plain(alive, lp, fin, pen, k, v, EOS_ID))
-    lib_ms = cuda_ms(lambda: torch.topk(flat, 2 * k, dim=1))
+    g_ms, g_lib = graph_ms(run), graph_ms(lib)
     # Read alive, log-probs and finished once; write the five outputs.
     nbytes = 4 * (b * k + b * k * v + b * k) + 4 * (b * 2 * k + 4 * b * k)
     # The add, 2K block-wide argmax rounds over K*V, two small picks.
@@ -345,9 +408,11 @@ def phase_k3(dev) -> dict:
     print(f"K3 float32: bit-exact on {len(cases)} cases (mid-decode, step 0 with "
           f"an all -1e9 finished set, all ties)  kernel {ms:.4f} ms  plain "
           f"{plain_ms:.4f} ms  topk(2K) {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}; "
-          f"a launch costs more: launch- and latency-bound)")
+          f"a launch costs more: launch- and latency-bound); device only (CUDA graph): "
+          f"kernel {g_ms:.4f} ms  topk(2K) {g_lib:.4f} ms")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms}
+            "bound_by": by, "library_ms": lib_ms, "graph_ms": g_ms,
+            "library_graph_ms": g_lib}
 
 
 def phase_k7(dev) -> dict:
@@ -363,16 +428,20 @@ def phase_k7(dev) -> dict:
               f"K7 {name}: kernel differs from plain")
     alive, lp, _fin = cases["mid"]
     flat = (alive[:, :, None] + lp).reshape(b, k * v)
-    ms = cuda_ms(lambda: bs.beam_topk(alive, lp, n_out))
+    run = lambda: bs.beam_topk(alive, lp, n_out)  # noqa: E731
+    lib = lambda: torch.topk(flat, n_out, dim=1)  # noqa: E731
+    ms, lib_ms = cuda_ms(run), cuda_ms(lib)
     plain_ms = cuda_ms(lambda: bs.beam_topk_plain(alive, lp, n_out))
-    lib_ms = cuda_ms(lambda: torch.topk(flat, n_out, dim=1))
+    g_ms, g_lib = graph_ms(run), graph_ms(lib)
     nbytes = 4 * (b * k + b * k * v) + 8 * b * n_out
     bms, by = bound(nbytes, float(b * k * v * (1 + n_out)), torch.float32)
     print(f"K7 float32: bit-exact on {len(cases)} cases  kernel {ms:.4f} ms  plain "
           f"{plain_ms:.4f} ms  topk({n_out}) {lib_ms:.4f} ms  bound {bms:.4f} ms "
-          f"({by}; launch- and latency-bound)")
+          f"({by}; launch- and latency-bound); device only (CUDA graph): kernel "
+          f"{g_ms:.4f} ms  topk({n_out}) {g_lib:.4f} ms")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms}
+            "bound_by": by, "library_ms": lib_ms, "graph_ms": g_ms,
+            "library_graph_ms": g_lib}
 
 
 def load_config(compute_dtype: str, h2d: str, batch_chunks: int, model=None,

@@ -3,9 +3,8 @@
 // Replaces: nanodecoder_tpu/ops/attention.py `_decode_attn_kernel` (the
 // Pallas body of `decode_attention`, K4a: one query row per cache row)
 // and `_decode_attn_grouped_kernel` (`decode_attention_grouped`, K4b: the
-// G beams of a chunk against the chunk's one cache row, read once).  One
-// kernel serves both: K4a is the group-1 case.  MHA only: the cache holds
-// all H heads, D = H * Dh.
+// G beams of a chunk against the chunk's one cache row, read once), one
+// kernel each.  MHA only: the cache holds all H heads, D = H * Dh.
 //
 // Math, per query row and head (the Pallas kernel's rounding points): the
 // query in the cache dtype (int8 caches: f32 query times the per-lane K
@@ -16,26 +15,50 @@
 // dtype (f32 for int8), P.V accumulated in f32, times the per-lane V
 // scale for int8, rounded to the query dtype.
 //
-// What bounds it on the H100: bytes.  At B 640, T 256, D 256 it reads
+// What bounds it on the H100: bytes.  At B 640, T 256, D 256 K4a reads
 // 168 MB of bf16 K/V (0.050 ms at 3.35 TB/s; f32 0.100 ms, int8 0.025
 // ms) and does 0.17 GFLOP.  K4b reads each chunk's cache once for its G
-// beams, so its bytes fall by G against K4a on tiled caches.  Rows at
-// t >= valid are masked to probability exactly 0 and are not read (a
-// length-0 padding row attends uniformly and reads all T).
+// beams, so its bytes fall by G against K4a on tiled caches (B 256 x G 5:
+// 0.020 ms in bf16).  Rows at t >= valid are masked to probability
+// exactly 0 and are not read (a length-0 padding row attends uniformly
+// and reads all T).
 //
-// Design (simple first): one block of 256 threads per cache row.  A
-// thread owns 8 lanes of a row (16 bytes of bf16), so D / 8 threads cover
-// a row and the block walks 256 / (D / 8) rows per pass; the Dh / 8
-// threads of a head reduce their partial dot products with warp shuffles.
-// The G x H x T f32 scores live in dynamic shared memory (40 KB at G 5,
-// H 8, T 256), where one warp per (beam, head) takes the softmax and one
-// warp per beam the head-summed argmax.  P.V accumulates per thread in
-// registers (G x 8 lanes) over its rows, and the row groups' partial sums
-// meet in shared memory.  No cp.async/TMA pipeline yet.
+// K4a (`decode_attn_kernel`, group 1): one block of 256 threads per cache
+// row.  A thread owns 8 lanes of a row (16 bytes of bf16), so D / 8
+// threads cover a row and the block walks 256 / (D / 8) rows per pass;
+// the Dh / 8 threads of a head reduce their partial dot products with
+// warp shuffles.  The H x T f32 scores live in shared memory, where one
+// warp per head takes the softmax.  P.V accumulates per thread in
+// registers over its rows, and the row groups' partial sums meet in
+// shared memory.  It runs level with or ahead of the library's fused
+// attention, so it stays as it is.
+//
+// K4b (`decode_attn_grouped_kernel`, group 2 to 8): at G 5 K4a's design
+// is latency-bound (one dependent 512-byte row load per warp per pass, G
+// dot products each ending in two shuffle rounds), so K4b has its own
+// kernel.  One block of 256 threads per
+// chunk streams the chunk's K rows, then its V rows, through a 4-stage
+// ring of cp.async tiles of about 16 KB (32 rows of bf16 or int8, 16 of
+// f32 at D 256; 16 bytes a thread; three stages in flight while one is
+// used, so a block keeps about 50 KB in flight; rows padded by 16 bytes
+// so the column reads below are free of bank conflicts), and the stages
+// of V are already in flight while the softmax runs.  Scores: one warp
+// per head; a lane takes one cache row of the stage (in f32 two lanes
+// share a row and one shuffle adds their halves) and computes all G dot
+// products from it, the G queries read from shared memory as broadcasts.
+// The G x H x T scores stay in shared memory for the per-(beam, head)
+// softmax and the head-summed argmax, as before.  P.V: a thread owns one
+// output channel (up to four at D > 256) and keeps G accumulators,
+// reading four probabilities per float4.  Instantiated for each G, so
+// registers match it.  At G 5, H 8, T 256 a block takes 111 KB of shared
+// memory in bf16 (79 KB in int8): two blocks per SM, so the 256 blocks of
+// a beam batch of 256 chunks are all resident at once; the ring's depth,
+// not a third block, supplies the bytes in flight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <math.h>
 #include <stdint.h>
 
@@ -48,6 +71,7 @@ constexpr float kNegInf = -1e9f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -261,16 +285,290 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
   return cudaGetLastError();
 }
 
+// ---- K4b: the grouped kernel -------------------------------------------------
+
+constexpr int kStages = 4;       // ring depth: three stages in flight while one is used
+constexpr int kMaxD = 1024;      // P.V: each thread owns D / 256 <= 4 channels
+constexpr int kMaxSmem = 227 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// Cache rows per ring stage: 32 (one per lane) for bf16 and int8, 16 for
+// f32 (two lanes per row), so a bf16 or f32 stage holds about 16 KB at
+// D 256.  Ring rows are padded by 16 bytes, so the rows that lanes read
+// at one column fall in distinct banks.
+__host__ __device__ constexpr int ring_rows(int elt) { return elt == 4 ? 16 : 32; }
+__host__ __device__ inline int ring_row_bytes(int d, int elt) { return d * elt + 16; }
+__host__ __device__ inline int score_stride(int t, int rows) {
+  return (t + rows - 1) / rows * rows;
+}
+
+size_t grouped_smem(int group, int t, int d, int heads, int elt) {
+  const int rows = ring_rows(elt);
+  return sizeof(float) * ((size_t)group * d + (size_t)group * heads * score_stride(t, rows)) +
+         (size_t)kStages * rows * ring_row_bytes(d, elt);
+}
+
+template <typename TQ, typename TKV, int G, int KC>
+__global__ void __launch_bounds__(kThreads, 2)
+decode_attn_grouped_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                           const TKV* __restrict__ v, const int* __restrict__ lens,
+                           const float* __restrict__ ks, const float* __restrict__ vs,
+                           TQ* __restrict__ out, int* __restrict__ amax, int t_len, int d,
+                           int heads, float scale) {
+  extern __shared__ float4 smem_f4[];
+  constexpr int kRows = ring_rows((int)sizeof(TKV));
+  constexpr int kLanesPerRow = 32 / kRows;
+  const int ts = score_stride(t_len, kRows);
+  const int dh = d / heads;
+  const int rb = ring_row_bytes(d, (int)sizeof(TKV));
+  float* qs = reinterpret_cast<float*>(smem_f4);              // [G][D] f32 queries
+  float* ss = qs + G * d;                                      // [G * H][ts] scores, probs
+  char* ring = reinterpret_cast<char*>(ss + (size_t)G * heads * ts);  // [kStages][kRows][rb]
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n = lens[b];
+  const int n_eff = n > 0 ? min(n, t_len) : t_len;
+  const int nk = (n_eff + kRows - 1) / kRows;
+  const size_t base = (size_t)b * t_len * d;
+
+  // Stage i < nk: K rows [kRows i, +kRows); stage nk + j: V rows of tile
+  // j.  Rows at or past n_eff are zero-filled, never read.
+  auto load_stage = [&](int i) {
+    const TKV* src = i < nk ? k : v;
+    const int t0 = (i < nk ? i : i - nk) * kRows;
+    char* dst = ring + (size_t)(i % kStages) * kRows * rb;
+    const int chunks = d * (int)sizeof(TKV) / 16;
+    for (int c = tid; c < kRows * chunks; c += kThreads) {
+      const int r = c / chunks, off = (c % chunks) * 16;
+      const bool live = t0 + r < n_eff;
+      const char* g = reinterpret_cast<const char*>(src + base + (size_t)(t0 + r) * d) + off;
+      cp_async16(dst + r * rb + off, live ? g : reinterpret_cast<const char*>(src), live ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < 2 * nk) load_stage(i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+  for (int i = tid; i < G * d; i += kThreads) {
+    float x = to_f32(q[(size_t)b * G * d + i]);
+    if (ks != nullptr) x *= ks[(size_t)b * d + i % d];
+    qs[i] = x;
+  }
+  for (int i = tid; i < G * heads * (t_len - n_eff); i += kThreads) {
+    const int tail = t_len - n_eff;
+    ss[(size_t)(i / tail) * ts + n_eff + i % tail] = kNegInf;
+  }
+
+  // Registers for the P.V product: thread owns channels tid + 256 c,
+  // c < KC (KC 1 for D <= 256, else 4).
+  float acc[G][KC];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int c = 0; c < KC; ++c) acc[g][c] = 0.f;
+
+  const int part_of_row = lane / kRows, r = lane % kRows;
+  for (int i = 0; i < 2 * nk; ++i) {
+    if (i + kStages - 1 < 2 * nk) load_stage(i + kStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+    __syncthreads();
+    const char* stage = ring + (size_t)(i % kStages) * kRows * rb;
+
+    if (i < nk) {
+      // Scores: warp per head; lane r % kRows takes row r of the stage and
+      // (for f32, split over two lanes) the head's channels for all G
+      // queries; for f32 one shuffle adds the two halves.
+      const int t = i * kRows + r;
+      const bool live = t < n_eff;
+      const TKV* krow = reinterpret_cast<const TKV*>(stage + r * rb);
+      for (int h = warp; h < heads; h += kThreads / 32) {
+        const int c0 = h * dh + part_of_row * (dh / kLanesPerRow);
+        float part[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) part[g] = 0.f;
+        for (int c = c0; c < c0 + dh / kLanesPerRow; c += kVec) {
+          float kf[kVec];
+          load8(krow + c, kf);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float4 qa = *reinterpret_cast<const float4*>(qs + g * d + c);
+            const float4 qb = *reinterpret_cast<const float4*>(qs + g * d + c + 4);
+            part[g] = fmaf(kf[0], qa.x, part[g]);
+            part[g] = fmaf(kf[1], qa.y, part[g]);
+            part[g] = fmaf(kf[2], qa.z, part[g]);
+            part[g] = fmaf(kf[3], qa.w, part[g]);
+            part[g] = fmaf(kf[4], qb.x, part[g]);
+            part[g] = fmaf(kf[5], qb.y, part[g]);
+            part[g] = fmaf(kf[6], qb.z, part[g]);
+            part[g] = fmaf(kf[7], qb.w, part[g]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float s = part[g];
+          if (kLanesPerRow == 2) s += __shfl_xor_sync(0xffffffffu, s, 16);
+          if (live && part_of_row == 0)
+            ss[(size_t)(g * heads + h) * ts + t] = t < n ? s * scale : kNegInf;
+        }
+      }
+    } else {
+      if (i == nk) {
+        // Softmax: one warp per (beam, head) row of scores.
+        for (int j = warp; j < G * heads; j += kThreads / 32) {
+          float* row = ss + (size_t)j * ts;
+          float m = -INFINITY;
+          for (int t = lane; t < t_len; t += 32) m = fmaxf(m, row[t]);
+          m = warp_max(m);
+          float z = 0.f;
+          for (int t = lane; t < t_len; t += 32) {
+            const float e = expf(row[t] - m);
+            row[t] = e;
+            z += e;
+          }
+          z = warp_sum(z);
+          // A masked position's 0 skips the division (whose fast path does
+          // not take zeros); the quotient would be the same 0.
+          for (int t = lane; t < t_len; t += 32) {
+            const float e = row[t];
+            row[t] = e > 0.f ? __fdiv_rn(e, z) : 0.f;
+          }
+        }
+        __syncthreads();
+        // Attention position: one warp per beam; lowest t on ties.
+        for (int g = warp; g < G; g += kThreads / 32) {
+          const float* pg = ss + (size_t)g * heads * ts;
+          float best = -INFINITY;
+          int best_t = t_len;
+          for (int t = lane; t < t_len; t += 32) {
+            float s = pg[t];
+            for (int hh = 1; hh < heads; ++hh) s += pg[(size_t)hh * ts + t];
+            if (s > best) {
+              best = s;
+              best_t = t;
+            }
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+            const int ot = __shfl_xor_sync(0xffffffffu, best_t, o);
+            if (ob > best || (ob == best && ot < best_t)) {
+              best = ob;
+              best_t = ot;
+            }
+          }
+          if (lane == 0) amax[(size_t)b * G + g] = best_t;
+        }
+        __syncthreads();
+        // Probabilities as P.V sees them: rounded to the V dtype; 0 past T.
+        for (int j = tid; j < G * heads * ts; j += kThreads) {
+          const int t = j % ts;
+          ss[j] = t < t_len ? p_as<TKV>(ss[j]) : 0.f;
+        }
+        __syncthreads();
+      }
+      // P.V over the stage's rows (rows past n_eff hold zeros and p 0).
+      const int t0 = (i - nk) * kRows;
+#pragma unroll
+      for (int cc = 0; cc < KC; ++cc) {
+        const int c = tid + cc * kThreads;
+        if (c < d) {
+          const float* prow = ss + (size_t)(c / dh) * ts + t0;
+#pragma unroll
+          for (int rr = 0; rr < kRows; rr += 4) {
+            float vv[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              vv[jj] = to_f32(reinterpret_cast<const TKV*>(stage + (rr + jj) * rb)[c]);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const float4 p = *reinterpret_cast<const float4*>(prow + (size_t)g * heads * ts + rr);
+              acc[g][cc] = fmaf(p.x, vv[0], acc[g][cc]);
+              acc[g][cc] = fmaf(p.y, vv[1], acc[g][cc]);
+              acc[g][cc] = fmaf(p.z, vv[2], acc[g][cc]);
+              acc[g][cc] = fmaf(p.w, vv[3], acc[g][cc]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int cc = 0; cc < KC; ++cc) {
+    const int c = tid + cc * kThreads;
+    if (c < d) {
+      const float sc = vs != nullptr ? vs[(size_t)b * d + c] : 1.f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float s = acc[g][cc];
+        if (vs != nullptr) s *= sc;
+        out[((size_t)b * G + g) * d + c] = from_f32<TQ>(s);
+      }
+    }
+  }
+}
+
+template <typename TQ, typename TKV, int G, int KC>
+cudaError_t launch_grouped(const void* q, const void* k, const void* v, const int* lens,
+                           const float* ks, const float* vs, void* out, int* amax, int b,
+                           int t, int d, int heads, float scale, cudaStream_t st) {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (!(done.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(decode_attn_grouped_kernel<TQ, TKV, G, KC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    done.fetch_or(bit, std::memory_order_release);
+  }
+  const size_t smem = grouped_smem(G, t, d, heads, (int)sizeof(TKV));
+  decode_attn_grouped_kernel<TQ, TKV, G, KC><<<b, kThreads, smem, st>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
+      lens, ks, vs, static_cast<TQ*>(out), amax, t, d, heads, scale);
+  return cudaGetLastError();
+}
+
 template <typename TQ, typename TKV>
 cudaError_t dispatch_group(const void* q, const void* k, const void* v, const int* lens,
                            const float* ks, const float* vs, void* out, int* amax,
                            int b, int group, int t, int d, int heads, float scale,
                            cudaStream_t st) {
-  if (group == 1)
-    return launch<TQ, TKV, 1>(q, k, v, lens, ks, vs, out, amax, b, group, t, d, heads,
-                              scale, st);
-  return launch<TQ, TKV, kMaxGroup>(q, k, v, lens, ks, vs, out, amax, b, group, t, d,
-                                    heads, scale, st);
+#define ND_GROUPED(G)                                                                    \
+  case G:                                                                                \
+    return d <= kThreads ? launch_grouped<TQ, TKV, G, 1>(q, k, v, lens, ks, vs, out, amax, \
+                                                         b, t, d, heads, scale, st)       \
+                         : launch_grouped<TQ, TKV, G, kMaxD / kThreads>(                  \
+                               q, k, v, lens, ks, vs, out, amax, b, t, d, heads, scale, st);
+  switch (group) {
+    case 1:
+      return launch<TQ, TKV, 1>(q, k, v, lens, ks, vs, out, amax, b, group, t, d, heads,
+                                scale, st);
+    ND_GROUPED(2)
+    ND_GROUPED(3)
+    ND_GROUPED(4)
+    ND_GROUPED(5)
+    ND_GROUPED(6)
+    ND_GROUPED(7)
+    ND_GROUPED(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef ND_GROUPED
 }
 
 }  // namespace
@@ -281,12 +579,20 @@ extern "C" int nd_decode_attention(const void* q, const void* k, const void* v,
                                    int group, int t, int d, int heads, int is_bf16,
                                    int is_int8, float scale, void* stream) {
   if (b <= 0 || t <= 0 || d <= 0 || heads <= 0 || group < 1 || group > kMaxGroup ||
-      d % heads || d % kVec || kThreads % (d / kVec))
+      d % heads)
     return (int)cudaErrorInvalidValue;
-  const int lanes = d / heads / kVec;
-  if (lanes <= 0 || (lanes & (lanes - 1)) ||
-      sizeof(float) * smem_floats(group, t, d, heads) > 227u * 1024u)
-    return (int)cudaErrorInvalidValue;
+  if (group == 1) {
+    const int lanes = d / heads / kVec;
+    if (d % kVec || kThreads % (d / kVec) || lanes <= 0 || (lanes & (lanes - 1)) ||
+        sizeof(float) * smem_floats(group, t, d, heads) > 227u * 1024u)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    const int elt = is_int8 ? 1 : is_bf16 ? 2 : 4;
+    const int dh = d / heads;
+    if (dh % 16 || d > kMaxD || (d * elt) % 16 ||
+        grouped_smem(group, t, d, heads, elt) > (size_t)kMaxSmem)
+      return (int)cudaErrorInvalidValue;
+  }
   if (is_int8 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int* ln = static_cast<const int*>(lens);

@@ -7,53 +7,99 @@
 // `_enc_attn_kernel` (`flash_encoder_attention`, K6: the (B, S, H, Dh)
 // layout, which is K5's on the contiguous (B, S, H * Dh) view).  Each
 // Pallas kernel keeps one batch row's (S, S) score tile in VMEM so the
-// probabilities never reach device memory.  One CUDA kernel serves all
+// probabilities never reach device memory.  One kernel family serves all
 // three: it takes a q, a k and a v pointer and the row stride between
 // consecutive positions (3D for the slab, D otherwise).
 //
-// Math, per (batch row b, head h): logits = q.k^T * scale accumulated in
-// f32; keys at positions >= lengths[b] are set to -1e9 (select, not add,
-// so a length-0 padding row comes out uniform, never NaN); f32 softmax;
-// probabilities rounded to the input dtype; P.V accumulated in f32 and
-// rounded to the output dtype.  Heads are concatenated in the (B, S, D)
-// output.
+// Math, per (batch row b, head h): logits = q.k^T accumulated in f32, then
+// * scale; keys at positions >= lengths[b] are set to -1e9 (a select, so
+// a length-0 padding row comes out uniform, never NaN); f32 softmax with
+// max subtraction, accurate expf and an IEEE division by the row sum;
+// probabilities rounded to the input dtype BEFORE the value product (no
+// online rescaling of the output, which would move that rounding point);
+// P.V accumulated in f32 and rounded to the output dtype.
 //
 // What bounds it on the H100: at the flagship shape (B 640, S 256, D 256,
-// 2 heads of 128) one call does 42.9 GFLOP against 335 MB (bf16) or
-// 671 MB (f32) of traffic.  In f32 the exact-f32 requirement keeps it off
-// the tensor cores, so it is bound by the 67 TFLOP/s CUDA-core f32 rate
-// (~0.64 ms); in bf16 the data sheet says memory (~0.10 ms) would bound a
-// tensor-core kernel.  K5 and K6 read the same bytes from three tensors.
+// 2 heads of 128) one call moves 335 MB in bf16 (0.100 ms at 3.35 TB/s)
+// and does at most 42.9 GFLOP (0.043 ms on the bf16 tensor cores), so the
+// bf16 kernel is bytes-bound.  In f32 the exact-f32 requirement keeps it
+// off the tensor cores (no TF32): 67 TFLOP/s on the CUDA cores, so the
+// f32 kernel is operations-bound (0.32 ms for the keys its rows need).
 //
-// Design (simple and exact first): one block of 256 threads per (query
-// tile of 32 rows, head, batch row).  Q's tile is converted to f32 in
-// shared memory; K and then V stream through a 64-row shared tile; the
-// block's (32, S) f32 score strip stays in shared memory for the softmax
-// and the value product, so scores never reach device memory either.
-// Both products run as f32 FMAs on the CUDA cores (register tiles of 2x4
-// scores and 4 rows x Dh/32 outputs per thread).  Tensor-core MMA, TMA and
-// a pipelined K/V ring are left for a later change.
+// Both paths skip the K/V tiles that lie wholly at or past a row's length
+// n (n > 0): those keys get probability exactly 0 (expf(-1e9 - max)
+// underflows), so skipping them changes no result.  A length-0 row still
+// goes over all S keys.
+//
+// bf16 path (`enc_attn_bf16`): tensor cores through mma.sync m16n8k16
+// (bf16 in, f32 accumulate) fed by ldmatrix.  One block of 4 warps per
+// (64 query rows, head, batch row); each warp owns 16 query rows, whose Q
+// fragments stay in registers.  K and V tiles of 64 rows stream through a
+// double-buffered cp.async ring of 4 slots (16 bytes a thread, rows padded
+// by 16 bytes so ldmatrix is free of bank conflicts).  Two passes over K:
+// the first takes each row's max and its sum of exp(s - max) (the sum
+// rescaled when the max grows), the second recomputes the scores, forms
+// the normalised probabilities, rounds them to bf16 and feeds them from
+// registers as the A operand of the P.V mma, so they never touch shared
+// memory.  Any S works.  The kernel is bound by latency, not by its work:
+// a one-pass variant that kept the (16, S <= 256) scores in registers did
+// 2/3 of the tensor work and read K once, but needed so many registers
+// that one block fewer fit on an SM, and it was slower on the H100; so
+// was a deeper ring (three K tiles in flight in pass 1).
+//
+// f32 path (`enc_attn_f32`): exact f32 FMAs on the CUDA cores.  One block
+// of 256 threads per (32 query rows, head, batch row); the block's (32, S)
+// score strip stays in shared memory, so one pass over K and one over V.
+// Register tiles fed by float4 shared loads: for the scores the two
+// halves of the block each take half of the head's channels with 4 x 4
+// tiles (16 FMAs per K load), then add; for P.V a thread keeps 2 rows x 8
+// columns.  S is limited by the strip's shared memory (S <= 1408 at Dh
+// 128); the wrapper raises above it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTQ = 32;         // query rows per block
-constexpr int kTK = 64;         // key/value rows per shared tile
-constexpr int kThreads = 256;   // 8 warps
 constexpr float kNegInf = -1e9f;
+constexpr int kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---- shared helpers ---------------------------------------------------------
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy rows [r0, r0 + rows) of one head's DH-wide column slice (offset
+// `col`) of an operand with row stride `ld` into shared memory with row
+// stride `srow` elements.  Rows at or past `s` are zero-filled.
+template <typename T, int DH, int THREADS>
+__device__ __forceinline__ void load_rows(T* dst, int srow, const T* __restrict__ base,
+                                          int r0, int rows, int s, int ld, int col) {
+  constexpr int kChunks = DH * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  constexpr int kPer = 16 / (int)sizeof(T);
+  for (int i = threadIdx.x; i < rows * kChunks; i += THREADS) {
+    const int r = i / kChunks, c = i % kChunks, row = r0 + r;
+    const bool live = row < s;
+    const T* src = live ? base + (size_t)row * ld + col + c * kPer : base;
+    cp_async16(dst + r * srow + c * kPer, src, live ? 16 : 0);
+  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -68,164 +114,462 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-size_t smem_bytes(int dh, int s) {
-  return sizeof(float) * ((size_t)(kTQ + kTK) * (dh + 1) + (size_t)kTQ * s);
+// p = e / l with IEEE rounding.  A zero numerator (a masked key) gives 0
+// without the division, whose fast path does not take zeros: the result
+// is the same, the slow path is skipped.
+__device__ __forceinline__ float div_prob(float e, float l) {
+  return e > 0.f ? __fdiv_rn(e, l) : 0.f;
 }
 
-// Load rows [r0, r0 + rows) of one head's column slice (offset `col`) of
-// an operand with row stride `ld` into an f32 tile with row stride DH + 1 (the +1 keeps the
-// column-wise reads of the score loop free of bank conflicts).  Rows past
-// the sequence end are zero.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ base,
-                                          int r0, int rows, int s, int ld, int col) {
-  for (int i = threadIdx.x; i < rows * DH; i += kThreads) {
-    const int r = i / DH, c = i % DH, row = r0 + r;
-    tile[r * (DH + 1) + c] = row < s ? to_f32(base[(size_t)row * ld + col + c]) : 0.f;
+// Keys each row of batch row b needs: all S for a length-0 row.
+__device__ __forceinline__ int keys_needed(int n, int s) { return n > 0 ? min(n, s) : s; }
+
+// Set the dynamic shared-memory limit of `kernel` once per device.
+template <typename K>
+cudaError_t allow_smem(K* kernel, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// ---- bf16: tensor cores ----------------------------------------------------
+
+constexpr int kBQ = 64;          // query rows per block (16 per warp)
+constexpr int kBK = 64;          // key/value rows per tile
+constexpr int kThreads16 = 128;  // 4 warps
+constexpr int kSlots = 4;        // K/V tiles in shared memory: two K/V pairs
+
+template <int DH> __host__ __device__ constexpr int srow16() { return DH + 8; }  // +16 bytes
+template <int DH> __host__ __device__ constexpr size_t smem16() {
+  return kSlots * (size_t)kBK * srow16<DH>() * sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The warp's 16 x 64 score tile against the K tile `ks`: sc[j] holds the
+// mma C fragment of keys 8j .. 8j + 7 (rows g and g + 8, columns 2t and
+// 2t + 1 of the lane), already scaled and masked.  Columns at or past `s`
+// get -inf (no key there), columns at or past n get -1e9.
+template <int DH>
+__device__ __forceinline__ void score_tile(float (&sc)[8][4], const uint32_t (&qf)[DH / 16][4],
+                                           const __nv_bfloat16* ks, int k0, int n, int s,
+                                           float scale) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int nb = 0; nb < 8; nb += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, ks + (nb * 8 + lane % 8 + 8 * (lane / 16)) * srow16<DH>() + kk * 16 +
+                     8 * ((lane / 8) % 2));
+      mma16816(sc[nb], qf[kk], b[0], b[1]);
+      mma16816(sc[nb + 1], qf[kk], b[2], b[3]);
+    }
   }
+  if (k0 + kBK <= min(n, s)) {  // every key of the tile is live
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] *= scale;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+      sc[j][e] = col >= s ? -INFINITY : (col < n ? sc[j][e] * scale : kNegInf);
+    }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-enc_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const int* __restrict__ lengths,
-                T* __restrict__ out, int s, int heads, int ld, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [kTQ][DH + 1]
-  float* kv = qs + kTQ * (DH + 1);         // [kTK][DH + 1]
-  float* ss = kv + kTK * (DH + 1);         // [kTQ][s] scores, then probs
+// Two passes over K per block, so any S works and the (16, S) scores are
+// never held.  Stage i < nk is K tile i (pass 1), stage nk + t is K tile t
+// and V tile t (pass 2); stage i goes to slots 2 (i % 2) and 2 (i % 2) + 1,
+// one stage in flight while the other is used.
+template <int DH>
+__global__ void __launch_bounds__(kThreads16)
+enc_attn_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+              __nv_bfloat16* __restrict__ out, int s, int heads, int ld, float scale) {
+  extern __shared__ uint4 smem_raw[];
+  __nv_bfloat16* slots = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  constexpr int SROW = srow16<DH>();
+  auto slot = [&](int j) { return slots + j * kBK * SROW; };
 
-  const int q0 = blockIdx.x * kTQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int d = heads * DH;
-  const int n = lengths[b];
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row0 = (size_t)b * s * ld;
-  const int tid = threadIdx.x;
+  const int col = h * DH;
 
-  load_tile<T, DH>(qs, q + row0, q0, kTQ, s, ld, h * DH);
-
-  // Scores: thread (rg, cg) owns rows 2rg, 2rg+1 and columns cg + 16j.
-  const int rg = tid / 16, cg = tid % 16;
-  for (int k0 = 0; k0 < s; k0 += kTK) {
-    __syncthreads();  // Q tile ready; previous K tile consumed
-    load_tile<T, DH>(kv, k + row0, k0, kTK, s, ld, h * DH);
-    __syncthreads();
-    float acc[2][4] = {};
-#pragma unroll 8
-    for (int c = 0; c < DH; ++c) {
-      const float qa = qs[(2 * rg) * (DH + 1) + c];
-      const float qb = qs[(2 * rg + 1) * (DH + 1) + c];
+  // Prologue: Q into slot 2 and K tile 0 (every row needs it) into slot
+  // 0, started before the row's length is known; Q fragments to registers.
+  load_rows<__nv_bfloat16, DH, kThreads16>(slot(2), SROW, q + row0, q0, kBQ, s, ld, col);
+  load_rows<__nv_bfloat16, DH, kThreads16>(slot(0), SROW, k + row0, 0, kBK, s, ld, col);
+  cp_async_commit();
+  const int n = lengths[b];
+  const int nk = (keys_needed(n, s) + kBK - 1) / kBK;  // K/V tiles this row needs
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[DH / 16][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kk = kv[(cg + 16 * j) * (DH + 1) + c];
-        acc[0][j] = fmaf(qa, kk, acc[0][j]);
-        acc[1][j] = fmaf(qb, kk, acc[1][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + cg + 16 * j;
-        if (col < s) ss[(2 * rg + i) * s + col] = col < n ? acc[i][j] * scale : kNegInf;
-      }
-    }
-  }
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldsm_x4(qf[kk], slot(2) + (warp * 16 + lane % 16) * SROW + kk * 16 + 8 * (lane / 16));
   __syncthreads();
 
-  // Softmax: each warp owns rows warp, warp + 8, ...
+  auto load_stage = [&](int i) {
+    const int t = i < nk ? i : i - nk;
+    __nv_bfloat16* dst = slot(2 * (i % 2));
+    load_rows<__nv_bfloat16, DH, kThreads16>(dst, SROW, k + row0, t * kBK, kBK, s, ld, col);
+    if (i >= nk)
+      load_rows<__nv_bfloat16, DH, kThreads16>(dst + kBK * SROW, SROW, v + row0, t * kBK,
+                                               kBK, s, ld, col);
+  };
+
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of the warp
+  float l[2] = {0.f, 0.f};
+  float o[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int step = 0; step < 2 * nk; ++step) {
+    if (step + 1 < 2 * nk) load_stage(step + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* ks = slot(2 * (step % 2));
+    float sc[8][4];
+    if (step < nk) {
+      // Pass 1: the row max and the sum of exp(s - max).
+      score_tile<DH>(sc, qf, ks, step * kBK, n, s, scale);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = m[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mt = fmaxf(mt, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        float sum = l[r] * expf(m[r] - mt);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          sum += expf(sc[j][2 * r] - mt) + expf(sc[j][2 * r + 1] - mt);
+        l[r] = sum;
+        m[r] = mt;
+      }
+    } else {
+      if (step == nk) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        }
+      }
+      // Pass 2: normalised probabilities, rounded to bf16 and packed as
+      // the A fragments of the P.V mma (keys 16kk .. 16kk + 15 are
+      // pa[kk]: columns 2t, 2t + 1 of C fragments 2kk and 2kk + 1).
+      score_tile<DH>(sc, qf, ks, (step - nk) * kBK, n, s, scale);
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float* c = sc[2 * kk + half];
+          pa[kk][2 * half] = pack_bf16(div_prob(expf(c[0] - m[0]), l[0]),
+                                       div_prob(expf(c[1] - m[0]), l[0]));
+          pa[kk][2 * half + 1] = pack_bf16(div_prob(expf(c[2] - m[1]), l[1]),
+                                           div_prob(expf(c[3] - m[1]), l[1]));
+        }
+      // o += P times the V tile (read transposed by ldmatrix).
+      const __nv_bfloat16* vs = ks + kBK * SROW;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int nb = 0; nb < DH / 8; nb += 2) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, vs + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * SROW + nb * 8 +
+                            8 * (lane / 16));
+          mma16816(o[nb], pa[kk], bv[0], bv[1]);
+          mma16816(o[nb + 1], pa[kk], bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int d = heads * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+    if (qi >= s) continue;
+    __nv_bfloat16* dst = out + ((size_t)b * s + qi) * d + col + 2 * (lane % 4);
+#pragma unroll
+    for (int nb = 0; nb < DH / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(dst + nb * 8) =
+          __floats2bfloat162_rn(o[nb][2 * r], o[nb][2 * r + 1]);
+  }
+}
+
+// ---- f32: register-tiled CUDA cores ----------------------------------------
+
+constexpr int kTQ = 32;          // query rows per block
+constexpr int kTK = 64;          // key/value rows per tile
+constexpr int kThreads32 = 256;  // 8 warps
+
+template <int DH> __host__ __device__ constexpr int srow32() { return DH + 4; }  // keeps float4 rows aligned
+inline int strip_stride(int s) { return (s + 31) / 32 * 32 + 8; }
+size_t smem32(int dh, int s) {
+  return sizeof(float) *
+         ((size_t)(kTQ + kTK) * (dh + 4) + (size_t)kTQ * strip_stride(s));
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads32, 2)
+enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ lengths,
+             float* __restrict__ out, int s, int heads, int ld, float scale) {
+  extern __shared__ float4 smem_f4[];
+  constexpr int SROW = srow32<DH>();
+  float* qs = reinterpret_cast<float*>(smem_f4);  // [kTQ][SROW]
+  float* kv = qs + kTQ * SROW;                     // [kTK][SROW]
+  float* ss = kv + kTK * SROW;                     // [kTQ][sp] scores, then probs
+  const int sp = (s + 31) / 32 * 32 + 8;
+
+  const int q0 = blockIdx.x * kTQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)b * s * ld;
+  const int col = h * DH;
+
+  // Q and K tile 0 (every row needs it), started before the row's length
+  // is known.
+  load_rows<float, DH, kThreads32>(qs, SROW, q + row0, q0, kTQ, s, ld, col);
+  load_rows<float, DH, kThreads32>(kv, SROW, k + row0, 0, kTK, s, ld, col);
+  cp_async_commit();
+  const int n = lengths[b];
+  const int nk = (keys_needed(n, s) + kTK - 1) / kTK;
+  const int kend = min(s, nk * kTK);  // keys past kend have probability 0
+
+  // Scores: the two halves of the block take the two halves of the head's
+  // channels; thread (ty, tx) of a half owns rows 4ty .. 4ty + 3 and keys
+  // tx + 16j, a 4 x 4 register tile.  The first half leaves its partial
+  // sums in the strip; the second adds its own, scales and masks.
+  const int half = tid / 128, ty = (tid % 128) / 16, tx = tid % 16;
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt > 0) {
+      load_rows<float, DH, kThreads32>(kv, SROW, k + row0, kt * kTK, kTK, s, ld, col);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    float acc[4][4] = {};
+#pragma unroll 4
+    for (int c = half * (DH / 2); c < (half + 1) * (DH / 2); c += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * SROW + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 kk = *reinterpret_cast<const float4*>(kv + (tx + 16 * j) * SROW + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j] = fmaf(a[i].x, kk.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, kk.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, kk.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, kk.w, acc[i][j]);
+        }
+      }
+    }
+    if (half == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = kt * kTK + tx + 16 * j;
+          if (key < s) ss[(4 * ty + i) * sp + key] = acc[i][j];
+        }
+    }
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = kt * kTK + tx + 16 * j;
+          float* cell = ss + (4 * ty + i) * sp + key;
+          if (key < s) *cell = key < n ? (*cell + acc[i][j]) * scale : kNegInf;
+        }
+    }
+    __syncthreads();  // the K tile is consumed; the scores are complete
+  }
+
+  // Softmax over keys [0, kend); keys [kend, kend rounded up to 4) get 0
+  // so the float4 reads of the value product see finite zeros.
   const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < kTQ; r += kThreads / 32) {
-    float* row = ss + r * s;
-    float m = -INFINITY;
-    for (int c = lane; c < s; c += 32) m = fmaxf(m, row[c]);
-    m = warp_max(m);
+  const int kend4 = (kend + 3) / 4 * 4;
+  for (int r = warp; r < kTQ; r += kThreads32 / 32) {
+    float* row = ss + r * sp;
+    float mx = -INFINITY;
+    for (int c = lane; c < kend; c += 32) mx = fmaxf(mx, row[c]);
+    mx = warp_max(mx);
     float sum = 0.f;
-    for (int c = lane; c < s; c += 32) {
-      const float e = expf(row[c] - m);
+    for (int c = lane; c < kend; c += 32) {
+      const float e = expf(row[c] - mx);
       row[c] = e;
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int c = lane; c < s; c += 32) row[c] = to_f32(from_f32<T>(row[c] / sum));
+    for (int c = lane; c < kend4; c += 32) row[c] = c < kend ? div_prob(row[c], sum) : 0.f;
   }
 
-  // Value product: warp owns rows 4*warp .. +4, lane owns columns lane + 32c.
-  constexpr int kCols = DH / 32;
-  const int r0 = warp * 4;
-  float o[4][kCols] = {};
-  for (int k0 = 0; k0 < s; k0 += kTK) {
-    __syncthreads();  // probs complete; previous V tile consumed
-    load_tile<T, DH>(kv, v + row0, k0, kTK, s, ld, h * DH);
+  // Value product: thread (ry, cx) owns RT rows and NV float4 column groups
+  // at 4cx + u * DH / 2.
+  constexpr int NV = DH == 128 ? 2 : 1;
+  constexpr int TX = DH / (4 * NV);
+  constexpr int TY = kThreads32 / TX;
+  constexpr int RT = kTQ / TY;
+  const int ry = tid / TX, cx = tid % TX;
+  float4 o[RT][NV];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int u = 0; u < NV; ++u) o[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int kt = 0; kt < nk; ++kt) {
+    __syncthreads();  // probabilities complete; previous V tile consumed
+    load_rows<float, DH, kThreads32>(kv, SROW, v + row0, kt * kTK, kTK, s, ld, col);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    const int kmax = min(kTK, s - k0);
-    for (int j = 0; j < kmax; ++j) {
-      float vj[kCols];
+    const int jmax = min(kTK, kend4 - kt * kTK);
+    for (int j = 0; j < jmax; j += 4) {
+      float4 p[RT];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vj[c] = kv[j * (DH + 1) + lane + 32 * c];
+      for (int r = 0; r < RT; ++r)
+        p[r] = *reinterpret_cast<const float4*>(ss + (RT * ry + r) * sp + kt * kTK + j);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ss[(r0 + i) * s + k0 + j];
+      for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) o[i][c] = fmaf(p, vj[c], o[i][c]);
+        for (int u = 0; u < NV; ++u) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(kv + (j + jj) * SROW + 4 * cx + u * (DH / 2));
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            const float pr = jj == 0 ? p[r].x : jj == 1 ? p[r].y : jj == 2 ? p[r].z : p[r].w;
+            o[r][u].x = fmaf(pr, vv.x, o[r][u].x);
+            o[r][u].y = fmaf(pr, vv.y, o[r][u].y);
+            o[r][u].z = fmaf(pr, vv.z, o[r][u].z);
+            o[r][u].w = fmaf(pr, vv.w, o[r][u].w);
+          }
+        }
       }
     }
   }
+  const int d = heads * DH;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + r0 + i;
-    if (q >= s) continue;
-    T* dst = out + ((size_t)b * s + q) * d + h * DH;
+  for (int r = 0; r < RT; ++r) {
+    const int qi = q0 + RT * ry + r;
+    if (qi >= s) continue;
+    float* dst = out + ((size_t)b * s + qi) * d + col + 4 * cx;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dst[lane + 32 * c] = from_f32<T>(o[i][c]);
+    for (int u = 0; u < NV; ++u) *reinterpret_cast<float4*>(dst + u * (DH / 2)) = o[r][u];
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   void* out, int b, int s, int heads, int ld, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(DH, s);
-  cudaError_t err = cudaFuncSetAttribute(enc_attn_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// ---- launch ------------------------------------------------------------------
+
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* lengths,
+                        void* out, int b, int s, int heads, int ld, float scale,
+                        cudaStream_t stream) {
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = allow_smem(enc_attn_bf16<DH>, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + kTQ - 1) / kTQ, heads, b);
-  enc_attn_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lengths, static_cast<T*>(out), s, heads, ld, scale);
+  const dim3 grid((s + kBQ - 1) / kBQ, heads, b);
+  enc_attn_bf16<DH><<<grid, kThreads16, smem16<DH>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), s,
+      heads, ld, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const int* lengths,
-                        void* out, int b, int s, int heads, int dh, int ld, float scale,
-                        cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, lengths, out, b, s, heads, ld, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, lengths, out, b, s, heads, ld, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, lengths, out, b, s, heads, ld, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int DH>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lengths,
+                       void* out, int b, int s, int heads, int ld, float scale,
+                       cudaStream_t stream) {
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = allow_smem(enc_attn_f32<DH>, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + kTQ - 1) / kTQ, heads, b);
+  enc_attn_f32<DH><<<grid, kThreads32, smem32(DH, s), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), lengths, static_cast<float*>(out), s, heads, ld, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v: the first element of position 0 of batch row 0 of each
 // operand; position p of batch row b starts at (b * s + p) * ld elements
-// after it.  out: (B, S, heads * dh), contiguous.
+// after it.  All three 16-byte aligned, ld a multiple of 16 bytes.
+// out: (B, S, heads * dh), contiguous.
 extern "C" int nd_encoder_attention(const void* q, const void* k, const void* v,
                                     const void* lengths, void* out, int b, int s,
                                     int heads, int dh, int ld, int is_bf16, float scale,
                                     void* stream) {
+  const int elt = is_bf16 ? 2 : 4;
+  const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
   if (b <= 0 || s <= 0 || heads <= 0 || b > 65535 || heads > 65535 ||
-      ld < heads * dh || smem_bytes(dh, s) > 227u * 1024u)
+      ld < heads * dh || (ld * elt) % 16 || !aligned ||
+      (!is_bf16 && smem32(dh, s) > (size_t)kMaxSmem))
     return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-                   ? dispatch_dh<__nv_bfloat16>(q, k, v, len, out, b, s, heads, dh, ld,
-                                                scale, st)
-                   : dispatch_dh<float>(q, k, v, len, out, b, s, heads, dh, ld, scale, st));
+  if (is_bf16) {
+    switch (dh) {
+      case 32: return (int)launch_bf16<32>(q, k, v, len, out, b, s, heads, ld, scale, st);
+      case 64: return (int)launch_bf16<64>(q, k, v, len, out, b, s, heads, ld, scale, st);
+      case 128: return (int)launch_bf16<128>(q, k, v, len, out, b, s, heads, ld, scale, st);
+    }
+  } else {
+    switch (dh) {
+      case 32: return (int)launch_f32<32>(q, k, v, len, out, b, s, heads, ld, scale, st);
+      case 64: return (int)launch_f32<64>(q, k, v, len, out, b, s, heads, ld, scale, st);
+      case 128: return (int)launch_f32<128>(q, k, v, len, out, b, s, heads, ld, scale, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -24,8 +24,11 @@ This mirrors the Pallas kernel bodies (`_decode_attn_kernel`,
 head-summed argmax and the rounding points are the kernel's.
 
 On a CUDA tensor the wrappers launch the kernels in
-`csrc/decode_attention.cu`; on a CPU tensor they run the plain PyTorch
-versions below.  Nothing falls back from one to the other.
+`csrc/decode_attention.cu` (K4a and K4b have a kernel each: the grouped
+one streams the chunk's cache through a cp.async ring and is
+instantiated per group size); on a CPU tensor they run the plain PyTorch
+versions below.  Nothing falls back from one to the other: a CUDA input
+the kernels do not take raises.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from nanodecoder_tpu_torch.ops import _build
 
 NEG_INF = -1e9
 MAX_GROUP = 8
+GROUPED_MAX_D = 1024  # K4b: a thread owns at most D / 256 = 4 output channels
 _DTYPES = (torch.float32, torch.bfloat16)
 _NO_IDX = 2 ** 30
 
@@ -152,11 +156,14 @@ def _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
     if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
         raise ValueError("all inputs must lie on one CUDA device")
     dh = d // n_heads
-    if dh % 8 or (dh // 8) & (dh // 8 - 1) or 256 % (d // 8):
-        raise ValueError(f"kernel needs Dh / 8 a power of two and D / 8 dividing "
-                         f"256; got D {d}, Dh {dh}")
     if group > MAX_GROUP:
         raise ValueError(f"group {group} > {MAX_GROUP}")
+    if group == 1 and (dh % 8 or (dh // 8) & (dh // 8 - 1) or 256 % (d // 8)):
+        raise ValueError(f"kernel needs Dh / 8 a power of two and D / 8 dividing "
+                         f"256; got D {d}, Dh {dh}")
+    if group > 1 and (dh % 16 or d > GROUPED_MAX_D):
+        raise ValueError(f"the grouped kernel needs Dh a multiple of 16 and D <= "
+                         f"{GROUPED_MAX_D}; got D {d}, Dh {dh}")
     if valid_lens.dtype != torch.int32:
         raise TypeError("valid_lens must be int32")
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in tensors):

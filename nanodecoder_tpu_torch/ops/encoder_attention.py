@@ -13,11 +13,14 @@ lengths[b] set to -1e9 (a length-0 padding row gets uniform attention,
 not NaN), f32 softmax, probabilities cast to the input dtype, P.V
 accumulated in f32 and cast to the input dtype.
 
-On a CUDA tensor each wrapper launches the hand-written kernel in
-`csrc/encoder_attention.cu` (one kernel for all three layouts, given
-three pointers and a row stride) and counts its own launches; on a CPU
+On a CUDA tensor each wrapper launches the hand-written kernels in
+`csrc/encoder_attention.cu` (one kernel family for all three layouts,
+given three pointers and a row stride: tensor cores in bf16, register-
+tiled CUDA cores in exact f32) and counts its own launches; on a CPU
 tensor it runs the plain PyTorch version below.  Nothing falls back from
-one to the other.
+one to the other: a CUDA input the kernels do not take raises.  The f32
+kernel keeps a (32, S) score strip in shared memory, which bounds S
+(`f32_max_seq`); the bf16 kernel takes any S.
 """
 
 from __future__ import annotations
@@ -31,6 +34,14 @@ from nanodecoder_tpu_torch.ops import _build
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+_MAX_SMEM = 227 * 1024  # shared memory one block may use on the H100
+
+
+def f32_max_seq(dh: int) -> int:
+    """The longest S the f32 kernel takes at head dim dh: its shared
+    memory holds Q (32 rows) and K/V (64 rows) tiles of Dh + 4 floats and
+    the (32, S) score strip, S rounded up to 32 plus 8 (csrc smem32)."""
+    return ((_MAX_SMEM // 4 - 96 * (dh + 4)) // 32 - 8) // 32 * 32
 
 
 def encoder_attention_heads_plain(q, k, v, lengths):
@@ -71,6 +82,12 @@ def _check(x: torch.Tensor, lengths: torch.Tensor, b: int, dh: int) -> bool:
         raise TypeError("lengths must be int32")
     if not (x.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("inputs and lengths must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("the kernels read 16-byte rows: inputs must be 16-byte aligned")
+    if x.dtype == torch.float32 and x.shape[1] > f32_max_seq(dh):
+        raise ValueError(f"the f32 kernel keeps a (32, S) score strip in shared memory "
+                         f"and takes S <= {f32_max_seq(dh)} at head dim {dh}; got S "
+                         f"{x.shape[1]} (the bf16 kernel takes any S)")
     return False
 
 

@@ -110,7 +110,46 @@ def test_k1_kernel_matches_plain_on_card(cuda, dtype, atol):
     got = encoder_attention.flash_encoder_attention_qkv(q, n, 2)
     ref = encoder_attention.encoder_attention_plain(q, n, 2)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=atol)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=ENC_TOL[dtype][1])
+
+
+# Kernel-vs-plain tolerances on the card (atol, rtol), as chip_smoke.py
+# states them: f32 sums in another order; bf16 one rounding step of an
+# output or of a probability at a rounding boundary.
+ENC_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (3e-2, 2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 40, 63, 64, 65, 256, 300])
+@pytest.mark.parametrize("heads", [1, 2, 8])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_attention_layouts_on_card(cuda, dtype, dh, heads, s):
+    """K1 (QKV slab), K5 (separate q/k/v) and K6 ((B, S, H, Dh)) against
+    their plain versions, with lengths 0 (uniform), 1, the 64-key tile
+    edges 63, 64, 65 and S, each clipped to S."""
+    ea = encoder_attention
+    lengths = np.minimum([0, 1, 63, 64, 65, s], s).astype(np.int32)
+    b, d = len(lengths), heads * dh
+    rng = np.random.default_rng(1000 * s + 10 * dh + heads)
+    x = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32)).to(cuda, dtype)
+    n = torch.from_numpy(lengths).to(cuda)
+    q, k, v = (x[..., i * d:(i + 1) * d].contiguous() for i in range(3))
+    split = lambda t: t.view(b, s, heads, dh)  # noqa: E731
+    cases = {
+        "K1": (ea.flash_encoder_attention_qkv(x, n, heads),
+               ea.encoder_attention_plain(x, n, heads)),
+        "K5": (ea.flash_encoder_attention_nld(q, k, v, n, heads),
+               ea.encoder_attention_nld_plain(q, k, v, n, heads)),
+        "K6": (ea.flash_encoder_attention(split(q), split(k), split(v), n),
+               ea.encoder_attention_heads_plain(split(q), split(k), split(v), n)),
+    }
+    torch.cuda.synchronize()
+    atol, rtol = ENC_TOL[dtype]
+    for name, (got, ref) in cases.items():
+        assert bool(torch.isfinite(got).all()), name
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
 
 
 @pytest.mark.cuda
