@@ -2,12 +2,14 @@
 """Drive the PyTorch port (nanodecoder_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels K4a,K3 [--root DIR]
 
 Needs one NVIDIA Hopper card, nvcc and the repository checkout around
 this file; the first phase builds the kernels from nanodecoder_tpu_torch/csrc.
 Phases, in order; any failure exits non-zero before the last line:
 
-  1. the card's name and power limit (nvidia-smi) and the kernel build;
+  1. the card's name and power limit (nvidia-smi), the kernel build and
+     the launch floor (an empty kernel's device-only time);
   2. kernels, each against its plain PyTorch version at the main path's
      shapes, with the kernel's, the plain version's and one PyTorch
      library call's time (CUDA events, median of 25) beside its bound and
@@ -15,13 +17,17 @@ Phases, in order; any failure exits non-zero before the last line:
      the wrapper's host dispatch (tens of microseconds of Python), so
      every kernel and its library call are also timed device-only: N
      calls (10 for the encoder attention, 50 for K4a/K4b, 100 for the
-     short kernels) captured into one CUDA graph, its replay over N:
+     short kernels) captured into one CUDA graph, its replay over N; K2
+     and K4a/K4b cycle through input sets of at least 100 MB in all, so
+     their inputs come cold from device memory, as in a serving step:
      K1 (encoder attention on the QKV slab), K5 and K6 (the same on
      separate q/k/v and on the (B, S, H, Dh) layout) in f32 and bf16;
      K2 (cache block write, bit-exact) at the MQA and the MHA self-cache
-     widths; K3 (beam advance) and K7 (beam top-k), bit-exact in f32;
+     widths; K3 (beam advance) and K7 (beam top-k), bit-exact in f32 on
+     six input cases (mid-decode, first step, ties, all below -1e9, fewer
+     than 2K above -1e9, -inf log-probs), at V 344 and V 8;
      K4a (decode attention, B 640) and K4b (grouped, B 256 x G 5) in
-     f32, bf16 and int8;
+     f32, bf16 and int8, and K4a on GQA caches (1 and 2 KV heads);
   3. golden: f32 compute, float32 wire, the flagship checkpoint, the 3
      golden reads (identity to the stored string must reach 0.99);
   4. serving: bf16 compute, int6 wire, batch_chunks 640, 100 simulated
@@ -43,12 +49,19 @@ Phases, in order; any failure exits non-zero before the last line:
   9. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
      beam, 5-6; mha, 7; unfolded, 8), errors, times;
  10. the last line: {"ok": true, "device": {...}}.
+
+`--kernels` runs phase 1 and the named kernels' phase 2 only and prints
+their numbers as one JSON line; with `--root` it imports (and builds)
+the package of another checkout, such as an older tree unpacked into a
+git-ignored directory, to compare two versions in one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -69,6 +82,9 @@ GOLDEN_READS = [(101, 900), (202, 2500), (303, 5200)]  # (seed, n_bases)
 # bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Device-only times of the bytes-bound kernels cycle through input sets
+# holding at least this much, twice the L2 (graph_ms).
+COLD_BYTES = 100e6
 
 # Kernel-vs-plain tolerances (atol, rtol).  f32: both sides accumulate in
 # f32 in another order.  bf16: one bf16 rounding step (2^-8 relative) on
@@ -104,21 +120,41 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, n: int = 100, reps: int = 10) -> float:
-    """Device time of one call of fn without host dispatch, in ms: n calls
+def graph_ms(fns, n: int = 100, reps: int = 10) -> float:
+    """Device time of one call without host dispatch, in ms: n calls
     captured back to back into one CUDA graph, its replay timed with CUDA
-    events (median of reps), over n."""
+    events (median of reps), over n.  `fns` is one callable or a list of
+    them, each on its own set of inputs; the captured calls cycle through
+    the list, so a list whose sets together exceed the 50 MB L2 times the
+    kernel with its inputs cold, as a serving step finds them."""
+    fns = fns if isinstance(fns, (list, tuple)) else [fns]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for fn in fns:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        for _ in range(n):
-            fn()
+        for i in range(n):
+            fns[i % len(fns)]()
     return cuda_ms(graph.replay, reps=reps, warmup=1) / n
+
+
+def n_sets(set_bytes: float) -> int:
+    """Input sets for graph_ms so that they hold at least COLD_BYTES."""
+    return max(1, math.ceil(COLD_BYTES / set_bytes))
+
+
+def phase_floor() -> float:
+    """The launch floor: an empty kernel's device-only time (graph_ms)."""
+    from nanodecoder_tpu_torch.ops import _build
+
+    lib = _build.load()
+    ms = graph_ms(lambda: _build.check(lib.nd_empty_kernel(
+        torch.cuda.current_stream().cuda_stream), "empty kernel"))
+    print(f"launch floor (an empty kernel, device only, CUDA graph): {ms:.4f} ms")
+    return ms
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -229,12 +265,14 @@ def phase_enc_attn(name, dtype, dev, rng) -> dict:
 
 def head_sum_gap(q, k, lens, heads, group, row, t_a, t_b, k_scale=None) -> float:
     """Relative gap, in f64, between the head-summed attention
-    probabilities of query row `row` at positions t_a and t_b."""
+    probabilities of query row `row` at positions t_a and t_b (k may hold
+    fewer KV heads than q has heads)."""
     bi = row // group
     qq = q[row].double() * (k_scale[bi].double() if k_scale is not None else 1.0)
-    t, d = k.shape[1], k.shape[2]
-    dh = d // heads
-    s = (k[bi].double().view(t, heads, dh) * qq.view(1, heads, dh)).sum(-1) / dh ** 0.5
+    t, dh = k.shape[1], q.shape[1] // heads
+    n_kv = k.shape[2] // dh
+    kh = k[bi].double().view(t, n_kv, dh).repeat_interleave(heads // n_kv, dim=1)
+    s = (kh * qq.view(1, heads, dh)).sum(-1) / dh ** 0.5
     n = int(lens[bi])
     if n > 0:
         s[n:] = -1e9
@@ -242,52 +280,39 @@ def head_sum_gap(q, k, lens, heads, group, row, t_a, t_b, k_scale=None) -> float
     return float((p[t_a] - p[t_b]).abs() / p.max())
 
 
-def phase_k4(kind: str, group: int, dev, rng) -> dict:
-    """K4a (group 1, B 640) or K4b (B 256, group 5): T 256, D 256, 8 heads
-    of 32, the MHA flagship's cross attention; kind float32, bfloat16 or
-    int8 (int8 caches, f32 queries)."""
-    import torch.nn.functional as F
-
+def k4_inputs(kind: str, b: int, group: int, t: int, h: int, dh: int, n_kv: int, dev,
+              rng) -> tuple:
+    """One input set of the MHA flagship's cross attention: (q, k, v, lens,
+    lengths, scales).  Most chunks full, the last chunk of a read partial,
+    batch padding rows 0."""
     from nanodecoder_tpu_torch.ops import attention as at
 
-    b = 640 if group == 1 else 256
-    t, h, dh = 256, 8, 32
     d = h * dh
     qdt = torch.float32 if kind == "int8" else getattr(torch, kind)
     q = torch.from_numpy(rng.standard_normal((b * group, d), np.float32)).to(dev, qdt)
-    kf, vf = (torch.from_numpy(rng.standard_normal((b, t, d), np.float32)).to(dev)
+    kf, vf = (torch.from_numpy(rng.standard_normal((b, t, n_kv * dh), np.float32)).to(dev)
               for _ in range(2))
-    # Cross attention reads encoder lengths: most chunks full, the last
-    # chunk of a read partial, batch padding rows 0.
     lengths = np.full(b, t, np.int32)
     lengths[3::16] = rng.integers(1, t + 1, size=len(lengths[3::16]))
     lengths[:3] = (0, 100, t)
     lens = torch.from_numpy(lengths).to(dev)
     if kind == "int8":
         (k, ks), (v, vs) = at.quantize_cache_int8(kf), at.quantize_cache_int8(vf)
-        scales = {"k_scale": ks, "v_scale": vs}
-    else:
-        k, v, scales = kf.to(qdt), vf.to(qdt), {}
-    if group == 1:
-        name = "K4a"
-        run = lambda: at.decode_attention(q, k, v, lens, h, **scales)  # noqa: E731
-        plain = lambda: at.decode_attention_plain(q, k, v, lens, h, **scales)  # noqa: E731
-    else:
-        name = "K4b"
-        run = lambda: at.decode_attention_grouped(  # noqa: E731
-            q, k, v, lens, h, group, **scales)
-        plain = lambda: at.decode_attention_grouped_plain(  # noqa: E731
-            q, k, v, lens, h, group, **scales)
-    (out, amax), (rout, ramax) = run(), plain()
-    torch.cuda.synchronize()
+        return q, k, v, lens, lengths, {"k_scale": ks, "v_scale": vs}
+    return q, kf.to(qdt), vf.to(qdt), lens, lengths, {}
+
+
+def check_k4(name, kind, out, amax, rout, ramax, q, k, lens, h, group,
+             scales) -> tuple[float, int]:
+    """Kernel against plain: outputs within K4_TOL, attention positions
+    equal except at a near-tie of the head sums (the two sides sum exp in
+    another order).  Returns the largest |error| and the near-ties."""
     check(bool(torch.isfinite(out).all()), f"{name} {kind}: non-finite output")
     err = (out.float() - rout.float()).abs()
     atol, rtol = K4_TOL[kind]
     max_err = float(err.max())
     check(bool((err <= atol + rtol * rout.float().abs()).all()),
           f"{name} {kind}: max |kernel - plain| {max_err} over tolerance")
-    # Attention positions: equal, except at a near-tie of the head sums
-    # (the two sides sum exp in another order).
     bad = (amax != ramax).nonzero()[:, 0].tolist()
     check(len(bad) <= max(1, amax.numel() // 1000),
           f"{name} {kind}: {len(bad)} attention positions differ")
@@ -295,39 +320,109 @@ def phase_k4(kind: str, group: int, dev, rng) -> dict:
         gap = head_sum_gap(q.float(), k.float(), lens, h, group, row, int(amax[row]),
                            int(ramax[row]), scales.get("k_scale"))
         check(gap < 1e-5, f"{name} {kind}: row {row} position differs, gap {gap}")
+    return max_err, len(bad)
 
-    ms = cuda_ms(run)
+
+def phase_k4(kind: str, group: int, dev, rng) -> dict:
+    """K4a (group 1, B 640) or K4b (B 256, group 5): T 256, D 256, 8 heads
+    of 32, the MHA flagship's cross attention; kind float32, bfloat16 or
+    int8 (int8 caches, f32 queries).  Device-only times cycle through
+    input sets of at least COLD_BYTES in all (cold caches)."""
+    import torch.nn.functional as F
+
+    from nanodecoder_tpu_torch.ops import attention as at
+
+    b = 640 if group == 1 else 256
+    t, h, dh = 256, 8, 32
+    d = h * dh
+    sets = [k4_inputs(kind, b, group, t, h, dh, h, dev, rng)]
+    q, k, v, lens, lengths, scales = sets[0]
+    set_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, *scales.values()))
+    sets += [k4_inputs(kind, b, group, t, h, dh, h, dev, rng)
+             for _ in range(n_sets(set_bytes) - 1)]
+    if group == 1:
+        name = "K4a"
+        runs = [lambda s=s: at.decode_attention(s[0], s[1], s[2], s[3], h, **s[5])
+                for s in sets]
+        plain = lambda: at.decode_attention_plain(q, k, v, lens, h, **scales)  # noqa: E731
+    else:
+        name = "K4b"
+        runs = [lambda s=s: at.decode_attention_grouped(s[0], s[1], s[2], s[3], h, group,
+                                                        **s[5]) for s in sets]
+        plain = lambda: at.decode_attention_grouped_plain(  # noqa: E731
+            q, k, v, lens, h, group, **scales)
+    (out, amax), (rout, ramax) = runs[0](), plain()
+    torch.cuda.synchronize()
+    max_err, n_bad = check_k4(name, kind, out, amax, rout, ramax, q, k, lens, h, group,
+                              scales)
+
+    ms = cuda_ms(runs[0])
     plain_ms = cuda_ms(plain)
-    g_ms = graph_ms(run, 50)
+    g_ms = graph_ms(runs, 50)
     lib_ms = g_lib = None
     if kind != "int8":  # no library call takes int8 caches
-        qt = q.view(b, group, h, dh).transpose(1, 2).contiguous()
-        kt, vt = (x.view(b, t, h, dh).transpose(1, 2).contiguous() for x in (k, v))
-        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
-                                                      attn_mask=mask)
-        lib_ms, g_lib = cuda_ms(sdpa), graph_ms(sdpa, 50)
+        sdpas = []
+        for sq, sk, sv, sl, _l, _s in sets:
+            qt = sq.view(b, group, h, dh).transpose(1, 2).contiguous()
+            kt, vt = (x.view(b, t, h, dh).transpose(1, 2).contiguous() for x in (sk, sv))
+            mask = (torch.arange(t, device=dev)[None, :] < sl[:, None])[:, None, None, :]
+            sdpas.append(lambda qt=qt, kt=kt, vt=vt, mask=mask:
+                         F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        lib_ms, g_lib = cuda_ms(sdpas[0]), graph_ms(sdpas, 50)
     # Work this data needs: the rows below each chunk's length (all T for
     # a length-0 row), read once for the chunk's `group` queries.
     n_eff = float(np.where(lengths > 0, lengths, t).astype(np.float64).sum())
     nbytes = 2 * n_eff * d * k.element_size() + 2 * q.numel() * q.element_size() \
         + lens.numel() * 4 + amax.numel() * 4 + (2 * b * d * 4 if scales else 0)
     flops = 4.0 * group * n_eff * d
-    bms, by = bound(nbytes, flops, torch.float32 if kind == "int8" else qdt)
+    bms, by = bound(nbytes, flops, torch.float32 if kind == "int8" else q.dtype)
     lib = f"sdpa {lib_ms:.4f} ms" if lib_ms is not None else "sdpa n/a (int8)"
     glib = f"sdpa {g_lib:.4f} ms, kernel / sdpa {g_ms / g_lib:.3f}" \
         if g_lib is not None else "sdpa n/a"
-    print(f"{name} {kind} B{b} G{group}: max_abs_err {max_err:.3g}, {len(bad)} near-tie "
+    print(f"{name} {kind} B{b} G{group}: max_abs_err {max_err:.3g}, {n_bad} near-tie "
           f"positions  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {lib}  bound "
-          f"{bms:.4f} ms ({by}); device only (CUDA graph): kernel {g_ms:.4f} ms  {glib}, "
+          f"{bms:.4f} ms ({by}); device only (CUDA graph, {len(sets)} input set(s), "
+          f"{len(sets) * set_bytes / 1e6:.0f} MB): kernel {g_ms:.4f} ms  {glib}, "
           f"bound share {bms / g_ms:.3f}")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-            "graph_ms": g_ms, "library_graph_ms": g_lib}
+            "graph_ms": g_ms, "library_graph_ms": g_lib, "input_sets": len(sets)}
+
+
+def phase_k4a_gqa(kind: str, n_kv: int, dev, rng) -> dict:
+    """K4a on GQA/MQA caches (n_kv KV heads for the 8 query heads) at
+    phase 2's shapes, against its plain version; device-only time over
+    cold input sets."""
+    from nanodecoder_tpu_torch.ops import attention as at
+
+    b, t, h, dh = 640, 256, 8, 32
+    sets = [k4_inputs(kind, b, 1, t, h, dh, n_kv, dev, rng)]
+    q, k, v, lens, lengths, _ = sets[0]
+    set_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
+    sets += [k4_inputs(kind, b, 1, t, h, dh, n_kv, dev, rng)
+             for _ in range(n_sets(set_bytes) - 1)]
+    out, amax = at.decode_attention(q, k, v, lens, h)
+    rout, ramax = at.decode_attention_plain(q, k, v, lens, h)
+    torch.cuda.synchronize()
+    max_err, n_bad = check_k4(f"K4a GQA n_kv {n_kv}", kind, out, amax, rout, ramax, q, k,
+                              lens, h, 1, {})
+    g_ms = graph_ms([lambda s=s: at.decode_attention(s[0], s[1], s[2], s[3], h)
+                     for s in sets], 50)
+    n_eff = float(np.where(lengths > 0, lengths, t).astype(np.float64).sum())
+    nbytes = 2 * n_eff * k.shape[2] * k.element_size() + 2 * q.numel() * q.element_size() \
+        + lens.numel() * 4 + amax.numel() * 4
+    bms, by = bound(nbytes, 4.0 * n_eff * h * dh, q.dtype)
+    print(f"K4a GQA {kind} n_kv {n_kv} B{b}: max_abs_err {max_err:.3g}, {n_bad} near-tie "
+          f"positions; device only (CUDA graph, {len(sets)} input set(s)): kernel "
+          f"{g_ms:.4f} ms, bound {bms:.4f} ms ({by}), bound share {bms / g_ms:.3f}")
+    return {"max_abs_err": max_err, "graph_ms": g_ms, "bound_ms": bms, "bound_by": by}
 
 
 def phase_k2(dtype, dev, c=256) -> dict:
-    """K2 at the MQA (C 256) or the MHA (C 1536) self-cache width."""
+    """K2 at the MQA (C 256) or the MHA (C 1536) self-cache width.  Its
+    device-only time rotates through fresh slabs and the cache's blocks,
+    COLD_BYTES of slab reads and block writes in all (the greedy loop
+    writes each block 8 times in a row, from a slab made the step before)."""
     from nanodecoder_tpu_torch.ops import cache_update as cu
 
     b, t = 640, 96
@@ -346,14 +441,23 @@ def phase_k2(dtype, dev, c=256) -> dict:
     lib = lambda: cache[:, t0:t0 + cu.BLOCK].copy_(slab)  # noqa: E731
     ms, lib_ms = cuda_ms(run), cuda_ms(lib)
     plain_ms = cuda_ms(lambda: cu.write_cache_block_plain(cache, slab, step))
-    g_ms, g_lib = graph_ms(run), graph_ms(lib)
-    bms, by = bound(2 * slab.numel() * slab.element_size(), 0.0, dtype)
+    slab_bytes = slab.numel() * slab.element_size()
+    slabs = [torch.randn(b, cu.BLOCK, c, device=dev, generator=gen).to(dtype)
+             for _ in range(n_sets(2 * slab_bytes))]
+    blocks = t // cu.BLOCK
+    runs = [lambda i=i: cu.write_cache_block(cache, slabs[i], cu.BLOCK * (i % blocks))
+            for i in range(len(slabs))]
+    libs = [lambda i=i: cache[:, cu.BLOCK * (i % blocks):cu.BLOCK * (i % blocks + 1)].copy_(
+        slabs[i]) for i in range(len(slabs))]
+    g_ms, g_lib = graph_ms(runs), graph_ms(libs)
+    bms, by = bound(2 * slab_bytes, 0.0, dtype)
     print(f"K2 {str(dtype)[6:]} C{c}: bit-exact over {t} steps  kernel {ms:.4f} ms  "
           f"plain {plain_ms:.4f} ms  copy_ {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}); "
-          f"device only (CUDA graph): kernel {g_ms:.4f} ms  copy_ {g_lib:.4f} ms")
+          f"device only (CUDA graph, {len(slabs)} slabs over {blocks} blocks): kernel "
+          f"{g_ms:.4f} ms  copy_ {g_lib:.4f} ms, bound share {bms / g_ms:.3f}")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-            "graph_ms": g_ms, "library_graph_ms": g_lib}
+            "graph_ms": g_ms, "library_graph_ms": g_lib, "input_sets": len(slabs)}
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -361,9 +465,13 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def beam_cases(dev, b=256, k=5, v=344):
-    """Beam-step inputs at the flagship's shapes: a mid-decode step (EOS
-    likely in some rows, part of the finished set filled), the first step
-    (alive [0, -1e9 x4], every finished score -1e9), and all ties."""
+    """Beam-step inputs: a mid-decode step (EOS likely in some rows, part
+    of the finished set filled), the first step (alive [0, -1e9 x4], every
+    finished score -1e9), all ties, "below" (every candidate under -1e9:
+    alive -2e9), "few" (beam 0 has 6 finite log-probs, the rest -inf, and
+    the other beams give exactly -1e9: fewer than 2K candidates above -1e9
+    beside exact -1e9 ties) and "neg_inf" (-inf log-probs in a mid step,
+    a whole beam of them in some rows)."""
     from nanodecoder_tpu_torch.vocab import EOS_ID
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -375,21 +483,32 @@ def beam_cases(dev, b=256, k=5, v=344):
     fin[:, :2] = -torch.rand(b, 2, device=dev, generator=gen)
     first = torch.full((b, k), -1e9, device=dev)
     first[:, 0] = 0.0
+    no_fin = torch.full((b, k), -1e9, device=dev)
+    few = lp.clone()
+    few[:, 0, min(6, v):] = -float("inf")
+    holes = lp.clone()
+    holes[:, :, 1::7] = -float("inf")
+    holes[::5, 1] = -float("inf")
     return {"mid": (alive, lp, fin),
-            "step0": (first, lp, torch.full((b, k), -1e9, device=dev)),
-            "ties": (torch.zeros_like(alive), torch.zeros_like(lp), fin)}
+            "step0": (first, lp, no_fin),
+            "ties": (torch.zeros_like(alive), torch.zeros_like(lp), fin),
+            "below": (torch.full_like(alive, -2e9), lp, no_fin),
+            "few": (first, few, no_fin),
+            "neg_inf": (alive, holes, fin)}
 
 
-def phase_k3(dev) -> dict:
+def phase_k3(dev, floor_ms=None) -> dict:
     from nanodecoder_tpu_torch.ops import beam_step as bs
     from nanodecoder_tpu_torch.vocab import EOS_ID
 
     b, k, v = 256, 5, 344
     pen = 13.0  # the avg length penalty at step 13
-    cases = beam_cases(dev, b, k, v)
+    cases = {**beam_cases(dev, b, k, v),
+             **{f"{name}_v8": c for name, c in beam_cases(dev, b, k, 8).items()}}
     for name, (alive, lp, fin) in cases.items():
-        got = bs.beam_advance(alive, lp, fin, pen, k, v, EOS_ID)
-        ref = bs.beam_advance_plain(alive, lp, fin, pen, k, v, EOS_ID)
+        vv = lp.shape[2]
+        got = bs.beam_advance(alive, lp, fin, pen, k, vv, EOS_ID)
+        ref = bs.beam_advance_plain(alive, lp, fin, pen, k, vv, EOS_ID)
         torch.cuda.synchronize()
         check(all(g.dtype == r.dtype and torch.equal(_bits(g), _bits(r))
                   for g, r in zip(got, ref)), f"K3 {name}: kernel differs from plain")
@@ -405,11 +524,12 @@ def phase_k3(dev) -> dict:
     # The add, 2K block-wide argmax rounds over K*V, two small picks.
     flops = float(b * k * v * (1 + 2 * k) + b * (2 * k * k + 3 * k * k))
     bms, by = bound(nbytes, flops, torch.float32)
-    print(f"K3 float32: bit-exact on {len(cases)} cases (mid-decode, step 0 with "
-          f"an all -1e9 finished set, all ties)  kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.4f} ms  topk(2K) {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}; "
-          f"a launch costs more: launch- and latency-bound); device only (CUDA graph): "
-          f"kernel {g_ms:.4f} ms  topk(2K) {g_lib:.4f} ms")
+    floor = f", launch floor {floor_ms:.4f} ms" if floor_ms is not None else ""
+    print(f"K3 float32: bit-exact on {len(cases)} cases ({', '.join(cases)}; *_v8 at "
+          f"V 8 < 2K)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  topk(2K) "
+          f"{lib_ms:.4f} ms  bound {bms:.4f} ms ({by}; below a launch: launch- and "
+          f"latency-bound); device only (CUDA graph, log-probs L2-warm as the step that "
+          f"wrote them leaves them): kernel {g_ms:.4f} ms  topk(2K) {g_lib:.4f} ms{floor}")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": lib_ms, "graph_ms": g_ms,
             "library_graph_ms": g_lib}
@@ -419,7 +539,8 @@ def phase_k7(dev) -> dict:
     from nanodecoder_tpu_torch.ops import beam_step as bs
 
     b, k, v, n_out = 256, 5, 344, 10
-    cases = beam_cases(dev, b, k, v)
+    cases = {**beam_cases(dev, b, k, v),
+             **{f"{name}_v8": c for name, c in beam_cases(dev, b, k, 8).items()}}
     for name, (alive, lp, _fin) in cases.items():
         s, i = bs.beam_topk(alive, lp, n_out)
         rs, ri = bs.beam_topk_plain(alive, lp, n_out)
@@ -615,15 +736,55 @@ def phase_beam_serving(params, cfg, greedy_idents=None, n_reads=20, label="beam"
     return tr.batches, tr.decode_steps
 
 
-def main() -> int:
+def kernel_times(names: list[str]) -> int:
+    """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
+    three dtypes, K3), one JSON line of their numbers.  With --root on an
+    unpacked older tree, the same measurement of that tree's kernels."""
+    from nanodecoder_tpu_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    stats = {}
+    try:
+        phase_card()
+        t0 = time.perf_counter()
+        _build.load()
+        print(f"kernel build or load: {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(0)
+        for name in names:
+            if name == "K4a":
+                stats[name] = {kind: phase_k4(kind, 1, dev, rng)
+                               for kind in ("float32", "bfloat16", "int8")}
+            elif name == "K3":
+                floor_ms = phase_floor() if hasattr(_build.load(), "nd_empty_kernel") \
+                    else None
+                stats[name] = {"float32": phase_k3(dev, floor_ms)}
+            else:
+                raise SmokeError(f"--kernels takes K4a and K3, not {name}")
+    except SmokeError as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernel_times": stats}))
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated K4a,K3: time only these kernels and stop")
+    ap.add_argument("--root", default=REPO,
+                    help="the checkout whose nanodecoder_tpu_torch to import")
+    args = ap.parse_args(argv or [])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(REPO, "nanodecoder_tpu_torch")):
+    root = os.path.abspath(args.root)
+    if not os.path.isdir(os.path.join(root, "nanodecoder_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, root)
+    if args.kernels:
+        return kernel_times(args.kernels.split(","))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from nanodecoder_tpu_torch.ops.attention import (decode_attention,
@@ -656,16 +817,20 @@ def main() -> int:
     try:
         phase_card()
         phase_build()
+        floor_ms = phase_floor()
         rng = np.random.default_rng(0)
         f32, bf16 = torch.float32, torch.bfloat16
         stats = {name: {str(dt)[6:]: phase_enc_attn(name, dt, dev, rng)
                         for dt in (f32, bf16)} for name in ("K1", "K5", "K6")}
         stats["K2"] = {f"{str(dt)[6:]}{'' if c == 256 else f'_c{c}'}":
                        phase_k2(dt, dev, c) for c in (256, 1536) for dt in (f32, bf16)}
-        stats["K3"], stats["K7"] = {"float32": phase_k3(dev)}, {"float32": phase_k7(dev)}
+        stats["K3"] = {"float32": phase_k3(dev, floor_ms)}
+        stats["K7"] = {"float32": phase_k7(dev)}
         for name, group in (("K4a", 1), ("K4b", 5)):
             stats[name] = {kind: phase_k4(kind, group, dev, rng)
                            for kind in ("float32", "bfloat16", "int8")}
+        stats["K4a"].update({f"gqa_{kind}_nkv{n_kv}": phase_k4a_gqa(kind, n_kv, dev, rng)
+                             for kind in ("float32", "bfloat16") for n_kv in (1, 2)})
 
         golden_cfg = load_config("float32", "float32", 640)
         serve_cfg = load_config("bfloat16", "int6", 640)
@@ -762,6 +927,8 @@ def main() -> int:
                "launches": sum(by_path.values()), "launches_by_path": by_path,
                **kernel_stats[primary], "dtype": primary,
                **{k: v for k, v in kernel_stats.items() if k != primary}}
+        if key in ("K2", "K3", "K7"):
+            out["launch_floor_graph_ms"] = floor_ms
         return {**out, "note": note} if note else out
 
     enc, dec = "nanodecoder_tpu_torch/csrc/encoder_attention.cu", \
@@ -777,7 +944,8 @@ def main() -> int:
               stats["K3"], "one launch per beam decode step"),
         entry("K4a decode_attention", dec, "nanodecoder_tpu/ops/attention.py:62",
               stats["K4a"], "B 640, T 256, D 256, 8 heads; 3 launches per MHA greedy "
-              "step; int8: int8 caches, f32 queries"),
+              "step; int8: int8 caches, f32 queries; gqa_*: n_kv KV heads, checked "
+              "and timed in phase 2 only"),
         entry("K4b decode_attention_grouped", dec, "nanodecoder_tpu/ops/attention.py:201",
               stats["K4b"], "B 256, G 5; 3 launches per MHA beam step"),
         entry("K5 flash_encoder_attention_nld", enc,
@@ -799,4 +967,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

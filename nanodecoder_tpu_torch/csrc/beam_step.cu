@@ -15,20 +15,57 @@
 // What bounds it on the H100: at the flagship's beam step (B 256 rows,
 // K 5, V 344) the kernel reads 1.8 MB and writes 46 KB, about 0.5 us at
 // 3.35 TB/s, and its compares are a few million: a launch costs more than
-// either, so it is launch-bound.
+// either, so it is launch- and latency-bound, and the design cuts the
+// dependent steps between the loads and the stores.
 //
-// Design: one block per batch row keeps the row's K * V candidates in
-// shared memory (6.9 KB at the flagship) and runs the rounds of a
-// block-wide argmax under the order (value desc, index asc): each thread
+// K3 (`beam_advance_warp_kernel`, K <= 10, V >= 4, K * V <= 2048): one
+// warp per batch row, two rows per block.  The warp copies its row into
+// shared memory with cp.async (16 bytes a copy, all in flight at once) and
+// adds alive[slot / V] in place; lane l owns slots 4 (l + 32 g) + e.  No
+// round runs over the whole row:
+//   1. each lane finds its best slot under the order (value desc, index
+//      asc); the lanes rank their bests (31 shuffles) and the lane best of
+//      rank 2K - 1 is a threshold: at least 2K slots are at or above it,
+//      so the top 2K are among the slots at or above it;
+//   2. those slots (typically 2K to 4K of them; more than 128 only on
+//      inputs built for it) are listed, each counts the ones better than
+//      it, and rank r < 2K lands in place r: the top 2K in order, with no
+//      sequential rounds;
+//   3. the overwrite rule in closed form.  Let A be the slots above -1e9.
+//      The first min(2K, |A|) picks are A in order.  After them every slot
+//      of A holds -1e9, so every further pick is the lowest index among
+//      the slots at or equal to -1e9 at the start (A and the exact ties),
+//      and it repeats.  If A is empty the first pick is the best slot
+//      overall; if it lies below -1e9 (no slot equals -1e9), it then holds
+//      -1e9, exceeds every other slot, and comes back with value -1e9.
+//      This is the first step's case too: -1e9 + lp rounds to -1e9, and
+//      the empty finished set returns slot 0 K times.
+// The two small picks (over 2K and 3K candidates, one a lane) rank by
+// shuffles and close the same way.  Should step 1 leave more than 128
+// slots, the warp extracts by the rule itself (2K rounds of a warp argmax
+// over the row, each pick overwritten with -1e9).  Larger K or K * V run
+// the block kernel below.
+//
+// Why shared memory and rolled loops: each SM runs about one block of this
+// kernel per launch, so its code runs once per warp and every instruction
+// is fetched cold.  A version holding the row in registers (64 slots a
+// lane, every pass unrolled: 5,400 instructions) spent about 10 cycles on
+// each, instruction fetch and not loads or arithmetic setting its pace;
+// short loops are fetched once and run from the instruction cache.
+//
+// K7 (`beam_topk_kernel`) and K3 beyond the warp kernel's sizes: one block
+// per batch row keeps the row's K * V candidates in shared memory and runs
+// the rounds of a block-wide argmax under the same order: each thread
 // scans a strided slice, warps reduce by shuffles, warp 0 reduces the
 // warps' results and overwrites the pick.  The order is total, so the
-// result does not depend on the reduction's shape.  Warp 0 then runs the
-// two small picks (over 2K and 3K candidates) with the same argmax.
+// result does not depend on the reduction's shape.  Warp 0 then runs K3's
+// two small picks with the same argmax.
 
 #include <cuda_runtime.h>
 
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -147,6 +184,252 @@ beam_topk_kernel(const float* __restrict__ alive, const float* __restrict__ lp, 
                     ids + (long long)row * n_out);
 }
 
+// ---- K3: one warp per batch row ----------------------------------------------
+
+constexpr int kAdvRows = 2;                  // batch rows (warps) per block
+constexpr int kAdvGroups = 16;               // float4 groups of slots a lane holds
+constexpr int kAdvMaxN = 32 * 4 * kAdvGroups;  // K * V <= 2048
+constexpr int kAdvMaxK = 10;                 // 3K <= 32: a small pick's candidates, one a lane
+constexpr int kAdvCap = 128;                 // slots ranked in shared memory
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ bool ahead(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);   // (value desc, index asc)
+}
+
+struct AdvScratch {
+  float sv[kAdvCap];                         // ranked slots: values, indices
+  int si[kAdvCap];
+  float lv[32];                              // the sorted best of a pick
+  int li[32];
+  float flat[kAdvMaxN];                      // the row (alive added in place)
+  float tops[2 * kAdvMaxK];
+  int topi[2 * kAdvMaxK];
+};
+
+__device__ __forceinline__ int warp_min_int(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+// Pick `lane` (< n) of the iterated extraction, given the best nl entries
+// of the set in order (lv, li) and, where a pick needs it, min_at() (warp-
+// uniform), the lowest index whose value is >= -1e9 (the closed form of
+// the header note).
+template <typename MinAt>
+__device__ __forceinline__ void closed_form(const float* lv, const int* li, int nl, int n,
+                                            MinAt min_at_of, float& v, int& i) {
+  const int lane = threadIdx.x & 31;
+  const unsigned low = __ballot_sync(kFull, lane < nl && lv[lane] <= kNegInf);
+  const int a = low ? __ffs(low) - 1 : nl;   // entries above -1e9
+  const int min_at = a < n ? min_at_of() : INT_MAX;
+  v = kNegInf;
+  i = 0;
+  if (lane < n) {
+    if (lane < a) {
+      v = lv[lane];
+      i = li[lane];
+    } else if (a > 0) {
+      i = min_at;
+    } else {
+      v = lane == 0 ? lv[0] : kNegInf;
+      i = li[0];
+    }
+  }
+}
+
+// The iterated extraction of n picks from len <= 32 candidates, lane j
+// holding candidate j: ranks by shuffles, then the closed form.  Lane j < n
+// writes pick j.
+__device__ void extract_small(float c, int len, int n, AdvScratch& w, float* out_v,
+                              int* out_i) {
+  const int lane = threadIdx.x & 31;
+  int r = 0;
+#pragma unroll 4
+  for (int j = 0; j < len; ++j) r += ahead(__shfl_sync(kFull, c, j), j, c, lane);
+  const bool mine = lane < len;
+  if (mine && r < n) {
+    w.lv[r] = c;
+    w.li[r] = lane;
+  }
+  __syncwarp();
+  float v;
+  int i;
+  closed_form(w.lv, w.li, min(n, len), n,
+              [&] { return warp_min_int(mine && c >= kNegInf ? lane : INT_MAX); }, v, i);
+  if (lane < n) {
+    out_v[lane] = v;
+    out_i[lane] = i;
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__global__ void __launch_bounds__(32 * kAdvRows)
+beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restrict__ lp,
+                         const float* __restrict__ fin, float pen, int b, int k, int v,
+                         int eos, int* __restrict__ top_ids, float* __restrict__ alive_s,
+                         int* __restrict__ alive_sel, float* __restrict__ fin_s,
+                         int* __restrict__ fin_sel) {
+  __shared__ __align__(16) AdvScratch scratch[kAdvRows];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kAdvRows + warp;
+  if (row >= b) return;                      // the whole warp leaves
+  AdvScratch& w = scratch[warp];
+  float* flat = w.flat;
+  const int n = k * v, n2 = 2 * k;
+  const float* src = lp + (size_t)row * n;
+
+  // The row into shared memory by cp.async, every copy in flight at once;
+  // slots past n (up to the group of 4) read as -inf.
+  const int groups = (n + 127) / 128;        // float4 groups a lane takes
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(lp) & 15) == 0) {
+    for (int g = 0; g < groups; ++g) {
+      const int i0 = 4 * (lane + 32 * g);
+      if (i0 < n)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(flat + i0)),
+                     "l"(src + i0));
+    }
+  } else {
+    for (int i = lane; i < n; i += 32)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(flat + i)),
+                   "l"(src + i));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int i = n + lane; i < 128 * groups; i += 32) flat[i] = -INFINITY;
+  const float al = lane < k ? alive[(size_t)row * k + lane] : 0.f;
+  const float fo = lane < k ? fin[(size_t)row * k + lane] : 0.f;
+  const float inv_v = 1.f / (float)v;
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncwarp();
+
+  // flat = alive[slot / V] + lp, in place; a group's 4 slots span at most
+  // two beams (V >= 4), the first one's from an f32 estimate, corrected.
+  // Then this lane's best slot, slots visited in index order; a lane
+  // without slots (or with only -inf ones) keeps a sentinel whose index,
+  // unique per lane, ranks it behind every slot.
+  float bv = -INFINITY;
+  int bi = INT_MAX - 31 + lane;
+#pragma unroll 4
+  for (int g = 0; g < groups; ++g) {
+    const int i0 = 4 * (lane + 32 * g);
+    int beam = (int)((float)i0 * inv_v);
+    beam -= beam * v > i0;
+    beam += (beam + 1) * v <= i0;
+    const int next = (beam + 1) * v;        // the next beam's first slot
+    const float a0 = __shfl_sync(kFull, al, min(beam, k - 1));
+    const float a1 = __shfl_sync(kFull, al, min(beam + 1, k - 1));
+    float4 f = *reinterpret_cast<float4*>(flat + i0);
+    f.x += i0 < next ? a0 : a1;
+    f.y += i0 + 1 < next ? a0 : a1;
+    f.z += i0 + 2 < next ? a0 : a1;
+    f.w += i0 + 3 < next ? a0 : a1;
+    *reinterpret_cast<float4*>(flat + i0) = f;
+    const float e[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i0 + j < n && e[j] > bv) {
+        bv = e[j];
+        bi = i0 + j;
+      }
+    }
+  }
+
+  // 1. The lanes' bests ranked; the one of rank 2K - 1 is the threshold.
+  int rank = 0;
+#pragma unroll 4
+  for (int o = 1; o < 32; ++o) {
+    const float ov = __shfl_sync(kFull, bv, (lane + o) & 31);
+    const int oi = __shfl_sync(kFull, bi, (lane + o) & 31);
+    rank += ahead(ov, oi, bv, bi);
+  }
+  const int th_lane = __ffs(__ballot_sync(kFull, rank == n2 - 1)) - 1;
+  const float tv = __shfl_sync(kFull, bv, th_lane);
+  const int ti = __shfl_sync(kFull, bi, th_lane);
+
+  // 2. The slots at or above the threshold (bit 4 g + e of keep), counted
+  // and placed.
+  uint64_t keep = 0;
+#pragma unroll 4
+  for (int g = 0; g < groups; ++g) {
+    const int i0 = 4 * (lane + 32 * g);
+    const float4 f = *reinterpret_cast<const float4*>(flat + i0);
+    const unsigned bits = (unsigned)(i0 < n && !ahead(tv, ti, f.x, i0)) |
+                          (unsigned)(i0 + 1 < n && !ahead(tv, ti, f.y, i0 + 1)) << 1 |
+                          (unsigned)(i0 + 2 < n && !ahead(tv, ti, f.z, i0 + 2)) << 2 |
+                          (unsigned)(i0 + 3 < n && !ahead(tv, ti, f.w, i0 + 3)) << 3;
+    keep |= (uint64_t)bits << (4 * g);
+  }
+  const int cnt = __popcll(keep);
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += up;
+  }
+  const int total = __shfl_sync(kFull, incl, 31);
+
+  float pv;                                  // lane j < 2K: pick j
+  int pi;
+  if (total <= kAdvCap) {
+    int off = incl - cnt;
+    for (uint64_t m = keep; m != 0; m &= m - 1) {
+      const int bit = __ffsll((long long)m) - 1;
+      const int i = 4 * (lane + 32 * (bit >> 2)) + (bit & 3);
+      w.sv[off] = flat[i];
+      w.si[off] = i;
+      ++off;
+    }
+    __syncwarp();
+    for (int s = lane; s < total; s += 32) {
+      const float xv = w.sv[s];
+      const int xi = w.si[s];
+      int r = 0;
+#pragma unroll 8
+      for (int j = 0; j < total; ++j) r += ahead(w.sv[j], w.si[j], xv, xi);
+      if (r < n2) {
+        w.lv[r] = xv;
+        w.li[r] = xi;
+      }
+    }
+    __syncwarp();
+    // 3. The closed form.
+    closed_form(w.lv, w.li, min(n2, total), n2, [&] {
+      int first = INT_MAX;
+      for (int i = lane; i < n; i += 32)
+        if (flat[i] >= kNegInf) {
+          first = i;
+          break;
+        }
+      return warp_min_int(first);
+    }, pv, pi);
+  } else {
+    // The rule itself (inputs built for it): 2K rounds of a warp argmax
+    // over the row, picks overwritten.
+    extract_top_warp(flat, n, n2, w.tops, w.topi);
+    pv = lane < n2 ? w.tops[lane] : kNegInf;
+    pi = lane < n2 ? w.topi[lane] : 0;
+  }
+
+  // The alive set: best K of the 2K picks that are not EOS (lane j holds
+  // candidate j).
+  const bool pick_eos = pi - (pi / v) * v == eos;
+  if (lane < n2) top_ids[(size_t)row * n2 + lane] = pi;
+  extract_small(pick_eos ? kNegInf : pv, n2, k, w, alive_s + (size_t)row * k,
+                alive_sel + (size_t)row * k);
+  // The finished set: best K of the old finished scores and the EOS picks
+  // over the length penalty (lane j < K: old slot j; lane j >= K: pick
+  // j - K).
+  const float cv = __shfl_sync(kFull, pv, (lane + 32 - k) & 31);
+  const bool cand_eos = __shfl_sync(kFull, pick_eos, (lane + 32 - k) & 31);
+  extract_small(lane < k ? fo : cand_eos ? __fdiv_rn(cv, pen) : kNegInf, 3 * k, k, w,
+                fin_s + (size_t)row * k, fin_sel + (size_t)row * k);
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where a row needs it.
 template <typename Kernel>
 cudaError_t reserve_smem(Kernel kernel, long long bytes) {
@@ -162,10 +445,19 @@ extern "C" int nd_beam_advance(const void* alive, const void* lp, const void* fi
                                void* alive_sel, void* fin_s, void* fin_sel, void* stream) {
   if (b <= 0 || k <= 0 || v <= 0 || eos < 0 || eos >= v || (long long)k * v > INT_MAX / 2)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= kAdvMaxK && k * v <= kAdvMaxN && v >= 4) {
+    beam_advance_warp_kernel<<<(b + kAdvRows - 1) / kAdvRows, 32 * kAdvRows, 0, st>>>(
+        static_cast<const float*>(alive), static_cast<const float*>(lp),
+        static_cast<const float*>(fin), pen, b, k, v, eos, static_cast<int*>(top_ids),
+        static_cast<float*>(alive_s), static_cast<int*>(alive_sel),
+        static_cast<float*>(fin_s), static_cast<int*>(fin_sel));
+    return (int)cudaGetLastError();
+  }
   const long long smem = ((long long)k * v + 7LL * k) * 4;
   cudaError_t err = reserve_smem(beam_advance_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  beam_advance_kernel<<<b, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+  beam_advance_kernel<<<b, kThreads, (size_t)smem, st>>>(
       static_cast<const float*>(alive), static_cast<const float*>(lp),
       static_cast<const float*>(fin), pen, k, v, eos, static_cast<int*>(top_ids),
       static_cast<float*>(alive_s), static_cast<int*>(alive_sel), static_cast<float*>(fin_s),

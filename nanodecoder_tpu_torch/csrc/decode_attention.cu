@@ -1,10 +1,13 @@
-// One-token attention over a (B, T, D) decode cache (kernels K4a, K4b).
+// One-token attention over a (B, T, Dk) decode cache (kernels K4a, K4b).
 //
 // Replaces: nanodecoder_tpu/ops/attention.py `_decode_attn_kernel` (the
 // Pallas body of `decode_attention`, K4a: one query row per cache row)
 // and `_decode_attn_grouped_kernel` (`decode_attention_grouped`, K4b: the
 // G beams of a chunk against the chunk's one cache row, read once), one
-// kernel each.  MHA only: the cache holds all H heads, D = H * Dh.
+// kernel each.  The cache holds n_kv heads of Dh lanes, Dk = n_kv * Dh:
+// MHA (n_kv = H, D = Dk) in both, GQA/MQA (n_kv dividing H, query head h
+// reading KV head h // (H / n_kv)) in K4a, for exact dtypes, as the JAX
+// kernel takes them; int8 caches are MHA only, as JAX asserts.
 //
 // Math, per query row and head (the Pallas kernel's rounding points): the
 // query in the cache dtype (int8 caches: f32 query times the per-lane K
@@ -20,23 +23,29 @@
 // ms) and does 0.17 GFLOP.  K4b reads each chunk's cache once for its G
 // beams, so its bytes fall by G against K4a on tiled caches (B 256 x G 5:
 // 0.020 ms in bf16).  Rows at t >= valid are masked to probability
-// exactly 0 and are not read (a length-0 padding row attends uniformly
-// and reads all T).
+// exactly 0 and are not read; a length-0 padding row reads no K (every
+// score is -1e9 whatever K holds) and all T rows of V (it attends
+// uniformly).
 //
-// K4a (`decode_attn_kernel`, group 1): one block of 256 threads per cache
-// row.  A thread owns 8 lanes of a row (16 bytes of bf16), so D / 8
-// threads cover a row and the block walks 256 / (D / 8) rows per pass;
-// the Dh / 8 threads of a head reduce their partial dot products with
-// warp shuffles.  The H x T f32 scores live in shared memory, where one
-// warp per head takes the softmax.  P.V accumulates per thread in
-// registers over its rows, and the row groups' partial sums meet in
-// shared memory.  It runs level with or ahead of the library's fused
-// attention, so it stays as it is.
+// K4a (`decode_attn_row_kernel`): one block of 256 threads per cache row,
+// built to keep bytes in flight in every dtype.  A thread owns 16 bytes of
+// a cache row (4 f32, 8 bf16 or 16 int8 lanes), so Dk * elt / 16 threads
+// cover a row and the block walks 256 / that many rows per pass.  Each
+// thread keeps loads for 4 rows in flight, and issues the next batch's
+// loads before it uses the current one, so a block has 16 to 32 KB in
+// flight; K and V are one stream, so V's first batch loads while the
+// softmax runs.  The Dh / lanes threads of a head reduce their dot
+// products with shuffles; the H x T f32 scores live in shared memory,
+// where one warp per head takes the softmax; P.V accumulates per thread in
+// registers and the row groups' partial sums meet in shared memory.
+// int8 lanes convert through f32 bit tricks, not I2F (whose quarter rate
+// would sit near the bytes bound).  GQA: a thread's lanes belong to one KV
+// head, and it computes the scores and P.V sums of all H / n_kv query
+// heads that read it (instantiated for up to 1, 2, 4 or 8 of them).
 //
-// K4b (`decode_attn_grouped_kernel`, group 2 to 8): at G 5 K4a's design
-// is latency-bound (one dependent 512-byte row load per warp per pass, G
-// dot products each ending in two shuffle rounds), so K4b has its own
-// kernel.  One block of 256 threads per
+// K4b (`decode_attn_grouped_kernel`, group 2 to 8): at G 5 a row design
+// is latency-bound (G dot products per loaded row, each ending in
+// shuffle rounds), so K4b has its own kernel.  One block of 256 threads per
 // chunk streams the chunk's K rows, then its V rows, through a 4-stage
 // ring of cp.async tiles of about 16 KB (32 rows of bf16 or int8, 16 of
 // f32 at D 256; 16 bytes a thread; three stages in flight while one is
@@ -59,13 +68,14 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kVec = 8;         // cache lanes per thread and row
+constexpr int kVec = 8;         // K4b: cache lanes per load8
 constexpr int kMaxGroup = 8;
 constexpr float kNegInf = -1e9f;
 
@@ -124,78 +134,154 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-size_t smem_floats(int group, int t, int d, int heads) {
-  const int rows = kThreads / (d / kVec);
-  return (size_t)group * d + (size_t)group * heads * t + (size_t)rows * group * d;
+// ---- K4a: one query row per cache row ----------------------------------------
+
+constexpr int kRowsAhead = 4;    // cache rows a thread has 16-byte loads in flight for
+constexpr int kMaxSmem = 227 * 1024;
+
+// 16 bytes of cache lanes to f32: 4 f32, 8 bf16 or 16 int8 lanes.  bf16
+// is the high half of an f32; an int8 byte x goes through the f32
+// 2^23 + (x + 128) and one subtraction, exact and cheaper than I2F.
+__device__ __forceinline__ void unpack16(const uint4& u, float* o, float) {
+  o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
+  o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
 }
 
-template <typename TQ, typename TKV, int MAXG>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                   const TKV* __restrict__ v, const int* __restrict__ lens,
-                   const float* __restrict__ ks, const float* __restrict__ vs,
-                   TQ* __restrict__ out, int* __restrict__ amax, int group,
-                   int t_len, int d, int heads, float scale) {
+__device__ __forceinline__ void unpack16(const uint4& u, float* o, __nv_bfloat16) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack16(const uint4& u, float* o, int8_t) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t x = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[4 * i + j] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u + j)) - 8388736.f;
+  }
+}
+
+// Score rows padded to 1 mod 32 floats, so that the heads' entries of one
+// position fall in distinct banks.
+__host__ __device__ inline int row_score_stride(int t) { return (t + 31) / 32 * 32 + 1; }
+
+// Floats before the partial sums: the query and the scores, rounded up
+// to 16 bytes for the float4 stores.
+__host__ __device__ inline int row_red_offset(int d, int heads, int ts) {
+  return (d + heads * ts + 3) / 4 * 4;
+}
+
+size_t row_smem(int t, int d, int dk, int heads, int elt) {
+  const int rows = kThreads / (dk * elt / 16);
+  return sizeof(float) * ((size_t)row_red_offset(d, heads, row_score_stride(t)) +
+                          (size_t)rows * d);
+}
+
+// GRP: query heads per KV head that a thread keeps registers for (1 for
+// MHA; for GQA the smallest of 2, 4, 8 that holds H / n_kv).
+template <typename TQ, typename TKV, int GRP>
+__global__ void __launch_bounds__(kThreads, GRP == 1 ? 3 : 1)
+decode_attn_row_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                       const TKV* __restrict__ v, const int* __restrict__ lens,
+                       const float* __restrict__ ks, const float* __restrict__ vs,
+                       TQ* __restrict__ out, int* __restrict__ amax, int t_len, int d,
+                       int dk, int heads, int grp, float scale) {
+  constexpr int kLanes = 16 / (int)sizeof(TKV);  // cache lanes per 16-byte load
   extern __shared__ float smem[];
-  const int gh = group * heads;
-  float* qs = smem;                              // [G][D] f32 queries
-  float* ss = qs + group * d;                    // [G * H][T] scores, then probs
-  float* red = ss + (size_t)gh * t_len;          // [R][G][D] partial P.V sums
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int chunks = d / kVec;                   // threads per cache row
+  const int ts = row_score_stride(t_len);
+  const int dh = d / heads;
+  const int chunks = dk / kLanes;                // threads per cache row
   const int rows = kThreads / chunks;            // cache rows per pass
-  const int c = tid % chunks, r = tid / chunks;
-  const int lanes = d / heads / kVec;            // threads per head
-  const int h = c / lanes;
-  const int n = lens[b];
-  const int n_eff = n > 0 ? min(n, t_len) : t_len;
-  const size_t base = (size_t)b * t_len * d;
+  const int lph = dh / kLanes;                   // threads per head of a row
+  float* qs = smem;                              // [D] f32 queries
+  float* ss = qs + d;                            // [H][ts] scores, then probabilities
+  float* red = smem + row_red_offset(d, heads, ts);  // [rows][D] partial P.V sums
 
-  for (int i = tid; i < group * d; i += kThreads) {
-    float x = to_f32(q[(size_t)b * group * d + i]);
-    if (ks != nullptr) x *= ks[(size_t)b * d + i % d];
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c = tid % chunks, r = tid / chunks;
+  const int kv = c / lph, cl = c % lph;          // this thread's KV head, slot in it
+  const int n = lens[b];
+  const int nk = n > 0 ? min(n, t_len) : 0;      // K rows scored (length 0: all masked)
+  const int nv = n > 0 ? nk : t_len;             // V rows read (length 0: uniform)
+  const int step = rows * kRowsAhead;
+  const int nbk = (nk + step - 1) / step, nb = nbk + (nv + step - 1) / step;
+  const size_t base = (size_t)b * t_len * dk;
+
+  // Batch i < nbk: K rows [i step, +step); batch nbk + j: V rows of batch
+  // j.  A thread takes rows r + u * rows of a batch, 16 bytes of each.
+  uint4 nxt[kRowsAhead];
+  auto load = [&](int i) {
+    const bool is_k = i < nbk;
+    const uint4* src = reinterpret_cast<const uint4*>((is_k ? k : v) + base) + c;
+    const int t0 = (is_k ? i : i - nbk) * step + r, lim = is_k ? nk : nv;
+#pragma unroll
+    for (int u = 0; u < kRowsAhead; ++u) {
+      const int t = t0 + u * rows;
+      nxt[u] = t < lim ? __ldg(src + (size_t)t * chunks) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  load(0);
+
+  for (int i = tid; i < d; i += kThreads) {
+    float x = to_f32(q[(size_t)b * d + i]);
+    if (ks != nullptr) x *= ks[(size_t)b * d + i];
     qs[i] = x;
   }
-  const int tail = t_len - n_eff;
-  for (int i = tid; i < gh * tail; i += kThreads)
-    ss[(size_t)(i / tail) * t_len + n_eff + i % tail] = kNegInf;
+  const int tail = t_len - nk;
+  for (int i = tid; i < heads * tail; i += kThreads)
+    ss[(size_t)(i / tail) * ts + nk + i % tail] = kNegInf;
   __syncthreads();
 
-  // Scores.  The trip count is uniform over the block, so every lane
-  // takes part in the shuffles; rows past n_eff load zeros and store
-  // nothing.
-  for (int t0 = 0; t0 < n_eff; t0 += rows) {
-    const int t = t0 + r;
-    const bool live = t < n_eff;
-    float kf[kVec];
-    if (live) {
-      load8(k + base + (size_t)t * d + c * kVec, kf);
-    } else {
+  // The queries of this thread's lanes: in registers for MHA, read from
+  // shared memory per row for GQA (up to GRP heads).
+  float qr[GRP == 1 ? kLanes : 1];
+  if constexpr (GRP == 1) {
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) kf[e] = 0.f;
-    }
+    for (int e = 0; e < kLanes; ++e) qr[e] = qs[kv * dh + cl * kLanes + e];
+  }
+
+  // Scores.  Trip counts are uniform over the block, so every lane takes
+  // part in the shuffles; rows past nk hold zeros and store nothing.
+  for (int i = 0; i < nbk; ++i) {
+    uint4 cur[kRowsAhead];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < group) {
-        const float* qg = qs + g * d + c * kVec;
-        float part = 0.f;
+    for (int u = 0; u < kRowsAhead; ++u) cur[u] = nxt[u];
+    if (i + 1 < nb) load(i + 1);  // the last K batch starts V's first
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) part = fmaf(kf[e], qg[e], part);
-        for (int o = lanes / 2; o > 0; o >>= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, o);
-        if (live && c % lanes == 0)
-          ss[(size_t)(g * heads + h) * t_len + t] = t < n ? part * scale : kNegInf;
+    for (int u = 0; u < kRowsAhead; ++u) {
+      const int t = i * step + u * rows + r;
+      float kf[kLanes];
+      unpack16(cur[u], kf, TKV());
+#pragma unroll
+      for (int j = 0; j < GRP; ++j) {
+        if (j < grp) {
+          float part = 0.f;
+          if constexpr (GRP == 1) {
+#pragma unroll
+            for (int e = 0; e < kLanes; ++e) part = fmaf(kf[e], qr[e], part);
+          } else {
+            const float* qh = qs + (kv * grp + j) * dh + cl * kLanes;
+#pragma unroll
+            for (int e = 0; e < kLanes; ++e) part = fmaf(kf[e], qh[e], part);
+          }
+          for (int o = lph / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+          if (t < nk && cl == 0) ss[(size_t)(kv * grp + j) * ts + t] = part * scale;
+        }
       }
     }
   }
   __syncthreads();
 
-  // Softmax: one warp per (beam, head) row of scores.
-  const int warp = tid / 32, lane = tid % 32;
-  for (int j = warp; j < gh; j += kThreads / 32) {
-    float* row = ss + (size_t)j * t_len;
+  // Softmax: one warp per head.  A masked position's 0 skips the IEEE
+  // division (whose fast path does not take zeros); the quotient is 0.
+  for (int h = warp; h < heads; h += kThreads / 32) {
+    float* row = ss + (size_t)h * ts;
     float m = -INFINITY;
     for (int t = lane; t < t_len; t += 32) m = fmaxf(m, row[t]);
     m = warp_max(m);
@@ -206,18 +292,20 @@ decode_attn_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       z += e;
     }
     z = warp_sum(z);
-    for (int t = lane; t < t_len; t += 32) row[t] = __fdiv_rn(row[t], z);
+    for (int t = lane; t < t_len; t += 32) {
+      const float e = row[t];
+      row[t] = e > 0.f ? __fdiv_rn(e, z) : 0.f;
+    }
   }
   __syncthreads();
 
-  // Attention position: one warp per beam; lowest t on ties.
-  for (int g = warp; g < group; g += kThreads / 32) {
-    const float* pg = ss + (size_t)g * heads * t_len;
+  // Attention position (warp 0): lowest t with the largest head sum.
+  if (warp == 0) {
     float best = -INFINITY;
     int best_t = t_len;
     for (int t = lane; t < t_len; t += 32) {
-      float s = pg[t];
-      for (int hh = 1; hh < heads; ++hh) s += pg[(size_t)hh * t_len + t];
+      float s = ss[t];
+      for (int hh = 1; hh < heads; ++hh) s += ss[(size_t)hh * ts + t];
       if (s > best) {
         best = s;
         best_t = t;
@@ -232,56 +320,83 @@ decode_attn_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         best_t = ot;
       }
     }
-    if (lane == 0) amax[(size_t)b * group + g] = best_t;
+    if (lane == 0) amax[b] = best_t;
   }
 
-  // P.V over the rows this thread owns, then the row groups' sums.
-  float acc[MAXG][kVec];
+  // P.V over this thread's rows, p rounded to the V dtype; then the row
+  // groups' partial sums meet in shared memory.
+  float acc[GRP][kLanes];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
+  for (int j = 0; j < GRP; ++j)
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
-  for (int t = r; t < n_eff; t += rows) {
-    float vf[kVec];
-    load8(v + base + (size_t)t * d + c * kVec, vf);
+    for (int e = 0; e < kLanes; ++e) acc[j][e] = 0.f;
+  for (int i = nbk; i < nb; ++i) {
+    uint4 cur[kRowsAhead];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < group) {
-        const float p = p_as<TKV>(ss[(size_t)(g * heads + h) * t_len + t]);
+    for (int u = 0; u < kRowsAhead; ++u) cur[u] = nxt[u];
+    if (i + 1 < nb) load(i + 1);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+    for (int u = 0; u < kRowsAhead; ++u) {
+      const int t = (i - nbk) * step + u * rows + r;
+      if (t < nv) {
+        float vf[kLanes];
+        unpack16(cur[u], vf, TKV());
+#pragma unroll
+        for (int j = 0; j < GRP; ++j) {
+          if (j < grp) {
+            const float p = p_as<TKV>(ss[(size_t)(kv * grp + j) * ts + t]);
+#pragma unroll
+            for (int e = 0; e < kLanes; ++e) acc[j][e] = fmaf(p, vf[e], acc[j][e]);
+          }
+        }
       }
     }
   }
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < group) {
-      float* dst = red + ((size_t)r * group + g) * d + c * kVec;
+  for (int j = 0; j < GRP; ++j) {
+    if (j < grp) {
+      float4* dst = reinterpret_cast<float4*>(red + (size_t)r * d + (kv * grp + j) * dh +
+                                              cl * kLanes);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) dst[e] = acc[g][e];
+      for (int e = 0; e < kLanes; e += 4)
+        dst[e / 4] = make_float4(acc[j][e], acc[j][e + 1], acc[j][e + 2], acc[j][e + 3]);
     }
   }
   __syncthreads();
-  for (int i = tid; i < group * d; i += kThreads) {
+  for (int i = tid; i < d; i += kThreads) {
     float s = red[i];
-    for (int rr = 1; rr < rows; ++rr) s += red[(size_t)rr * group * d + i];
-    if (vs != nullptr) s *= vs[(size_t)b * d + i % d];
-    out[(size_t)b * group * d + i] = from_f32<TQ>(s);
+    for (int rr = 1; rr < rows; ++rr) s += red[(size_t)rr * d + i];
+    if (vs != nullptr) s *= vs[(size_t)b * d + i];
+    out[(size_t)b * d + i] = from_f32<TQ>(s);
   }
 }
 
-template <typename TQ, typename TKV, int MAXG>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
-                   const float* ks, const float* vs, void* out, int* amax, int b,
-                   int group, int t, int d, int heads, float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * smem_floats(group, t, d, heads);
-  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<TQ, TKV, MAXG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// Raise a kernel's dynamic shared-memory limit to the most a block may
+// have, once per kernel and device (not once per launch).
+template <typename Kernel>
+cudaError_t allow_max_smem(Kernel kernel, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  decode_attn_kernel<TQ, TKV, MAXG><<<b, kThreads, smem, st>>>(
+  const uint64_t bit = uint64_t(1) << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <typename TQ, typename TKV, int GRP>
+cudaError_t launch_row(const void* q, const void* k, const void* v, const int* lens,
+                       const float* ks, const float* vs, void* out, int* amax, int b, int t,
+                       int d, int dk, int heads, float scale, cudaStream_t st) {
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = allow_max_smem(decode_attn_row_kernel<TQ, TKV, GRP>, done);
+  if (err != cudaSuccess) return err;
+  const size_t smem = row_smem(t, d, dk, heads, (int)sizeof(TKV));
+  decode_attn_row_kernel<TQ, TKV, GRP><<<b, kThreads, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      lens, ks, vs, static_cast<TQ*>(out), amax, group, t, d, heads, scale);
+      lens, ks, vs, static_cast<TQ*>(out), amax, t, d, dk, heads, heads / (dk / (d / heads)),
+      scale);
   return cudaGetLastError();
 }
 
@@ -289,7 +404,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
 
 constexpr int kStages = 4;       // ring depth: three stages in flight while one is used
 constexpr int kMaxD = 1024;      // P.V: each thread owns D / 256 <= 4 channels
-constexpr int kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -527,16 +641,8 @@ cudaError_t launch_grouped(const void* q, const void* k, const void* v, const in
                            const float* ks, const float* vs, void* out, int* amax, int b,
                            int t, int d, int heads, float scale, cudaStream_t st) {
   static std::atomic<uint64_t> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_max_smem(decode_attn_grouped_kernel<TQ, TKV, G, KC>, done);
   if (err != cudaSuccess) return err;
-  const uint64_t bit = uint64_t(1) << (dev & 63);
-  if (!(done.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(decode_attn_grouped_kernel<TQ, TKV, G, KC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    done.fetch_or(bit, std::memory_order_release);
-  }
   const size_t smem = grouped_smem(G, t, d, heads, (int)sizeof(TKV));
   decode_attn_grouped_kernel<TQ, TKV, G, KC><<<b, kThreads, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
@@ -547,8 +653,21 @@ cudaError_t launch_grouped(const void* q, const void* k, const void* v, const in
 template <typename TQ, typename TKV>
 cudaError_t dispatch_group(const void* q, const void* k, const void* v, const int* lens,
                            const float* ks, const float* vs, void* out, int* amax,
-                           int b, int group, int t, int d, int heads, float scale,
+                           int b, int group, int t, int d, int dk, int heads, float scale,
                            cudaStream_t st) {
+  if (group == 1) {
+    const int grp = heads / (dk / (d / heads));  // query heads per KV head
+#define ND_ROW(GRP) \
+  launch_row<TQ, TKV, GRP>(q, k, v, lens, ks, vs, out, amax, b, t, d, dk, heads, scale, st)
+    if (grp == 1) return ND_ROW(1);
+    if constexpr (!std::is_same<TKV, int8_t>::value) {  // int8 caches are MHA only
+      if (grp <= 2) return ND_ROW(2);
+      if (grp <= 4) return ND_ROW(4);
+      if (grp <= 8) return ND_ROW(8);
+    }
+#undef ND_ROW
+    return cudaErrorInvalidValue;
+  }
 #define ND_GROUPED(G)                                                                    \
   case G:                                                                                \
     return d <= kThreads ? launch_grouped<TQ, TKV, G, 1>(q, k, v, lens, ks, vs, out, amax, \
@@ -556,9 +675,6 @@ cudaError_t dispatch_group(const void* q, const void* k, const void* v, const in
                          : launch_grouped<TQ, TKV, G, kMaxD / kThreads>(                  \
                                q, k, v, lens, ks, vs, out, amax, b, t, d, heads, scale, st);
   switch (group) {
-    case 1:
-      return launch<TQ, TKV, 1>(q, k, v, lens, ks, vs, out, amax, b, group, t, d, heads,
-                                scale, st);
     ND_GROUPED(2)
     ND_GROUPED(3)
     ND_GROUPED(4)
@@ -576,20 +692,24 @@ cudaError_t dispatch_group(const void* q, const void* k, const void* v, const in
 extern "C" int nd_decode_attention(const void* q, const void* k, const void* v,
                                    const void* lens, const void* k_scale,
                                    const void* v_scale, void* out, void* amax, int b,
-                                   int group, int t, int d, int heads, int is_bf16,
+                                   int group, int t, int d, int dk, int heads, int is_bf16,
                                    int is_int8, float scale, void* stream) {
-  if (b <= 0 || t <= 0 || d <= 0 || heads <= 0 || group < 1 || group > kMaxGroup ||
-      d % heads)
+  if (b <= 0 || t <= 0 || d <= 0 || dk <= 0 || heads <= 0 || group < 1 ||
+      group > kMaxGroup || d % heads)
+    return (int)cudaErrorInvalidValue;
+  const int elt = is_int8 ? 1 : is_bf16 ? 2 : 4;
+  const int dh = d / heads;
+  const int n_kv = dk / dh;
+  if (dk % dh || n_kv < 1 || heads % n_kv || (is_int8 && dk != d))
     return (int)cudaErrorInvalidValue;
   if (group == 1) {
-    const int lanes = d / heads / kVec;
-    if (d % kVec || kThreads % (d / kVec) || lanes <= 0 || (lanes & (lanes - 1)) ||
-        sizeof(float) * smem_floats(group, t, d, heads) > 227u * 1024u)
+    const int lanes = 16 / elt;               // cache lanes per thread and row
+    const int lph = dh / lanes;               // threads per head of a row
+    if (dh % lanes || lph > 32 || (lph & (lph - 1)) || kThreads % (dk / lanes) ||
+        heads / n_kv > kMaxGroup || row_smem(t, d, dk, heads, elt) > (size_t)kMaxSmem)
       return (int)cudaErrorInvalidValue;
   } else {
-    const int elt = is_int8 ? 1 : is_bf16 ? 2 : 4;
-    const int dh = d / heads;
-    if (dh % 16 || d > kMaxD || (d * elt) % 16 ||
+    if (dk != d || dh % 16 || d > kMaxD || (d * elt) % 16 ||
         grouped_smem(group, t, d, heads, elt) > (size_t)kMaxSmem)
       return (int)cudaErrorInvalidValue;
   }
@@ -602,11 +722,11 @@ extern "C" int nd_decode_attention(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_int8)
     return (int)(is_bf16 ? dispatch_group<__nv_bfloat16, int8_t>(
-                               q, k, v, ln, ks, vs, out, am, b, group, t, d, heads, scale, st)
+                               q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st)
                          : dispatch_group<float, int8_t>(
-                               q, k, v, ln, ks, vs, out, am, b, group, t, d, heads, scale, st));
+                               q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st));
   return (int)(is_bf16 ? dispatch_group<__nv_bfloat16, __nv_bfloat16>(
-                             q, k, v, ln, ks, vs, out, am, b, group, t, d, heads, scale, st)
+                             q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st)
                        : dispatch_group<float, float>(
-                             q, k, v, ln, ks, vs, out, am, b, group, t, d, heads, scale, st));
+                             q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st));
 }

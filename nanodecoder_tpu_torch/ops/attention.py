@@ -2,11 +2,13 @@
 and the int8 cross-cache quantization.
 
 `decode_attention` (K4a): q (B, D), one query per row, against its own
-(B, T, D) K/V cache row.  `decode_attention_grouped` (K4b): q (B * G, D),
+(B, T, Dk) K/V cache row.  `decode_attention_grouped` (K4b): q (B * G, D),
 the G consecutive rows of a chunk (its beams) against the chunk's one
-cache row, which is read once for all of them.  Both are MHA only (the
-cache holds all H heads, D = H * Dh) and return (out (rows, D) in q's
-dtype, amax (rows,) int32).  Per row and head:
+cache row, which is read once for all of them.  The cache holds n_kv
+heads of Dh = D / H lanes, Dk = n_kv * Dh: MHA (n_kv = H) or, for exact
+dtypes, GQA/MQA (n_kv dividing H; query head h reads KV head
+h // (H / n_kv)), as in the JAX package.  Both return (out (rows, D) in
+q's dtype, amax (rows,) int32).  Per row and head:
 
   * q is cast to the cache dtype (int8 caches: q stays f32 and is
     multiplied by the per-lane K scales instead);
@@ -21,14 +23,16 @@ dtype, amax (rows,) int32).  Per row and head:
 
 This mirrors the Pallas kernel bodies (`_decode_attn_kernel`,
 `_decode_attn_grouped_kernel`), not only their jnp references: the
-head-summed argmax and the rounding points are the kernel's.
+head-summed argmax and the rounding points are the kernel's.  int8
+caches are MHA only, as the JAX kernels assert.
 
 On a CUDA tensor the wrappers launch the kernels in
-`csrc/decode_attention.cu` (K4a and K4b have a kernel each: the grouped
-one streams the chunk's cache through a cp.async ring and is
-instantiated per group size); on a CPU tensor they run the plain PyTorch
-versions below.  Nothing falls back from one to the other: a CUDA input
-the kernels do not take raises.
+`csrc/decode_attention.cu` (K4a and K4b have a kernel each: K4a streams
+its row with 16-byte loads several rows deep and takes GQA caches; the
+grouped one streams the chunk's cache through a cp.async ring, is
+instantiated per group size and is MHA only); on a CPU tensor they run
+the plain PyTorch versions below.  Nothing falls back from one to the
+other: a CUDA input the kernels do not take raises.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from nanodecoder_tpu_torch.ops import _build
 NEG_INF = -1e9
 MAX_GROUP = 8
 GROUPED_MAX_D = 1024  # K4b: a thread owns at most D / 256 = 4 output channels
+MAX_KV_GROUP = 8  # K4a: query heads per KV head a thread keeps accumulators for
 _DTYPES = (torch.float32, torch.bfloat16)
 _NO_IDX = 2 ** 30
 
@@ -70,17 +75,20 @@ def dequantize_cache_int8(q: torch.Tensor, scale: torch.Tensor,
 def _attend_plain(q4: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   valid_lens: torch.Tensor, n_heads: int, k_scale, v_scale):
     """Shared body of the plain versions.  q4: (B, G, H, Dh); caches
-    (B, T, D).  Returns (out (B, G, D) f32 before the output cast,
-    amax (B, G) int32)."""
+    (B, T, n_kv * Dh).  Returns (out (B, G, D) f32 before the output
+    cast, amax (B, G) int32)."""
     b, g, h, dh = q4.shape
     t = k_cache.shape[1]
+    n_kv = k_cache.shape[2] // dh
     quantized = k_scale is not None
     if quantized:
         qm = q4.to(torch.float32) * k_scale.to(torch.float32).reshape(b, 1, h, dh)
     else:
         qm = q4.to(k_cache.dtype).to(torch.float32)
-    kf, vf = k_cache.to(torch.float32), v_cache.to(torch.float32)
-    s = torch.einsum("bghd,bthd->bght", qm, kf.reshape(b, t, h, dh))
+    kf, vf = (x.to(torch.float32).reshape(b, t, n_kv, dh) for x in (k_cache, v_cache))
+    if n_kv != h:  # query head h reads KV head h // (H / n_kv)
+        kf, vf = (x.repeat_interleave(h // n_kv, dim=2) for x in (kf, vf))
+    s = torch.einsum("bghd,bthd->bght", qm, kf)
     s = s * (1.0 / math.sqrt(dh))
     pos = torch.arange(t, device=s.device)
     live = pos[None, :] < valid_lens.to(pos.dtype)[:, None]      # (B, T)
@@ -96,7 +104,7 @@ def _attend_plain(q4: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
     is_max = pm >= pm.amax(dim=-1, keepdim=True)
     amax = torch.where(is_max, pos, _NO_IDX).amin(dim=-1).to(torch.int32)
     pv = p if quantized else p.to(v_cache.dtype).to(torch.float32)
-    out = torch.einsum("bght,bthd->bghd", pv, vf.reshape(b, t, h, dh))
+    out = torch.einsum("bght,bthd->bghd", pv, vf)
     out = out.reshape(b, g, h * dh)
     if quantized:
         out = out * v_scale.to(torch.float32)[:, None, :]
@@ -125,14 +133,18 @@ def decode_attention_grouped_plain(q, k_cache, v_cache, valid_lens, n_heads: int
 def _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
     """Validate shapes and types; returns True for the CPU (plain) route."""
     if q.dim() != 2 or k_cache.dim() != 3 or v_cache.shape != k_cache.shape:
-        raise ValueError(f"q must be (rows, D) and k/v (B, T, D); got "
+        raise ValueError(f"q must be (rows, D) and k/v (B, T, Dk); got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}")
     b, t, dk = k_cache.shape
     rows, d = q.shape
-    if n_heads <= 0 or d % n_heads or dk != d:
-        raise ValueError(f"the kernels are MHA only: cache width {dk} must equal "
-                         f"the query width {d}, a multiple of n_heads={n_heads}")
+    if n_heads <= 0 or d % n_heads:
+        raise ValueError(f"query width {d} is no multiple of n_heads={n_heads}")
+    dh = d // n_heads
+    n_kv = dk // dh
+    if dk % dh or n_kv < 1 or n_heads % n_kv:
+        raise ValueError(f"cache width {dk} must be n_kv * {dh} (Dh) with n_kv "
+                         f"dividing n_heads={n_heads}")
     if group < 1 or rows != b * group:
         raise ValueError(f"q has {rows} rows for {b} cache rows and group {group}")
     if valid_lens.shape != (b,):
@@ -144,6 +156,9 @@ def _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
     if k_scale is not None:
         if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
             raise TypeError("scaled caches must be int8")
+        if dk != d:
+            raise ValueError("int8 caches are MHA only (the JAX kernels assert it): "
+                             f"cache width {dk} differs from the query width {d}")
         for sc in (k_scale, v_scale):
             if sc.shape != (b, d) or sc.dtype != torch.float32:
                 raise ValueError(f"scales must be ({b}, {d}) float32")
@@ -155,15 +170,24 @@ def _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
         return True
     if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
         raise ValueError("all inputs must lie on one CUDA device")
-    dh = d // n_heads
     if group > MAX_GROUP:
         raise ValueError(f"group {group} > {MAX_GROUP}")
-    if group == 1 and (dh % 8 or (dh // 8) & (dh // 8 - 1) or 256 % (d // 8)):
-        raise ValueError(f"kernel needs Dh / 8 a power of two and D / 8 dividing "
-                         f"256; got D {d}, Dh {dh}")
-    if group > 1 and (dh % 16 or d > GROUPED_MAX_D):
-        raise ValueError(f"the grouped kernel needs Dh a multiple of 16 and D <= "
-                         f"{GROUPED_MAX_D}; got D {d}, Dh {dh}")
+    if group == 1:
+        vec = 16 // k_cache.element_size()              # lanes per 16-byte load
+        per_head = dh // vec
+        if dh % vec or per_head & (per_head - 1) or per_head > 32 or 256 % (dk // vec):
+            raise ValueError(f"K4a needs Dh a multiple of {vec} with Dh / {vec} a power "
+                             f"of two <= 32, and Dk / {vec} dividing 256; got Dk {dk}, "
+                             f"Dh {dh}")
+        if n_heads // n_kv > MAX_KV_GROUP:
+            raise ValueError(f"K4a takes at most {MAX_KV_GROUP} query heads per KV "
+                             f"head; got {n_heads // n_kv}")
+    else:
+        if dk != d:
+            raise ValueError("GQA caches are not ported to the grouped kernel (K4b)")
+        if dh % 16 or d > GROUPED_MAX_D:
+            raise ValueError(f"the grouped kernel needs Dh a multiple of 16 and D <= "
+                             f"{GROUPED_MAX_D}; got D {d}, Dh {dh}")
     if valid_lens.dtype != torch.int32:
         raise TypeError("valid_lens must be int32")
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in tensors):
@@ -173,7 +197,8 @@ def _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
 
 def _launch(wrapper, q, k_cache, v_cache, valid_lens, n_heads, group, k_scale,
             v_scale):
-    b, t, d = k_cache.shape
+    b, t, _dk = k_cache.shape
+    d = q.shape[1]
     out = torch.empty_like(q)
     amax = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
     if b and t:
@@ -184,7 +209,7 @@ def _launch(wrapper, q, k_cache, v_cache, valid_lens, n_heads, group, k_scale,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             valid_lens.data_ptr(), k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None, out.data_ptr(),
-            amax.data_ptr(), b, group, t, d, n_heads,
+            amax.data_ptr(), b, group, t, d, k_cache.shape[2], n_heads,
             int(q.dtype == torch.bfloat16), int(quantized),
             1.0 / math.sqrt(d // n_heads), stream), "decode attention kernel")
         wrapper.launches += 1
@@ -193,8 +218,9 @@ def _launch(wrapper, q, k_cache, v_cache, valid_lens, n_heads, group, k_scale,
 
 def decode_attention(q, k_cache, v_cache, valid_lens, n_heads: int,
                      k_scale=None, v_scale=None):
-    """K4a.  q: (B, D) float32/bfloat16; k/v: (B, T, D) in q's dtype, or
-    int8 with (B, D) f32 k_scale/v_scale; valid_lens: (B,) int32.
+    """K4a.  q: (B, D) float32/bfloat16; k/v: (B, T, Dk) in q's dtype
+    (Dk = D, or n_kv * Dh for GQA/MQA), or int8 (Dk = D) with (B, D) f32
+    k_scale/v_scale; valid_lens: (B,) int32.
     Returns (out (B, D) in q's dtype, amax (B,) int32)."""
     if _check(q, k_cache, v_cache, valid_lens, n_heads, 1, k_scale, v_scale):
         return decode_attention_plain(q, k_cache, v_cache, valid_lens, n_heads,
@@ -207,7 +233,7 @@ def decode_attention_grouped(q, k_cache, v_cache, valid_lens, n_heads: int,
                              group: int, k_scale=None, v_scale=None):
     """K4b.  q: (B * group, D), rows b * group .. + group - 1 against cache
     row b; otherwise as decode_attention.  Returns (out (B * group, D),
-    amax (B * group,) int32)."""
+    amax (B * group,) int32).  The CUDA kernel takes MHA caches only."""
     if _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
         return decode_attention_grouped_plain(q, k_cache, v_cache, valid_lens,
                                               n_heads, group, k_scale, v_scale)

@@ -14,11 +14,13 @@ times).  `torch.topk` neither promises the lowest index on ties nor
 repeats an index, so it is no stand-in for either kernel.
 
 On a CUDA tensor each wrapper launches its kernel in
-`csrc/beam_step.cu`; on a CPU tensor it runs the plain PyTorch version
-below.  Nothing falls back from one to the other.  The inputs are finite
-(log-softmax outputs, or -1e9 from the min_len mask): the order of NaNs
-is not part of the contract, and of two tied zeros of opposite sign the
-kernels return the one at the picked index.
+`csrc/beam_step.cu` (K3: one warp per row for K <= 10, V >= 4 and
+K * V <= 2048, else one block per row); on a CPU tensor it runs the
+plain PyTorch version below.  Nothing falls back from one to the other.
+The inputs are finite or -inf (log-softmax outputs, -1e9 from the
+min_len mask): the order of NaNs is not part of the contract, and of two
+tied zeros of opposite sign the kernels return the one at the picked
+index.
 """
 
 from __future__ import annotations
@@ -113,15 +115,17 @@ def beam_advance(alive: torch.Tensor, log_probs: torch.Tensor, fin: torch.Tensor
     pen = float(pen)
     if not _cuda_ready(alive, log_probs, fin):
         return beam_advance_plain(alive, log_probs, fin, pen, k, v, eos_id)
-    dev = alive.device
-    top_ids = torch.empty((b, 2 * k), dtype=torch.int32, device=dev)
-    alive_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    alive_sel = torch.empty((b, k), dtype=torch.int32, device=dev)
-    fin_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    fin_sel = torch.empty((b, k), dtype=torch.int32, device=dev)
+    # The five outputs are views of two allocations (host cost per call).
+    ints = torch.empty((4 * b * k,), dtype=torch.int32, device=alive.device)
+    floats = torch.empty((2 * b * k,), dtype=torch.float32, device=alive.device)
+    top_ids = ints[:2 * b * k].view(b, 2 * k)
+    alive_sel = ints[2 * b * k:3 * b * k].view(b, k)
+    fin_sel = ints[3 * b * k:].view(b, k)
+    alive_s = floats[:b * k].view(b, k)
+    fin_s = floats[b * k:].view(b, k)
     if b:
         lib = _build.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(alive.device).cuda_stream
         _build.check(lib.nd_beam_advance(
             alive.data_ptr(), log_probs.data_ptr(), fin.data_ptr(), pen, b, k, v,
             eos_id, top_ids.data_ptr(), alive_s.data_ptr(), alive_sel.data_ptr(),

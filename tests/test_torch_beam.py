@@ -71,23 +71,38 @@ def _beam_inputs(rng, b, k, v, case):
     "random": EOS made likely in some rows, part of the finished set
     filled.  "step0": the first step (alive [0, -1e9, ...], nothing
     finished) -- beams 1.. give -1e9 + lp == -1e9 exactly, and the
-    finished set returns slot 0 K times."""
+    finished set returns slot 0 K times.  "below": every candidate under
+    -1e9 (alive -2e9), so the best one comes back with value -1e9.
+    "few": as step0 with all but 6 of beam 0's log-probs -inf, so fewer
+    than 2K candidates lie above -1e9 beside exact -1e9 ties (at V 8 <
+    2K).  "neg_inf": random with -inf log-probs, a whole beam in row 0."""
     logits = rng.normal(size=(b, k, v)).astype(np.float32) * 2
     logits[0, :, EOS] += 3.0
     lp = np.asarray(torch.log_softmax(_t(logits), dim=-1))
-    if case == "step0":
-        alive = np.full((b, k), NEG_INF, np.float32)
-        alive[:, 0] = 0.0
+    if case in ("step0", "few", "below"):
+        alive = np.full((b, k), -2e9 if case == "below" else NEG_INF, np.float32)
+        if case != "below":
+            alive[:, 0] = 0.0
         fin = np.full((b, k), NEG_INF, np.float32)
+        if case == "few":
+            lp = lp.copy()
+            lp[:, 0, 6:] = -np.inf
     else:
         alive = np.sort(-rng.exponential(3.0, size=(b, k)).astype(np.float32),
                         axis=1)[:, ::-1].copy()
         fin = np.full((b, k), NEG_INF, np.float32)
         fin[:, : k // 2] = -rng.exponential(1.0, size=(b, k // 2))
+        if case == "neg_inf":
+            lp = lp.copy()
+            lp[:, :, 1::3] = -np.inf
+            lp[0, k - 1] = -np.inf
     return alive, lp, fin
 
 
-@pytest.mark.parametrize("case", ["random", "step0"])
+CASES = ["random", "step0", "below", "few", "neg_inf"]
+
+
+@pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("b,k,v", SHAPES)
 def test_beam_advance_plain_matches_jax_interpret(b, k, v, case, rng_np):
     """All five outputs bitwise equal (tolerance 0)."""
@@ -113,9 +128,16 @@ def test_beam_advance_plain_matches_jax_interpret(b, k, v, case, rng_np):
             assert any(len(set(row)) < k for row in got[4].numpy().tolist())
         if v < 2 * k:
             assert len(set(got[0].numpy()[0].tolist())) < 2 * k
+    elif case == "below":
+        # The best slot, then the same slot again at -1e9.
+        top_i = got[0].numpy()
+        assert (top_i == top_i[:, :1]).all()
+    elif case == "few" and 2 * k > 6:
+        # Six picks above -1e9, then slot 0 (the lowest at or above it).
+        assert (got[0].numpy()[:, 6:] == 0).all()
 
 
-@pytest.mark.parametrize("case", ["random", "step0"])
+@pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("b,k,v", SHAPES)
 def test_beam_topk_plain_matches_jax_interpret(b, k, v, case, rng_np):
     """Scores and ids bitwise equal (tolerance 0)."""

@@ -1,5 +1,6 @@
 """PyTorch port, MHA decoding and the unfolded serving path: kernels K4a,
-K4b (decode attention, int8 caches included), K5 and K6 (encoder
+K4b (decode attention, int8 caches included; GQA/MQA caches too, as the
+JAX kernels take them), K5 and K6 (encoder
 attention) through their plain versions on the CPU, the int8 cross-cache
 quantization, and greedy and beam decoding, each held against the JAX
 package on the same inputs.
@@ -204,6 +205,45 @@ def test_decode_attention_plain_matches_jax_interpret(kind, group, rng_np):
     assert (ga.numpy()[2 * group:3 * group] == 5).all()
 
 
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("n_kv", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_decode_attention_gqa_plain_matches_jax_interpret(kind, n_kv, group, rng_np):
+    """GQA/MQA caches (n_kv KV heads for 4 query heads, test_gqa.py's
+    shapes) through the CPU route, against the JAX kernels in interpret
+    mode: outputs allclose (f32 1e-5, another sum order; bf16 1e-2, one
+    rounding step of the output), attention positions exactly equal."""
+    import jax.numpy as jnp
+
+    from nanodecoder_tpu.ops import attention as ja
+
+    b, t, h, dh = 4, 24, 4, 16
+    d, dk = h * dh, n_kv * dh
+    q = rng_np.normal(size=(b * group, d)).astype(np.float32)
+    k, v = (rng_np.normal(size=(b, t, dk)).astype(np.float32) for _ in range(2))
+    lens = rng_np.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0] = 0
+    jq, jk, jv = (jnp.asarray(x).astype(kind) for x in (q, k, v))
+    tq, tk, tv = (_t(x).to(getattr(torch, kind)) for x in (q, k, v))
+    if group == 1:
+        fn = attention.decode_attention
+        ro, ra = ja.decode_attention(jq, jk, jv, jnp.asarray(lens), h, interpret=True)
+        before = fn.launches
+        go, ga = fn(tq, tk, tv, _t(lens), h)
+    else:
+        fn = attention.decode_attention_grouped
+        ro, ra = ja.decode_attention_grouped(jq, jk, jv, jnp.asarray(lens), h, group,
+                                             interpret=True)
+        before = fn.launches
+        go, ga = fn(tq, tk, tv, _t(lens), h, group)
+    assert fn.launches == before  # the CPU runs the plain version
+    assert go.dtype == tq.dtype and go.shape == (b * group, d)
+    tol = 1e-2 if kind == "bfloat16" else 1e-5
+    np.testing.assert_allclose(go.float().numpy(), np.asarray(ro.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(ra))
+
+
 def test_quantize_cache_int8_bitwise_matches_jax(rng_np):
     """Bitwise against the compiled JAX function (the decode programs'
     form, where XLA multiplies by f32(1/127)); eagerly JAX divides by
@@ -242,8 +282,11 @@ def test_quantize_cache_int8_bitwise_matches_jax(rng_np):
 def test_decode_attention_wrappers_reject_bad_inputs():
     f, g = attention.decode_attention, attention.decode_attention_grouped
     q, kv, n = torch.zeros(2, 64), torch.zeros(2, 8, 64), torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="dividing n_heads"):
+        f(q, torch.zeros(2, 8, 48), torch.zeros(2, 8, 48), n, 4)   # n_kv 3 of 4 heads
+    i8, sc = torch.zeros(2, 8, 16, dtype=torch.int8), torch.ones(2, 64)
     with pytest.raises(ValueError, match="MHA only"):
-        f(q, torch.zeros(2, 8, 16), torch.zeros(2, 8, 16), n, 4)   # MQA cache
+        f(q, i8, i8, n, 4, sc, sc)                                 # int8 + MQA
     with pytest.raises(ValueError):
         g(torch.zeros(5, 64), kv, kv, n, 4, 3)                     # rows != B * G
     with pytest.raises(TypeError):
@@ -510,12 +553,15 @@ def test_mha_flagship_greedy_and_unfolded_match_golden():
 K4_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2), "int8": (2e-5, 1e-5)}
 
 
-def _k4_on_card(dev, kind, group, b, t, seed=0, h=8, dh=32):
-    """K4a (group 1) or K4b against its plain version on _decode_inputs:
-    outputs within K4_TOL, attention positions equal in at least 99% of
-    rows, and row 2's tie resolved to the lower position."""
+def _k4_on_card(dev, kind, group, b, t, seed=0, h=8, dh=32, n_kv=None):
+    """K4a (group 1) or K4b against its plain version on _decode_inputs
+    (with n_kv, K/V cut to the first n_kv heads: GQA): outputs within
+    K4_TOL, attention positions equal in at least 99% of rows, and row
+    2's tie resolved to the lower position."""
     rng = np.random.default_rng(seed)
     q, k, v, lens = _decode_inputs(rng, b, t, h, dh, group)
+    if n_kv is not None:
+        k, v = (np.ascontiguousarray(x[:, :, :n_kv * dh]) for x in (k, v))
     qdt = torch.float32 if kind == "int8" else getattr(torch, kind)
     tq = _t(q).to(dev, qdt)
     if kind == "int8":
@@ -562,6 +608,28 @@ def test_k4b_kernel_other_widths_on_card(cuda, kind, h, dh):
     """The grouped kernel at D 64 (Dh 16, most threads without an output
     channel) and D 512 (four channels a thread)."""
     _k4_on_card(cuda, kind, 3, b=24, t=37, seed=dh, h=h, dh=dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,dh,n_kv", [(8, 32, 1), (8, 32, 2), (8, 32, 4), (4, 16, 1),
+                                       (4, 16, 2), (8, 64, 1)])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_k4a_kernel_gqa_on_card(cuda, kind, h, dh, n_kv):
+    """K4a on GQA/MQA caches: every query head of a KV group reads its
+    KV head's lanes (one to eight query heads per KV head)."""
+    _k4_on_card(cuda, kind, 1, b=48, t=37, seed=h * 100 + dh + n_kv, h=h, dh=dh, n_kv=n_kv)
+
+
+@pytest.mark.cuda
+def test_k4_kernels_gqa_contract_on_card(cuda):
+    """The grouped kernel and int8 take MHA caches only and raise on GQA."""
+    q, n = torch.zeros(6, 64, device=cuda), torch.ones(2, dtype=torch.int32, device=cuda)
+    kv = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="not ported to the grouped kernel"):
+        attention.decode_attention_grouped(q, kv, kv, n, 4, 3)
+    i8, sc = kv.to(torch.int8), torch.ones(2, 64, device=cuda)
+    with pytest.raises(ValueError, match="MHA only"):
+        attention.decode_attention(q[:2], i8, i8, n, 4, sc, sc)
 
 
 @pytest.mark.cuda

@@ -166,21 +166,34 @@ def test_k2_kernel_bit_exact_on_card(cuda, dtype):
 
 
 def _beam_inputs_on(dev, case, b=256, k=5, v=344, seed=0):
-    """Flagship-shaped beam step inputs: random scores with some EOS-heavy
-    rows, the first step (alive [0, -1e9, ...], nothing finished), or
-    all ties."""
+    """Beam step inputs (flagship-shaped by default): random scores with
+    some EOS-heavy rows, the first step (alive [0, -1e9, ...], nothing
+    finished), all ties, every candidate under -1e9 ("below"), fewer than
+    2K candidates above -1e9 beside exact -1e9 ties ("few"), or -inf
+    log-probs."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     lp = torch.log_softmax(2 * torch.randn(b, k, v, device=dev, generator=gen), -1)
     alive = -torch.rand(b, k, device=dev, generator=gen).mul(9).sort(dim=1,
                                                                    descending=True).values
     fin = torch.full((b, k), -1e9, device=dev)
-    fin[:, :2] = -torch.rand(b, 2, device=dev, generator=gen)
+    fin[:, :min(2, k)] = -torch.rand(b, min(2, k), device=dev, generator=gen)
     if case == "step0":
         alive = torch.full((b, k), -1e9, device=dev)
         alive[:, 0] = 0.0
         fin = torch.full((b, k), -1e9, device=dev)
     elif case == "ties":
         lp, alive = torch.zeros_like(lp), torch.zeros_like(alive)
+    elif case == "below":
+        alive = torch.full((b, k), -2e9, device=dev)
+        fin = torch.full((b, k), -1e9, device=dev)
+    elif case == "few":
+        alive = torch.full((b, k), -1e9, device=dev)
+        alive[:, 0] = 0.0
+        fin = torch.full((b, k), -1e9, device=dev)
+        lp[:, 0, 6:] = -float("inf")
+    elif case == "neg_inf":
+        lp[:, :, 1::3] = -float("inf")
+        lp[::4, k - 1] = -float("inf")
     return alive, lp, fin
 
 
@@ -189,16 +202,21 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "step0", "ties"])
-def test_k3_k7_kernels_bit_exact_on_card(cuda, case):
-    alive, lp, fin = _beam_inputs_on(cuda, case)
+@pytest.mark.parametrize("k,v", [(5, 344), (5, 8), (1, 8), (3, 33), (10, 200), (16, 128),
+                                 (5, 1000)])
+@pytest.mark.parametrize("case", ["random", "step0", "ties", "below", "few", "neg_inf"])
+def test_k3_k7_kernels_bit_exact_on_card(cuda, case, k, v):
+    """Bitwise against the plain versions.  K3 runs its warp kernel up to
+    K 10 and K * V 2048 (V 8 < 2K; V 33 with unaligned rows; K 10 at its
+    limits) and the block kernel beyond (K 16, V 1000)."""
+    alive, lp, fin = _beam_inputs_on(cuda, case, b=64, k=k, v=v)
     lp[:8, :, 2] = -0.05  # EOS-heavy rows
-    got = beam_step.beam_advance(alive, lp, fin, 3.5, 5, 344, 2)
-    ref = beam_step.beam_advance_plain(alive, lp, fin, 3.5, 5, 344, 2)
+    got = beam_step.beam_advance(alive, lp, fin, 3.5, k, v, 2)
+    ref = beam_step.beam_advance_plain(alive, lp, fin, 3.5, k, v, 2)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(_bits(g), _bits(r))
-    s, i = beam_step.beam_topk(alive, lp, 10)
-    rs, ri = beam_step.beam_topk_plain(alive, lp, 10)
+    s, i = beam_step.beam_topk(alive, lp, 2 * k)
+    rs, ri = beam_step.beam_topk_plain(alive, lp, 2 * k)
     torch.cuda.synchronize()
     assert torch.equal(_bits(s), _bits(rs)) and torch.equal(i, ri)
