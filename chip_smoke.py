@@ -2,7 +2,7 @@
 """Drive the PyTorch port (nanodecoder_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels K4a,K3 [--root DIR]
+    python3 chip_smoke.py --kernels K4a,K3,K2,K7 [--root DIR]
 
 Needs one NVIDIA Hopper card, nvcc and the repository checkout around
 this file; the first phase builds the kernels from nanodecoder_tpu_torch/csrc.
@@ -46,13 +46,27 @@ Phases, in order; any failure exits non-zero before the last line:
   8. unfolded MHA (lean_step false: K5 encoder, per-layer self caches):
      golden f32 (0.99), 20 reads bf16/int6 (0.90), beam 5 f32 on golden
      read 101 (0.99 to phase 5's card call);
-  9. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
-     beam, 5-6; mha, 7; unfolded, 8), errors, times;
- 10. the last line: {"ok": true, "device": {...}}.
+  9. without kernels: the flagship with use_pallas false (the plain
+     PyTorch route, the JAX package's XLA path): golden f32 (0.99) and
+     beam 5 f32 on golden read 101 (0.99 to phase 5's card call); no
+     kernel but K2 (which the lean step runs whatever the flag) launches;
+ 10. wide shapes: K4a, K4b and K1/K5/K6 at shapes the earlier kernels
+     refused (Dh 8 to 256, D 384 to 2048, groups 9 to 16, GQA in K4b, 16
+     query heads per KV head, f32 encoder attention at S 2048 and 4096),
+     each against its plain version at phase 2's tolerances, with the
+     decode-attention kernel each ran (fast or scalar);
+ 11. tiny: the JAX package's tiny_test_config with random params,
+     greedy and beam 5, lean and unfolded, by the kernel route (its
+     kernels counted) against the plain route on the card (0.99);
+ 12. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+     beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11), K4a's and
+     K4b's launches of the scalar decode-attention kernel apart (none on
+     phases 3-9), errors, times;
+ 13. the last line: {"ok": true, "device": {...}}.
 
 `--kernels` runs phase 1 and the named kernels' phase 2 only and prints
-their numbers as one JSON line; with `--root` it imports (and builds)
-the package of another checkout, such as an older tree unpacked into a
+their numbers as one JSON line; with `--root` it imports (and builds) the
+package of another checkout, such as an older tree unpacked into a
 git-ignored directory, to compare two versions in one call.
 """
 
@@ -191,6 +205,18 @@ def phase_build() -> None:
             print("  ptxas:", name[:60], "|", " | ".join(info))
 
 
+def enc_bound(qkv, lengths) -> tuple[float, str]:
+    """Bound of one encoder attention call on the (B, S, 3D) qkv: read
+    once, the (B, S, D) output written once, the lengths; every query row
+    against the keys up to its row's length (all S for a length-0 row,
+    whose attention is uniform), 4 operations per lane."""
+    b, s, d3 = qkv.shape
+    n_eff = np.where(lengths > 0, lengths, s).astype(np.float64)
+    flops = float(4.0 * s * (d3 // 3) * n_eff.sum())
+    nbytes = qkv.numel() * qkv.element_size() * 4 / 3 + b * 4
+    return bound(nbytes, flops, qkv.dtype)
+
+
 def phase_enc_attn(name, dtype, dev, rng) -> dict:
     """K1 (QKV slab), K5 (separate q/k/v) or K6 ((B, S, H, Dh)) at the
     flagship encoder's shape."""
@@ -231,13 +257,7 @@ def phase_enc_attn(name, dtype, dev, rng) -> dict:
     plain_ms = cuda_ms(plain)
     lib_ms = cuda_ms(sdpa)
     g_ms, g_lib = graph_ms(run, 10), graph_ms(sdpa, 10)
-    # Work this data needs: every query row; keys up to each row's length
-    # (all S for a length-0 row, whose attention is uniform).
-    n_eff = np.where(lengths > 0, lengths, s).astype(np.float64)
-    flops = float(4.0 * h * s * dh * n_eff.sum())
-    nbytes = qkv.numel() * qkv.element_size() + got.numel() * got.element_size() \
-        + lens.numel() * 4
-    bms, by = bound(nbytes, flops, dtype)
+    bms, by = enc_bound(qkv, lengths)
     print(f"{name} {str(dtype)[6:]}: max_abs_err {max_err:.3g}  kernel {ms:.4f} ms  "
           f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.4f} ms ({by}); "
           f"device only (CUDA graph): kernel {g_ms:.4f} ms  sdpa {g_lib:.4f} ms, bound "
@@ -323,6 +343,20 @@ def check_k4(name, kind, out, amax, rout, ramax, q, k, lens, h, group,
     return max_err, len(bad)
 
 
+def k4_bound(q, k, lengths, group: int, scales) -> tuple[float, str]:
+    """Bound of one K4a/K4b call on these inputs: the cache rows below each
+    chunk's length (all T for a length-0 row) read once for the chunk's
+    `group` queries, q read and the output written, the lengths, the
+    positions and any int8 scales; 4 operations per query lane and row."""
+    b, t, dk = k.shape
+    d = q.shape[1]
+    n_eff = float(np.where(lengths > 0, lengths, t).astype(np.float64).sum())
+    nbytes = 2 * n_eff * dk * k.element_size() + 2 * q.numel() * q.element_size() \
+        + b * 4 + q.shape[0] * 4 + (2 * b * d * 4 if scales else 0)
+    return bound(nbytes, 4.0 * group * n_eff * d,
+                 torch.float32 if k.dtype == torch.int8 else q.dtype)
+
+
 def phase_k4(kind: str, group: int, dev, rng) -> dict:
     """K4a (group 1, B 640) or K4b (B 256, group 5): T 256, D 256, 8 heads
     of 32, the MHA flagship's cross attention; kind float32, bfloat16 or
@@ -334,7 +368,6 @@ def phase_k4(kind: str, group: int, dev, rng) -> dict:
 
     b = 640 if group == 1 else 256
     t, h, dh = 256, 8, 32
-    d = h * dh
     sets = [k4_inputs(kind, b, group, t, h, dh, h, dev, rng)]
     q, k, v, lens, lengths, scales = sets[0]
     set_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, *scales.values()))
@@ -369,13 +402,7 @@ def phase_k4(kind: str, group: int, dev, rng) -> dict:
             sdpas.append(lambda qt=qt, kt=kt, vt=vt, mask=mask:
                          F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
         lib_ms, g_lib = cuda_ms(sdpas[0]), graph_ms(sdpas, 50)
-    # Work this data needs: the rows below each chunk's length (all T for
-    # a length-0 row), read once for the chunk's `group` queries.
-    n_eff = float(np.where(lengths > 0, lengths, t).astype(np.float64).sum())
-    nbytes = 2 * n_eff * d * k.element_size() + 2 * q.numel() * q.element_size() \
-        + lens.numel() * 4 + amax.numel() * 4 + (2 * b * d * 4 if scales else 0)
-    flops = 4.0 * group * n_eff * d
-    bms, by = bound(nbytes, flops, torch.float32 if kind == "int8" else q.dtype)
+    bms, by = k4_bound(q, k, lengths, group, scales)
     lib = f"sdpa {lib_ms:.4f} ms" if lib_ms is not None else "sdpa n/a (int8)"
     glib = f"sdpa {g_lib:.4f} ms, kernel / sdpa {g_ms / g_lib:.3f}" \
         if g_lib is not None else "sdpa n/a"
@@ -408,10 +435,7 @@ def phase_k4a_gqa(kind: str, n_kv: int, dev, rng) -> dict:
                               lens, h, 1, {})
     g_ms = graph_ms([lambda s=s: at.decode_attention(s[0], s[1], s[2], s[3], h)
                      for s in sets], 50)
-    n_eff = float(np.where(lengths > 0, lengths, t).astype(np.float64).sum())
-    nbytes = 2 * n_eff * k.shape[2] * k.element_size() + 2 * q.numel() * q.element_size() \
-        + lens.numel() * 4 + amax.numel() * 4
-    bms, by = bound(nbytes, 4.0 * n_eff * h * dh, q.dtype)
+    bms, by = k4_bound(q, k, lengths, 1, {})
     print(f"K4a GQA {kind} n_kv {n_kv} B{b}: max_abs_err {max_err:.3g}, {n_bad} near-tie "
           f"positions; device only (CUDA graph, {len(sets)} input set(s)): kernel "
           f"{g_ms:.4f} ms, bound {bms:.4f} ms ({by}), bound share {bms / g_ms:.3f}")
@@ -566,17 +590,20 @@ def phase_k7(dev) -> dict:
 
 
 def load_config(compute_dtype: str, h2d: str, batch_chunks: int, model=None,
-                **decode):
+                pallas: bool = True, **decode):
     """The flagship config with these serving settings; `model` holds
-    ModelConfig overrides (the MHA form, lean_step, int8 caches)."""
+    ModelConfig overrides (the MHA form, lean_step, int8 caches).
+    `pallas` sets model.use_pallas and decode.use_pallas (the committed
+    config's model.use_pallas is false): the kernel route, as the JAX
+    package's CLI takes it on an accelerator, or the plain PyTorch one."""
     from nanodecoder_tpu_torch.config import Config
 
     with open(CONFIG) as f:
         cfg = Config.from_json(f.read())
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, compute_dtype=compute_dtype,
-                                       **(model or {})),
-        decode=dataclasses.replace(cfg.decode, h2d_dtype=h2d,
+                                       use_pallas=pallas, **(model or {})),
+        decode=dataclasses.replace(cfg.decode, h2d_dtype=h2d, use_pallas=pallas,
                                    batch_chunks=batch_chunks, **decode))
 
 
@@ -736,10 +763,195 @@ def phase_beam_serving(params, cfg, greedy_idents=None, n_reads=20, label="beam"
     return tr.batches, tr.decode_steps
 
 
+# Shapes the earlier kernels refused, each against its plain version
+# (phase 10).  K4a: (heads, Dh, KV heads, cache kinds); K4b: (group,
+# heads, Dh, KV heads, kinds); encoder: (Dh, heads, S, dtypes).
+ALL_KINDS, EXACT_KINDS = ("float32", "bfloat16", "int8"), ("float32", "bfloat16")
+K4A_WIDE = [(4, 8, 4, ALL_KINDS), (6, 64, 6, ALL_KINDS), (12, 64, 12, ALL_KINDS),
+            (16, 32, 1, EXACT_KINDS), (32, 16, 2, EXACT_KINDS)]
+K4B_WIDE = [(9, 8, 32, 8, ALL_KINDS), (12, 8, 32, 8, ALL_KINDS), (16, 8, 32, 8, ALL_KINDS),
+            (5, 8, 32, 1, EXACT_KINDS), (12, 8, 32, 1, EXACT_KINDS),
+            (5, 8, 32, 2, EXACT_KINDS), (12, 8, 32, 2, EXACT_KINDS),
+            (5, 4, 8, 4, ALL_KINDS), (5, 4, 24, 4, ALL_KINDS), (5, 16, 128, 16, ALL_KINDS)]
+F32_BF16 = (torch.float32, torch.bfloat16)
+ENC_WIDE = [(8, 4, 256, F32_BF16), (16, 2, 256, F32_BF16), (48, 2, 256, F32_BF16),
+            (96, 2, 256, F32_BF16), (256, 1, 256, F32_BF16),
+            (128, 2, 2048, (torch.float32,)), (128, 2, 4096, (torch.float32,))]
+
+
+def phase_wide(dev, rng) -> dict:
+    """Phase 10: K4a (B 640), K4b (B 256) at T 256 and K1/K5/K6 (B 6,
+    lengths 0, 1, 63, 64, 65 and S) at shapes the earlier kernels refused,
+    each against its plain version at phase 2's tolerances; device-only
+    time (one input set, CUDA graph) of K4a, K4b and K1."""
+    from nanodecoder_tpu_torch.ops import attention as at
+    from nanodecoder_tpu_torch.ops import encoder_attention as ea
+
+    out = {}
+    t = 256
+    cases = [(1, h, dh, n_kv, kinds) for h, dh, n_kv, kinds in K4A_WIDE] + K4B_WIDE
+    for group, h, dh, n_kv, kinds in cases:
+        b = 640 if group == 1 else 256
+        for kind in kinds:
+            q, k, v, lens, lengths, scales = k4_inputs(kind, b, group, t, h, dh, n_kv,
+                                                       dev, rng)
+            if group == 1:
+                name = "K4a"
+                run = lambda: at.decode_attention(q, k, v, lens, h, **scales)  # noqa: E731
+                ref = at.decode_attention_plain(q, k, v, lens, h, **scales)
+            else:
+                name = "K4b"
+                run = lambda: at.decode_attention_grouped(  # noqa: E731
+                    q, k, v, lens, h, group, **scales)
+                ref = at.decode_attention_grouped_plain(q, k, v, lens, h, group, **scales)
+            fn = at.decode_attention if group == 1 else at.decode_attention_grouped
+            scalar0 = fn.scalar_launches
+            got = run()
+            torch.cuda.synchronize()
+            kernel = "scalar" if fn.scalar_launches > scalar0 else "fast"
+            label = f"{name} {kind} G{group} H{h} Dh{dh} n_kv{n_kv}"
+            max_err, n_bad = check_k4(label, kind, *got, *ref, q, k, lens, h, group,
+                                      scales)
+            g_ms = graph_ms(run, 20)
+            bms, by = k4_bound(q, k, lengths, group, scales)
+            print(f"wide {label} B{b} ({kernel} kernel): max_abs_err {max_err:.3g}, "
+                  f"{n_bad} near-tie positions; device only {g_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}), bound share {bms / g_ms:.3f}")
+            out[label] = {"kernel": kernel, "max_abs_err": max_err, "graph_ms": g_ms,
+                          "bound_ms": bms, "bound_by": by}
+    for dh, heads, s, dtypes in ENC_WIDE:
+        lengths = np.minimum([0, 1, 63, 64, 65, s], s).astype(np.int32)
+        b, d = len(lengths), heads * dh
+        n = torch.from_numpy(lengths).to(dev)
+        for dtype in dtypes:
+            x = torch.from_numpy(rng.standard_normal((b, s, 3 * d), np.float32)).to(dev,
+                                                                                     dtype)
+            q, k, v = (x[..., i * d:(i + 1) * d].contiguous() for i in range(3))
+            split = lambda y: y.view(b, s, heads, dh)  # noqa: E731
+            ref = ea.encoder_attention_plain(x, n, heads)
+            got = {"K1": ea.flash_encoder_attention_qkv(x, n, heads),
+                   "K5": ea.flash_encoder_attention_nld(q, k, v, n, heads),
+                   "K6": ea.flash_encoder_attention(split(q), split(k), split(v),
+                                                    n).reshape(b, s, d)}
+            torch.cuda.synchronize()
+            atol, rtol = K1_TOL[dtype]
+            errs = []
+            for name, y in got.items():
+                check(bool(torch.isfinite(y).all()), f"wide {name} Dh{dh}: non-finite")
+                err = (y.float() - ref.float()).abs()
+                errs.append(float(err.max()))
+                check(bool((err <= atol + rtol * ref.float().abs()).all()),
+                      f"wide {name} {dtype} Dh{dh} S{s}: max |kernel - plain| "
+                      f"{errs[-1]} over tolerance")
+            g_ms = graph_ms(lambda: ea.flash_encoder_attention_qkv(x, n, heads), 10)
+            bms, by = enc_bound(x, lengths)
+            label = f"K1/K5/K6 {str(dtype)[6:]} Dh{dh} H{heads} S{s}"
+            print(f"wide {label} B{b}: max_abs_err {max(errs):.3g}; K1 device only "
+                  f"{g_ms:.4f} ms, bound {bms:.4f} ms ({by}), bound share "
+                  f"{bms / g_ms:.3f}")
+            out[label] = {"max_abs_err": max(errs), "graph_ms": g_ms, "bound_ms": bms,
+                          "bound_by": by}
+    return out
+
+
+def random_params(cfg, seed: int, generator_scale: float = 3.0) -> dict:
+    """Flat params at cfg's shapes from a numpy seed (the port has no
+    init_model): glorot-scaled dense and conv weights, embeddings of std
+    1/sqrt(D), unit LN scales, zero biases, the generator scaled up so
+    that with this seed some chunks end early (EOS, then PAD) and some
+    run to max_decode_len."""
+    from nanodecoder_tpu_torch.train.checkpoint import expected_param_shapes
+
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, shape in expected_param_shapes(cfg).items():
+        if key.endswith("/scale"):
+            a = np.ones(shape)
+        elif key.endswith("/bias") or key.endswith("/b"):
+            a = np.zeros(shape)
+        elif key.endswith("/table"):
+            a = rng.standard_normal(shape) / np.sqrt(shape[1])
+        else:
+            fan_in = int(np.prod(shape[:-1]))
+            a = rng.standard_normal(shape) * np.sqrt(2.0 / (fan_in + shape[-1]))
+        flat[key] = a.astype(np.float32)
+    flat["generator/w"] = flat["generator/w"] * generator_scale
+    return flat
+
+
+def phase_tiny(dev, reset, counts) -> dict:
+    """Phase 11: the JAX package's tiny_test_config (D 32, 4 heads of 8,
+    MHA decoder), f32, random params from seed 3, on 4 simulated reads of
+    1500 bases: greedy and beam 5, lean and unfolded, by the kernel route
+    (its kernels counted as launched) and by the plain route on the card;
+    the two routes' basecalls (trim stitch, which reads no attention
+    position) must agree at identity >= 0.99.  Returns the kernel route's
+    launches."""
+    from nanodecoder_tpu_torch.config import tiny_test_config
+    from nanodecoder_tpu_torch.decode.translator import Translator
+    from nanodecoder_tpu_torch.identity import read_identity
+    from nanodecoder_tpu_torch.io.fast5 import RawRead
+    from nanodecoder_tpu_torch.io.signal import chunk_signal, normalize_signal
+    from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy
+    from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
+
+    base = tiny_test_config()
+    params = params_from_numpy(random_params(base.model, 3), base.model, device=dev)
+    spec = SimSpec()
+    rng = np.random.default_rng(7)
+    reads = [RawRead(f"tiny{i}", simulate_read(rng, 1500, spec, spec.level_table())[1],
+                     "sim") for i in range(4)]
+    need = {("lean", "greedy"): ("K1", "K2", "K4a"),
+            ("lean", "beam"): ("K1", "K2", "K3", "K4b"),
+            ("unfolded", "greedy"): ("K5", "K4a"),
+            ("unfolded", "beam"): ("K5", "K3", "K4b")}
+    total = {}
+    for (form, mode), kernels in need.items():
+        seqs = {}
+        for pallas in (True, False):
+            model = dataclasses.replace(base.model, use_pallas=pallas,
+                                        lean_step=form == "lean")
+            decode = dataclasses.replace(base.decode, use_pallas=pallas, batch_chunks=64,
+                                         batch_chunks_beam=16, mode=mode, beam_size=5)
+            tr = Translator(params, dataclasses.replace(base, model=model, decode=decode))
+            reset()
+            seqs[pallas] = [tr.basecall_read(r, stitch_method="trim").sequence
+                            for r in reads]
+            c = counts()
+            if pallas:
+                for name in kernels:
+                    check(c[name] > 0, f"tiny {form} {mode}: {name} not launched")
+                total = {name: total.get(name, 0) + n for name, n in c.items()}
+                if (form, mode) == ("lean", "greedy"):  # EOS and PAD occur
+                    sc = base.signal
+                    cbs = [chunk_signal(normalize_signal(r.signal, sc.normalization,
+                                                         sc.mad_scale, sc.clip_sigma),
+                                        sc.chunk_len, sc.chunk_overlap, sc.min_chunk_fill)
+                           for r in reads]
+                    lengths = tr.decode_chunk_batch(
+                        np.concatenate([cb.chunks for cb in cbs]),
+                        np.concatenate([cb.lengths for cb in cbs]))[1]
+                    tmax = base.model.max_decode_len
+                    print(f"tiny: {len(lengths)} chunks, token lengths {lengths.min()} to "
+                          f"{lengths.max()}, {int((lengths < tmax).sum())} ended by EOS")
+                    check(bool((lengths < tmax).any() and (lengths == tmax).any()),
+                          "tiny: no chunk ends by EOS, or every chunk does")
+            else:
+                check(all(n == 0 for name, n in c.items() if name != "K2"),
+                      f"tiny {form} {mode} without kernels: launches {c}")
+        idents = [read_identity(a, b) for a, b in zip(seqs[True], seqs[False])]
+        print(f"tiny {form} {mode}: kernel route vs plain route on the card, identity "
+              + ", ".join(f"{x:.4f}" for x in idents)
+              + f" ({sum(len(x) for x in seqs[True])} bases)")
+        check(min(idents) >= 0.99, f"tiny {form} {mode}: identity {min(idents)} < 0.99")
+    return total
+
+
 def kernel_times(names: list[str]) -> int:
     """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
-    three dtypes, K3), one JSON line of their numbers.  With --root on an
-    unpacked older tree, the same measurement of that tree's kernels."""
+    three dtypes, K3, K2 at four widths, K7); one JSON line of their
+    numbers.  With --root on an unpacked older tree, the same measurement
+    of that tree's kernels."""
     from nanodecoder_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -758,8 +970,13 @@ def kernel_times(names: list[str]) -> int:
                 floor_ms = phase_floor() if hasattr(_build.load(), "nd_empty_kernel") \
                     else None
                 stats[name] = {"float32": phase_k3(dev, floor_ms)}
+            elif name == "K2":
+                stats[name] = {f"{str(dt)[6:]}_c{c}": phase_k2(dt, dev, c)
+                               for c in (256, 1536) for dt in F32_BF16}
+            elif name == "K7":
+                stats[name] = {"float32": phase_k7(dev)}
             else:
-                raise SmokeError(f"--kernels takes K4a and K3, not {name}")
+                raise SmokeError(f"--kernels takes K4a, K3, K2 and K7, not {name}")
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -770,7 +987,8 @@ def kernel_times(names: list[str]) -> int:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="",
-                    help="comma-separated K4a,K3: time only these kernels and stop")
+                    help="comma-separated K4a, K3, K2, K7: time only these kernels "
+                         "and stop")
     ap.add_argument("--root", default=REPO,
                     help="the checkout whose nanodecoder_tpu_torch to import")
     args = ap.parse_args(argv or [])
@@ -803,9 +1021,15 @@ def main(argv: list[str] | None = None) -> int:
     def reset():
         for fn in wrappers.values():
             fn.launches = 0
+        for fn in (decode_attention, decode_attention_grouped):
+            fn.scalar_launches = 0
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        # K4a_scalar, K4b_scalar: the launches of K4a and K4b that ran the
+        # scalar decode-attention kernel (counted in K4a and K4b too).
+        return {**{name: fn.launches for name, fn in wrappers.items()},
+                "K4a_scalar": decode_attention.scalar_launches,
+                "K4b_scalar": decode_attention_grouped.scalar_launches}
 
     def expect(path, got, **want):
         for name, n in want.items():
@@ -894,7 +1118,7 @@ def main(argv: list[str] | None = None) -> int:
               f"K2 launched {mhac['K2']} times on the lean MHA path")
         expect("mha", mhac, K1=enc_layers * (gb + sb + ib + pb + bb),
                K4a=dec_layers * greedy_steps, K4b=dec_layers * beam_steps, K3=beam_steps,
-               K5=0)
+               K5=0, K4a_scalar=0, K4b_scalar=0)
 
         reset()  # unfolded MHA: phase 8
         unf = {**mha, "lean_step": False}
@@ -909,7 +1133,23 @@ def main(argv: list[str] | None = None) -> int:
             mqa_beam_seq, "unfolded MHA beam f32/K5")
         paths["unfolded"] = unfc = counts()
         expect("unfolded", unfc, K1=0, K2=0, K4a=dec_layers * (gs + ss),
-               K4b=dec_layers * ps, K3=ps, K5=enc_layers * (gb + sb + pb))
+               K4b=dec_layers * ps, K3=ps, K5=enc_layers * (gb + sb + pb), K4a_scalar=0,
+               K4b_scalar=0)
+        reset()  # phase 9: the flagship by the plain PyTorch route
+        gb, gs = phase_golden(params, load_config("float32", "float32", 640, pallas=False),
+                              "golden f32 without kernels")
+        pb, ps, _ = phase_beam_parity(
+            params, load_config("float32", "float32", 640, pallas=False, **parity_beam),
+            mqa_beam_seq, "beam f32/K5 without kernels")
+        paths["no_pallas"] = plainc = counts()
+        check(plainc["K2"] >= gs + ps > 0,
+              f"K2 launched {plainc['K2']} times for {gs + ps} decode steps")
+        expect("no_pallas", plainc, K1=0, K3=0, K4a=0, K4b=0, K5=0, K6=0, K7=0)
+
+        wide = phase_wide(dev, rng)  # phase 10
+        for key, prefix in (("K1", "K1/"), ("K4a", "K4a "), ("K4b", "K4b ")):
+            stats[key]["wide"] = {k: v for k, v in wide.items() if k.startswith(prefix)}
+        paths["tiny"] = phase_tiny(dev, reset, counts)  # phase 11
         check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
               "K6 or K7 launched on a serving path")
         for path, c in paths.items():
@@ -925,6 +1165,9 @@ def main(argv: list[str] | None = None) -> int:
         primary = "bfloat16" if "bfloat16" in kernel_stats else "float32"
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(by_path.values()), "launches_by_path": by_path,
+               **({"scalar_kernel_launches_by_path": {
+                   path: c[f"{key}_scalar"] for path, c in paths.items()}}
+                  if key in ("K4a", "K4b") else {}),
                **kernel_stats[primary], "dtype": primary,
                **{k: v for k, v in kernel_stats.items() if k != primary}}
         if key in ("K2", "K3", "K7"):
@@ -945,7 +1188,7 @@ def main(argv: list[str] | None = None) -> int:
         entry("K4a decode_attention", dec, "nanodecoder_tpu/ops/attention.py:62",
               stats["K4a"], "B 640, T 256, D 256, 8 heads; 3 launches per MHA greedy "
               "step; int8: int8 caches, f32 queries; gqa_*: n_kv KV heads, checked "
-              "and timed in phase 2 only"),
+              "and timed in phase 2 only; wide: phase 10's shapes"),
         entry("K4b decode_attention_grouped", dec, "nanodecoder_tpu/ops/attention.py:201",
               stats["K4b"], "B 256, G 5; 3 launches per MHA beam step"),
         entry("K5 flash_encoder_attention_nld", enc,
@@ -954,7 +1197,7 @@ def main(argv: list[str] | None = None) -> int:
         entry("K6 flash_encoder_attention", enc,
               "nanodecoder_tpu/ops/encoder_attention.py:28", stats["K6"],
               "on no serving path (its only JAX caller is a test); launched only "
-              "in phase 2"),
+              "in phases 2 and 10"),
         entry("K7 beam_topk", beam_src, "nanodecoder_tpu/ops/beam_step.py:37",
               stats["K7"], "on no serving path (its only JAX caller is a test); "
               "launched only in phase 2"),

@@ -4,11 +4,15 @@ Greedy and beam-search basecalling of transformer models (lean or
 unfolded, MQA/GQA or MHA decoders, exact or int8 cross caches) on one
 NVIDIA H100:
 
+    import dataclasses
     from nanodecoder_tpu_torch.config import Config
     from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
     from nanodecoder_tpu_torch.decode.translator import Translator
 
     cfg = Config.from_json(open("bench_results/config.json").read())
+    cfg = dataclasses.replace(    # the kernel route; this config says false
+        cfg, model=dataclasses.replace(cfg.model, use_pallas=True),
+        decode=dataclasses.replace(cfg.decode, use_pallas=True))
     params = load_params_npz("bench_results/flagship_params.npz", cfg.model)
     call = Translator(params, cfg).basecall_read(read)   # device="cuda"
 

@@ -10,7 +10,10 @@ Two modes:
            --ckpt bench_results/flagship_params.npz --simulate 20 [--beam 5] [--json]
 
 Identity = 1 - edit_distance(called, truth) / len(truth).  Simulator mode
-runs on the CUDA card unless --cpu is given.
+runs on the CUDA card unless --cpu is given.  --pallas / --no-pallas set
+model.use_pallas and decode.use_pallas (the kernel route or the plain
+PyTorch one); by default the kernel route on the card, the plain one with
+--cpu, as the JAX package's CLI takes its kernels on an accelerator only.
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="",
                     help="model compute dtype (default bfloat16, the served mode)")
     ap.add_argument("--batch", type=int, default=0, help="override decode batch_chunks")
+    ap.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
+                    help="the kernel route (model.use_pallas and decode.use_pallas; "
+                         "default: on with the CUDA card, off with --cpu)")
     ap.add_argument("--staged", action="store_true", help="staged decode-cache growth")
     ap.add_argument("--h2d", default="",
                     choices=["", "float32", "float16", "int8", "int6", "int4"],
@@ -81,12 +87,13 @@ def _simulated_pairs(args, log) -> list[tuple[str, str, str]]:
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     params, config = load_params_and_config(args.ckpt, device)
+    use_pallas = device.type == "cuda" if args.pallas is None else args.pallas
     # The served mode (bf16) by default; --dtype float32 is the parity mode.
     model = dataclasses.replace(config.model, compute_dtype=args.dtype or "bfloat16",
                                 staged_decode=config.model.staged_decode or args.staged,
                                 cross_cache_int8=config.model.cross_cache_int8
-                                or args.int8_cross)
-    decode = config.decode
+                                or args.int8_cross, use_pallas=use_pallas)
+    decode = dataclasses.replace(config.decode, use_pallas=use_pallas)
     if args.batch:
         decode = dataclasses.replace(decode, batch_chunks=args.batch)
     if args.beam > 0:

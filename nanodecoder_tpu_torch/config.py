@@ -4,9 +4,18 @@ The same dataclasses and JSON layout as `nanodecoder_tpu.config`, kept
 as this package's own copy so the port never imports the JAX package.
 A checkpoint directory's `config.json` loads into either package.
 
-The port reads no `use_pallas` flag: the kernel wrappers in `ops/` run
-their CUDA kernel on a CUDA tensor and their plain PyTorch version on a
-CPU tensor, whatever the config says.
+`ModelConfig.use_pallas` and `DecodeConfig.use_pallas` choose the route
+as in the JAX package.  True is the kernel route: the encoder attention
+(K1, K5), an MHA decoder's cross attention (K4a, K4b) and the fused beam
+advance (K3) go through the wrappers in `ops/`, which launch the
+hand-written CUDA kernel on a CUDA tensor and run the kernel's plain
+PyTorch version on a CPU tensor.  False is the plain PyTorch route, the
+counterpart of the JAX package's XLA path, on any device: attention by
+`attention_core` (MHA attention positions are then the head-mean
+argmax) and the beam advance by three top-k selections.  The flag is
+the caller's choice; nothing sets it on a failure, and a CUDA input
+that the kernel route cannot take raises.  The cache block write (K2)
+runs on the lean path whatever the flag says, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -301,3 +310,28 @@ class Config:
             train=build(TrainConfig, raw.get("train", {})),
             mesh=build(MeshConfig, raw.get("mesh", {})),
         )
+
+
+def tiny_test_config() -> Config:
+    """Small topology for unit tests and CPU runs (the JAX package's
+    `tiny_test_config`): d_model 32 with 4 heads of 8, MHA decoder."""
+    return Config(
+        signal=SignalConfig(chunk_len=256, chunk_overlap=32),
+        model=ModelConfig(
+            d_model=32,
+            conv_channels=(16, 32),
+            conv_kernels=(5, 5),
+            conv_strides=(2, 2),
+            enc_layers=2,
+            enc_heads=4,
+            enc_ffn_dim=64,
+            lstm_hidden=32,
+            dec_layers=2,
+            dec_heads=4,
+            dec_ffn_dim=64,
+            max_decode_len=48,
+            compute_dtype="float32",
+        ),
+        decode=DecodeConfig(max_len=48, batch_chunks=4, use_pallas=False),
+        train=TrainConfig(batch_size=4, warmup_steps=10, train_steps=20),
+    )

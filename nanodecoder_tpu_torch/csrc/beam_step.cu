@@ -53,13 +53,18 @@
 // each, instruction fetch and not loads or arithmetic setting its pace;
 // short loops are fetched once and run from the instruction cache.
 //
-// K7 (`beam_topk_kernel`) and K3 beyond the warp kernel's sizes: one block
-// per batch row keeps the row's K * V candidates in shared memory and runs
-// the rounds of a block-wide argmax under the same order: each thread
-// scans a strided slice, warps reduce by shuffles, warp 0 reduces the
-// warps' results and overwrites the pick.  The order is total, so the
-// result does not depend on the reduction's shape.  Warp 0 then runs K3's
-// two small picks with the same argmax.
+// K7 (`beam_topk_warp_kernel`, n_out <= 20, K <= 32, V >= 4, K * V <=
+// 2048) runs the same warp extraction (steps 1 to 3, n_out picks) and
+// writes the picks; two rows a block (one, two and four rows a block
+// timed alike on the H100, PERF.md section 6).
+//
+// K7 beyond those sizes (`beam_topk_kernel`) and K3 beyond its warp
+// kernel's: one block per batch row keeps the row's K * V candidates in
+// shared memory and runs the rounds of a block-wide argmax under the same
+// order: each thread scans a strided slice, warps reduce by shuffles,
+// warp 0 reduces the warps' results and overwrites the pick.  The order
+// is total, so the result does not depend on the reduction's shape.  Warp
+// 0 then runs K3's two small picks with the same argmax.
 
 #include <cuda_runtime.h>
 
@@ -192,6 +197,8 @@ constexpr int kAdvMaxN = 32 * 4 * kAdvGroups;  // K * V <= 2048
 constexpr int kAdvMaxK = 10;                 // 3K <= 32: a small pick's candidates, one a lane
 constexpr int kAdvCap = 128;                 // slots ranked in shared memory
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTopkWarpMaxOut = 2 * kAdvMaxK;  // K7 on the warp path: n_out <= 20
+constexpr int kTopkRows = 2;                 // K7 warp path: rows (warps) per block
 
 __device__ __forceinline__ bool ahead(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);   // (value desc, index asc)
@@ -269,25 +276,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(32 * kAdvRows)
-beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restrict__ lp,
-                         const float* __restrict__ fin, float pen, int b, int k, int v,
-                         int eos, int* __restrict__ top_ids, float* __restrict__ alive_s,
-                         int* __restrict__ alive_sel, float* __restrict__ fin_s,
-                         int* __restrict__ fin_sel) {
-  __shared__ __align__(16) AdvScratch scratch[kAdvRows];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * kAdvRows + warp;
-  if (row >= b) return;                      // the whole warp leaves
-  AdvScratch& w = scratch[warp];
+// The warp's part of one row: copies alive + log_probs of the row into
+// w.flat, and lane j < n_pick (n_pick <= 2 * kAdvMaxK) ends with pick j of
+// the iterated extraction in (pv, pi).  al: alive[lane] for lane < k.
+__device__ void warp_top_row(const float* __restrict__ src, float al, int k, int v,
+                             int n_pick, AdvScratch& w, float& pv, int& pi) {
+  const int lane = threadIdx.x & 31;
   float* flat = w.flat;
-  const int n = k * v, n2 = 2 * k;
-  const float* src = lp + (size_t)row * n;
+  const int n = k * v;
 
   // The row into shared memory by cp.async, every copy in flight at once;
   // slots past n (up to the group of 4) read as -inf.
   const int groups = (n + 127) / 128;        // float4 groups a lane takes
-  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(lp) & 15) == 0) {
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     for (int g = 0; g < groups; ++g) {
       const int i0 = 4 * (lane + 32 * g);
       if (i0 < n)
@@ -301,8 +302,6 @@ beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restric
   }
   asm volatile("cp.async.commit_group;\n" ::);
   for (int i = n + lane; i < 128 * groups; i += 32) flat[i] = -INFINITY;
-  const float al = lane < k ? alive[(size_t)row * k + lane] : 0.f;
-  const float fo = lane < k ? fin[(size_t)row * k + lane] : 0.f;
   const float inv_v = 1.f / (float)v;
   asm volatile("cp.async.wait_all;\n" ::);
   __syncwarp();
@@ -339,7 +338,7 @@ beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restric
     }
   }
 
-  // 1. The lanes' bests ranked; the one of rank 2K - 1 is the threshold.
+  // 1. The lanes' bests ranked; the one of rank n_pick - 1 is the threshold.
   int rank = 0;
 #pragma unroll 4
   for (int o = 1; o < 32; ++o) {
@@ -347,7 +346,7 @@ beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restric
     const int oi = __shfl_sync(kFull, bi, (lane + o) & 31);
     rank += ahead(ov, oi, bv, bi);
   }
-  const int th_lane = __ffs(__ballot_sync(kFull, rank == n2 - 1)) - 1;
+  const int th_lane = __ffs(__ballot_sync(kFull, rank == n_pick - 1)) - 1;
   const float tv = __shfl_sync(kFull, bv, th_lane);
   const int ti = __shfl_sync(kFull, bi, th_lane);
 
@@ -373,8 +372,6 @@ beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restric
   }
   const int total = __shfl_sync(kFull, incl, 31);
 
-  float pv;                                  // lane j < 2K: pick j
-  int pi;
   if (total <= kAdvCap) {
     int off = incl - cnt;
     for (uint64_t m = keep; m != 0; m &= m - 1) {
@@ -391,14 +388,14 @@ beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restric
       int r = 0;
 #pragma unroll 8
       for (int j = 0; j < total; ++j) r += ahead(w.sv[j], w.si[j], xv, xi);
-      if (r < n2) {
+      if (r < n_pick) {
         w.lv[r] = xv;
         w.li[r] = xi;
       }
     }
     __syncwarp();
     // 3. The closed form.
-    closed_form(w.lv, w.li, min(n2, total), n2, [&] {
+    closed_form(w.lv, w.li, min(n_pick, total), n_pick, [&] {
       int first = INT_MAX;
       for (int i = lane; i < n; i += 32)
         if (flat[i] >= kNegInf) {
@@ -408,12 +405,31 @@ beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restric
       return warp_min_int(first);
     }, pv, pi);
   } else {
-    // The rule itself (inputs built for it): 2K rounds of a warp argmax
-    // over the row, picks overwritten.
-    extract_top_warp(flat, n, n2, w.tops, w.topi);
-    pv = lane < n2 ? w.tops[lane] : kNegInf;
-    pi = lane < n2 ? w.topi[lane] : 0;
+    // The rule itself (inputs built for it): n_pick rounds of a warp
+    // argmax over the row, picks overwritten.
+    extract_top_warp(flat, n, n_pick, w.tops, w.topi);
+    pv = lane < n_pick ? w.tops[lane] : kNegInf;
+    pi = lane < n_pick ? w.topi[lane] : 0;
   }
+}
+
+__global__ void __launch_bounds__(32 * kAdvRows)
+beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restrict__ lp,
+                         const float* __restrict__ fin, float pen, int b, int k, int v,
+                         int eos, int* __restrict__ top_ids, float* __restrict__ alive_s,
+                         int* __restrict__ alive_sel, float* __restrict__ fin_s,
+                         int* __restrict__ fin_sel) {
+  __shared__ __align__(16) AdvScratch scratch[kAdvRows];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kAdvRows + warp;
+  if (row >= b) return;                      // the whole warp leaves
+  AdvScratch& w = scratch[warp];
+  const int n2 = 2 * k;
+  const float al = lane < k ? alive[(size_t)row * k + lane] : 0.f;
+  const float fo = lane < k ? fin[(size_t)row * k + lane] : 0.f;
+  float pv;                                  // lane j < 2K: pick j
+  int pi;
+  warp_top_row(lp + (size_t)row * k * v, al, k, v, n2, w, pv, pi);
 
   // The alive set: best K of the 2K picks that are not EOS (lane j holds
   // candidate j).
@@ -428,6 +444,25 @@ beam_advance_warp_kernel(const float* __restrict__ alive, const float* __restric
   const bool cand_eos = __shfl_sync(kFull, pick_eos, (lane + 32 - k) & 31);
   extract_small(lane < k ? fo : cand_eos ? __fdiv_rn(cv, pen) : kNegInf, 3 * k, k, w,
                 fin_s + (size_t)row * k, fin_sel + (size_t)row * k);
+}
+
+// K7 on the warp path: one warp per row, kTopkRows rows a block.
+__global__ void __launch_bounds__(32 * kTopkRows)
+beam_topk_warp_kernel(const float* __restrict__ alive, const float* __restrict__ lp, int b,
+                      int k, int v, int n_out, float* __restrict__ scores,
+                      int* __restrict__ ids) {
+  __shared__ __align__(16) AdvScratch scratch[kTopkRows];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kTopkRows + warp;
+  if (row >= b) return;
+  const float al = lane < k ? alive[(size_t)row * k + lane] : 0.f;
+  float pv;
+  int pi;
+  warp_top_row(lp + (size_t)row * k * v, al, k, v, n_out, scratch[warp], pv, pi);
+  if (lane < n_out) {
+    scores[(size_t)row * n_out + lane] = pv;
+    ids[(size_t)row * n_out + lane] = pi;
+  }
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where a row needs it.
@@ -469,6 +504,13 @@ extern "C" int nd_beam_topk(const void* alive, const void* lp, int b, int k, int
                             void* scores, void* ids, void* stream) {
   if (b <= 0 || k <= 0 || v <= 0 || n_out <= 0 || (long long)k * v > INT_MAX / 2)
     return (int)cudaErrorInvalidValue;
+  if (k <= 32 && k * v <= kAdvMaxN && v >= 4 && n_out <= kTopkWarpMaxOut) {
+    beam_topk_warp_kernel<<<(b + kTopkRows - 1) / kTopkRows, 32 * kTopkRows, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(alive), static_cast<const float*>(lp), b, k, v, n_out,
+        static_cast<float*>(scores), static_cast<int*>(ids));
+    return (int)cudaGetLastError();
+  }
   const long long smem = (long long)k * v * 4;
   cudaError_t err = reserve_smem(beam_topk_kernel, smem);
   if (err != cudaSuccess) return (int)err;

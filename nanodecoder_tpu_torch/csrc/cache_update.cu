@@ -9,12 +9,24 @@
 //
 // What bounds it on the H100: it moves B*8*C elements in and out, 10.5 MB
 // in f32 (about 3 us at 3.35 TB/s) or 5.2 MB in bf16 at the flagship's
-// B 640, C 256: at that size launch latency is as large as the copy.
+// B 640, C 256: at that size launch latency is as large as the copy, and
+// the copy is one wave of loads, so the time to the first load and the
+// tail of the last store count as much as bandwidth.
 //
 // Design: for each batch row the slab block and its destination are both
-// one contiguous run of 8*C elements, so the kernel is a grid-stride copy
-// of B runs in the widest unit that every offset allows (16, 4 or 1
-// bytes), neighbouring threads on neighbouring addresses.
+// one contiguous run of 8*C elements.  Block (j, g) copies element
+// 256 j + tid of the runs of rows 4 g .. 4 g + 3, in the widest unit every
+// offset allows (16, 4 or 1 bytes): a thread computes its addresses with
+// no division, issues its four loads, then its four stores.  At the
+// flagship's C 256 bf16 that is 160 blocks of 256 threads, one wave.
+// Beyond 65535 row groups (B > 262140) a block goes on to the row groups
+// gridDim.y further on.  A batch row's run must stay under 2^31 - 256
+// units (at least 2 GiB); the launcher refuses longer ones.  Six other
+// designs were timed against this one on an "NVIDIA H100 80GB HBM3,
+// 700.00 W" (the earlier grid-stride loop, one element a thread, TMA bulk
+// copies, a block a row with 8 loads a thread first, row groups of 2 and
+// 8): at C 256 bf16 all seven took 0.0036 to 0.0039 ms cold, a launch and
+// a DRAM latency above the copy itself (PERF.md section 6).
 
 #include <cuda_runtime.h>
 
@@ -24,16 +36,22 @@ namespace {
 
 constexpr int kBlock = 8;  // rows per staged block
 constexpr int kThreads = 256;
+constexpr int kRows = 4;   // batch rows a block copies
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-write_block_kernel(V* __restrict__ cache, const V* __restrict__ slab, int b,
-                   long long run, long long row_stride, long long offset) {
-  const long long total = (long long)b * run;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < total;
-       i += (long long)gridDim.x * kThreads) {
-    const long long r = i / run;
-    cache[r * row_stride + offset + (i - r * run)] = slab[i];
+write_block_kernel(V* __restrict__ cache, const V* __restrict__ slab, int b, int run,
+                   long long row_stride, long long offset) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= run) return;
+  for (int r0 = blockIdx.y * kRows; r0 < b; r0 += gridDim.y * kRows) {
+    V x[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u)
+      if (r0 + u < b) x[u] = slab[(size_t)(r0 + u) * run + i];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u)
+      if (r0 + u < b) cache[(size_t)(r0 + u) * row_stride + offset + i] = x[u];
   }
 }
 
@@ -41,11 +59,11 @@ template <typename V>
 cudaError_t launch(void* cache, const void* slab, int b, long long run_bytes,
                    long long stride_bytes, long long offset_bytes, cudaStream_t stream) {
   const long long run = run_bytes / (long long)sizeof(V);
-  const long long total = (long long)b * run;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  write_block_kernel<V><<<blocks, kThreads, 0, stream>>>(
-      static_cast<V*>(cache), static_cast<const V*>(slab), b, run,
+  if (run > 0x7fffffffLL - kThreads) return cudaErrorInvalidValue;
+  const int groups = (b + kRows - 1) / kRows;
+  const dim3 grid((unsigned)((run + kThreads - 1) / kThreads), groups < 65535 ? groups : 65535);
+  write_block_kernel<V><<<grid, kThreads, 0, stream>>>(
+      static_cast<V*>(cache), static_cast<const V*>(slab), b, (int)run,
       stride_bytes / (long long)sizeof(V), offset_bytes / (long long)sizeof(V));
   return cudaGetLastError();
 }

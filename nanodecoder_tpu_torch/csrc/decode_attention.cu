@@ -5,9 +5,9 @@
 // and `_decode_attn_grouped_kernel` (`decode_attention_grouped`, K4b: the
 // G beams of a chunk against the chunk's one cache row, read once), one
 // kernel each.  The cache holds n_kv heads of Dh lanes, Dk = n_kv * Dh:
-// MHA (n_kv = H, D = Dk) in both, GQA/MQA (n_kv dividing H, query head h
-// reading KV head h // (H / n_kv)) in K4a, for exact dtypes, as the JAX
-// kernel takes them; int8 caches are MHA only, as JAX asserts.
+// MHA (n_kv = H, D = Dk) or GQA/MQA (n_kv dividing H, query head h
+// reading KV head h // (H / n_kv)) in exact dtypes, as the JAX kernels
+// take them; int8 caches are MHA only, as JAX asserts.
 //
 // Math, per query row and head (the Pallas kernel's rounding points): the
 // query in the cache dtype (int8 caches: f32 query times the per-lane K
@@ -43,7 +43,27 @@
 // head, and it computes the scores and P.V sums of all H / n_kv query
 // heads that read it (instantiated for up to 1, 2, 4 or 8 of them).
 //
-// K4b (`decode_attn_grouped_kernel`, group 2 to 8): at G 5 a row design
+// Shapes: K4a's row kernel takes the shapes whose Dh is a power-of-two
+// number of 16-byte loads, at most 32, with at most 8 query heads per KV
+// head and a cache row of at most 256 loads (a thread takes 16 bytes of
+// it; threads past the last whole row of a pass idle, so D 384 in bf16
+// runs on 240 of 256).  K4b's grouped kernel takes MHA caches with Dh a
+// multiple of 16 and D <= 1024, any group: a block runs up to 8 beams
+// and a group over 8 is split into equal sub-groups, one block each, that
+// read the chunk's cache each.  Every other shape (any Dh, any width, any
+// number of query heads per KV head, GQA in K4b, unaligned widths, and
+// caches whose base is not 16-byte aligned, such as a view at an odd
+// offset) runs `decode_attn_any_kernel`, a plain scalar kernel: one block
+// per cache row and sub-group of up to 8 query rows; a thread per
+// (position, row, head) takes a score, a warp per (row, head) its
+// softmax, a thread per output channel its P.V sums.  It keeps the JAX
+// kernels' contract, 10 to 150 times under the fast kernels' bound
+// shares (PERF.md section 6).  Of the repository's models only the tiny
+// test config (Dh 8) runs it, in K4b on its beam path.  The launcher
+// reports which kernel it launched, so the wrappers count the scalar
+// kernel's launches apart.
+//
+// K4b (`decode_attn_grouped_kernel`, group 2 to 8 a block): at G 5 a row design
 // is latency-bound (G dot products per loaded row, each ending in
 // shuffle rounds), so K4b has its own kernel.  One block of 256 threads per
 // chunk streams the chunk's K rows, then its V rows, through a 4-stage
@@ -205,6 +225,7 @@ decode_attn_row_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
   const int b = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c = tid % chunks, r = tid / chunks;
+  const bool active = r < rows;                  // threads past the last whole row idle
   const int kv = c / lph, cl = c % lph;          // this thread's KV head, slot in it
   const int n = lens[b];
   const int nk = n > 0 ? min(n, t_len) : 0;      // K rows scored (length 0: all masked)
@@ -223,7 +244,8 @@ decode_attn_row_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < kRowsAhead; ++u) {
       const int t = t0 + u * rows;
-      nxt[u] = t < lim ? __ldg(src + (size_t)t * chunks) : make_uint4(0u, 0u, 0u, 0u);
+      nxt[u] = active && t < lim ? __ldg(src + (size_t)t * chunks)
+                                 : make_uint4(0u, 0u, 0u, 0u);
     }
   };
   load(0);
@@ -271,7 +293,7 @@ decode_attn_row_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
             for (int e = 0; e < kLanes; ++e) part = fmaf(kf[e], qh[e], part);
           }
           for (int o = lph / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-          if (t < nk && cl == 0) ss[(size_t)(kv * grp + j) * ts + t] = part * scale;
+          if (active && t < nk && cl == 0) ss[(size_t)(kv * grp + j) * ts + t] = part * scale;
         }
       }
     }
@@ -338,7 +360,7 @@ decode_attn_row_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < kRowsAhead; ++u) {
       const int t = (i - nbk) * step + u * rows + r;
-      if (t < nv) {
+      if (active && t < nv) {
         float vf[kLanes];
         unpack16(cur[u], vf, TKV());
 #pragma unroll
@@ -354,7 +376,7 @@ decode_attn_row_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 #pragma unroll
   for (int j = 0; j < GRP; ++j) {
-    if (j < grp) {
+    if (active && j < grp) {
       float4* dst = reinterpret_cast<float4*>(red + (size_t)r * d + (kv * grp + j) * dh +
                                               cl * kLanes);
 #pragma unroll
@@ -437,7 +459,7 @@ decode_attn_grouped_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                            const TKV* __restrict__ v, const int* __restrict__ lens,
                            const float* __restrict__ ks, const float* __restrict__ vs,
                            TQ* __restrict__ out, int* __restrict__ amax, int t_len, int d,
-                           int heads, float scale) {
+                           int heads, int group, float scale) {
   extern __shared__ float4 smem_f4[];
   constexpr int kRows = ring_rows((int)sizeof(TKV));
   constexpr int kLanesPerRow = 32 / kRows;
@@ -448,7 +470,9 @@ decode_attn_grouped_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   float* ss = qs + G * d;                                      // [G * H][ts] scores, probs
   char* ring = reinterpret_cast<char*>(ss + (size_t)G * heads * ts);  // [kStages][kRows][rb]
 
-  const int b = blockIdx.x;
+  // Block (b, y) takes the beams g0 .. g0 + gn - 1 of chunk b; the rest of
+  // its G query slots hold zeros and store nothing.
+  const int b = blockIdx.x, g0 = blockIdx.y * G, gn = min(G, group - g0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n = lens[b];
   const int n_eff = n > 0 ? min(n, t_len) : t_len;
@@ -476,8 +500,11 @@ decode_attn_grouped_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 
   for (int i = tid; i < G * d; i += kThreads) {
-    float x = to_f32(q[(size_t)b * G * d + i]);
-    if (ks != nullptr) x *= ks[(size_t)b * d + i % d];
+    float x = 0.f;
+    if (i < gn * d) {
+      x = to_f32(q[((size_t)b * group + g0) * d + i]);
+      if (ks != nullptr) x *= ks[(size_t)b * d + i % d];
+    }
     qs[i] = x;
   }
   for (int i = tid; i < G * heads * (t_len - n_eff); i += kThreads) {
@@ -562,7 +589,7 @@ decode_attn_grouped_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         }
         __syncthreads();
         // Attention position: one warp per beam; lowest t on ties.
-        for (int g = warp; g < G; g += kThreads / 32) {
+        for (int g = warp; g < gn; g += kThreads / 32) {
           const float* pg = ss + (size_t)g * heads * ts;
           float best = -INFINITY;
           int best_t = t_len;
@@ -583,7 +610,7 @@ decode_attn_grouped_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
               best_t = ot;
             }
           }
-          if (lane == 0) amax[(size_t)b * G + g] = best_t;
+          if (lane == 0) amax[(size_t)b * group + g0 + g] = best_t;
         }
         __syncthreads();
         // Probabilities as P.V sees them: rounded to the V dtype; 0 past T.
@@ -628,9 +655,11 @@ decode_attn_grouped_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       const float sc = vs != nullptr ? vs[(size_t)b * d + c] : 1.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float s = acc[g][cc];
-        if (vs != nullptr) s *= sc;
-        out[((size_t)b * G + g) * d + c] = from_f32<TQ>(s);
+        if (g < gn) {
+          float s = acc[g][cc];
+          if (vs != nullptr) s *= sc;
+          out[((size_t)b * group + g0 + g) * d + c] = from_f32<TQ>(s);
+        }
       }
     }
   }
@@ -639,23 +668,195 @@ decode_attn_grouped_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 template <typename TQ, typename TKV, int G, int KC>
 cudaError_t launch_grouped(const void* q, const void* k, const void* v, const int* lens,
                            const float* ks, const float* vs, void* out, int* amax, int b,
-                           int t, int d, int heads, float scale, cudaStream_t st) {
+                           int group, int t, int d, int heads, float scale, cudaStream_t st) {
   static std::atomic<uint64_t> done{0};
   cudaError_t err = allow_max_smem(decode_attn_grouped_kernel<TQ, TKV, G, KC>, done);
   if (err != cudaSuccess) return err;
   const size_t smem = grouped_smem(G, t, d, heads, (int)sizeof(TKV));
-  decode_attn_grouped_kernel<TQ, TKV, G, KC><<<b, kThreads, smem, st>>>(
+  const dim3 grid(b, (group + G - 1) / G);
+  decode_attn_grouped_kernel<TQ, TKV, G, KC><<<grid, kThreads, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      lens, ks, vs, static_cast<TQ*>(out), amax, t, d, heads, scale);
+      lens, ks, vs, static_cast<TQ*>(out), amax, t, d, heads, group, scale);
   return cudaGetLastError();
 }
+
+// ---- any shape: the scalar kernel --------------------------------------------
+
+constexpr int kAnyMaxSub = 8;    // query rows of a chunk per block
+
+size_t any_smem(int sub, int t, int d, int heads) {
+  return sizeof(float) * ((size_t)sub * d + (size_t)sub * heads * row_score_stride(t));
+}
+
+// Query rows per block: up to 8, fewer where their scores would not fit
+// in shared memory; 0 if not even one row's do.
+int any_sub(int group, int t, int d, int heads) {
+  int sub = group < kAnyMaxSub ? group : kAnyMaxSub;
+  while (sub > 0 && any_smem(sub, t, d, heads) > (size_t)kMaxSmem) --sub;
+  return sub;
+}
+
+// Block (b, y): query rows b * group + y * sub .. + gn - 1 against cache
+// row b.  Same math and rounding points as the kernels above.
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kThreads)
+decode_attn_any_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                       const TKV* __restrict__ v, const int* __restrict__ lens,
+                       const float* __restrict__ ks, const float* __restrict__ vs,
+                       TQ* __restrict__ out, int* __restrict__ amax, int t_len, int d,
+                       int dk, int heads, int group, int sub, float scale) {
+  extern __shared__ float smem[];
+  const int ts = row_score_stride(t_len);
+  const int dh = d / heads, grp = heads / (dk / dh);
+  const int b = blockIdx.x, g0 = blockIdx.y * sub, gn = min(sub, group - g0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* qs = smem;                                // [sub][D] f32 queries
+  float* ss = qs + (size_t)sub * d;                // [sub * H][ts] scores, then probabilities
+  const int n = lens[b];
+  const int nk = n > 0 ? min(n, t_len) : 0;        // K rows scored (length 0: all masked)
+  const int nv = n > 0 ? nk : t_len;               // V rows read (length 0: uniform)
+  const TKV* kb = k + (size_t)b * t_len * dk;
+  const TKV* vb = v + (size_t)b * t_len * dk;
+  const size_t row0 = (size_t)b * group + g0;
+
+  for (int i = tid; i < gn * d; i += kThreads) {
+    float x = to_f32(q[row0 * d + i]);
+    if (ks != nullptr) x *= ks[(size_t)b * d + i % d];
+    qs[i] = x;
+  }
+  const int rows = gn * heads, tail = t_len - nk;
+  for (int i = tid; i < rows * tail; i += kThreads)
+    ss[(size_t)(i / tail) * ts + nk + i % tail] = kNegInf;
+  __syncthreads();
+
+  // Scores: neighbouring threads take the heads of one position, so they
+  // read one cache row.
+  for (int i = tid; i < nk * rows; i += kThreads) {
+    const int t = i / rows, j = i % rows, h = j % heads;
+    const TKV* kr = kb + (size_t)t * dk + (h / grp) * dh;
+    const float* qr = qs + (j / heads) * d + h * dh;
+    float s = 0.f;
+    for (int e = 0; e < dh; ++e) s = fmaf(to_f32(kr[e]), qr[e], s);
+    ss[(size_t)j * ts + t] = s * scale;
+  }
+  __syncthreads();
+
+  for (int j = warp; j < rows; j += kThreads / 32) {
+    float* row = ss + (size_t)j * ts;
+    float m = -INFINITY;
+    for (int t = lane; t < t_len; t += 32) m = fmaxf(m, row[t]);
+    m = warp_max(m);
+    float z = 0.f;
+    for (int t = lane; t < t_len; t += 32) {
+      const float e = expf(row[t] - m);
+      row[t] = e;
+      z += e;
+    }
+    z = warp_sum(z);
+    for (int t = lane; t < t_len; t += 32) {
+      const float e = row[t];
+      row[t] = e > 0.f ? __fdiv_rn(e, z) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  for (int g = warp; g < gn; g += kThreads / 32) {
+    const float* pg = ss + (size_t)g * heads * ts;
+    float best = -INFINITY;
+    int best_t = t_len;
+    for (int t = lane; t < t_len; t += 32) {
+      float s = pg[t];
+      for (int hh = 1; hh < heads; ++hh) s += pg[(size_t)hh * ts + t];
+      if (s > best) {
+        best = s;
+        best_t = t;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const int ot = __shfl_xor_sync(0xffffffffu, best_t, o);
+      if (ob > best || (ob == best && ot < best_t)) {
+        best = ob;
+        best_t = ot;
+      }
+    }
+    if (lane == 0) amax[row0 + g] = best_t;
+  }
+
+  // P.V: a thread per output channel, an accumulator per query row.
+  for (int c = tid; c < d; c += kThreads) {
+    const int h = c / dh, col = (h / grp) * dh + c % dh;
+    float acc[kAnyMaxSub];
+#pragma unroll
+    for (int g = 0; g < kAnyMaxSub; ++g) acc[g] = 0.f;
+    for (int t = 0; t < nv; ++t) {
+      const float x = to_f32(vb[(size_t)t * dk + col]);
+#pragma unroll
+      for (int g = 0; g < kAnyMaxSub; ++g)
+        if (g < gn) acc[g] = fmaf(p_as<TKV>(ss[(size_t)(g * heads + h) * ts + t]), x, acc[g]);
+    }
+    const float sc = vs != nullptr ? vs[(size_t)b * d + c] : 1.f;
+#pragma unroll
+    for (int g = 0; g < kAnyMaxSub; ++g)
+      if (g < gn) out[(row0 + g) * d + c] = from_f32<TQ>(vs != nullptr ? acc[g] * sc : acc[g]);
+  }
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch_any(const void* q, const void* k, const void* v, const int* lens,
+                       const float* ks, const float* vs, void* out, int* amax, int b,
+                       int group, int t, int d, int dk, int heads, float scale,
+                       cudaStream_t st) {
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = allow_max_smem(decode_attn_any_kernel<TQ, TKV>, done);
+  if (err != cudaSuccess) return err;
+  const int sub = any_sub(group, t, d, heads);
+  if (sub == 0) return cudaErrorInvalidValue;
+  const dim3 grid(b, (group + sub - 1) / sub);
+  decode_attn_any_kernel<TQ, TKV><<<grid, kThreads, any_smem(sub, t, d, heads), st>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
+      lens, ks, vs, static_cast<TQ*>(out), amax, t, d, dk, heads, group, sub, scale);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Whether the fast kernels take this shape (the scalar kernel takes the rest).
+bool row_fits(const void* k, const void* v, int t, int d, int dk, int heads, int elt) {
+  const int lanes = 16 / elt;               // cache lanes per thread and row
+  const int dh = d / heads, lph = dh / lanes;  // threads per head of a row
+  const int chunks = dk / lanes;            // threads per cache row
+  return aligned16(k) && aligned16(v) && dh % lanes == 0 && lph <= 32 &&
+         (lph & (lph - 1)) == 0 && chunks <= kThreads && heads / (dk / dh) <= kMaxGroup &&
+         row_smem(t, d, dk, heads, elt) <= (size_t)kMaxSmem;
+}
+
+// Beams a block of the grouped kernel takes: the group, or a group over 8
+// split into equal sub-groups of at most 8.
+int grouped_sub(int group) {
+  const int nsub = (group + kMaxGroup - 1) / kMaxGroup;
+  return (group + nsub - 1) / nsub;
+}
+
+bool grouped_fits(const void* k, const void* v, int group, int t, int d, int dk, int heads,
+                  int elt) {
+  return aligned16(k) && aligned16(v) && dk == d && (d / heads) % 16 == 0 && d <= kMaxD &&
+         (d * elt) % 16 == 0 &&
+         grouped_smem(grouped_sub(group), t, d, heads, elt) <= (size_t)kMaxSmem;
+}
+
+// The kernel nd_decode_attention launched, as it reports it.
+enum Launched { kRowKernel = 0, kGroupedKernel = 1, kScalarKernel = 2 };
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch_group(const void* q, const void* k, const void* v, const int* lens,
                            const float* ks, const float* vs, void* out, int* amax,
                            int b, int group, int t, int d, int dk, int heads, float scale,
-                           cudaStream_t st) {
-  if (group == 1) {
+                           cudaStream_t st, int* launched) {
+  constexpr int elt = (int)sizeof(TKV);
+  if (group == 1 && row_fits(k, v, t, d, dk, heads, elt)) {
+    *launched = kRowKernel;
     const int grp = heads / (dk / (d / heads));  // query heads per KV head
 #define ND_ROW(GRP) \
   launch_row<TQ, TKV, GRP>(q, k, v, lens, ks, vs, out, amax, b, t, d, dk, heads, scale, st)
@@ -663,28 +864,35 @@ cudaError_t dispatch_group(const void* q, const void* k, const void* v, const in
     if constexpr (!std::is_same<TKV, int8_t>::value) {  // int8 caches are MHA only
       if (grp <= 2) return ND_ROW(2);
       if (grp <= 4) return ND_ROW(4);
-      if (grp <= 8) return ND_ROW(8);
+      return ND_ROW(8);
     }
 #undef ND_ROW
     return cudaErrorInvalidValue;
   }
+  if (group > 1 && grouped_fits(k, v, group, t, d, dk, heads, elt)) {
+    *launched = kGroupedKernel;
 #define ND_GROUPED(G)                                                                    \
   case G:                                                                                \
     return d <= kThreads ? launch_grouped<TQ, TKV, G, 1>(q, k, v, lens, ks, vs, out, amax, \
-                                                         b, t, d, heads, scale, st)       \
+                                                         b, group, t, d, heads, scale, st) \
                          : launch_grouped<TQ, TKV, G, kMaxD / kThreads>(                  \
-                               q, k, v, lens, ks, vs, out, amax, b, t, d, heads, scale, st);
-  switch (group) {
-    ND_GROUPED(2)
-    ND_GROUPED(3)
-    ND_GROUPED(4)
-    ND_GROUPED(5)
-    ND_GROUPED(6)
-    ND_GROUPED(7)
-    ND_GROUPED(8)
-    default: return cudaErrorInvalidValue;
-  }
+                               q, k, v, lens, ks, vs, out, amax, b, group, t, d, heads,   \
+                               scale, st);
+    switch (grouped_sub(group)) {
+      ND_GROUPED(2)
+      ND_GROUPED(3)
+      ND_GROUPED(4)
+      ND_GROUPED(5)
+      ND_GROUPED(6)
+      ND_GROUPED(7)
+      ND_GROUPED(8)
+      default: return cudaErrorInvalidValue;
+    }
 #undef ND_GROUPED
+  }
+  *launched = kScalarKernel;
+  return launch_any<TQ, TKV>(q, k, v, lens, ks, vs, out, amax, b, group, t, d, dk, heads,
+                             scale, st);
 }
 
 }  // namespace
@@ -693,26 +901,13 @@ extern "C" int nd_decode_attention(const void* q, const void* k, const void* v,
                                    const void* lens, const void* k_scale,
                                    const void* v_scale, void* out, void* amax, int b,
                                    int group, int t, int d, int dk, int heads, int is_bf16,
-                                   int is_int8, float scale, void* stream) {
-  if (b <= 0 || t <= 0 || d <= 0 || dk <= 0 || heads <= 0 || group < 1 ||
-      group > kMaxGroup || d % heads)
+                                   int is_int8, float scale, void* stream, int* launched) {
+  if (b <= 0 || t <= 0 || d <= 0 || dk <= 0 || heads <= 0 || group < 1 || d % heads)
     return (int)cudaErrorInvalidValue;
-  const int elt = is_int8 ? 1 : is_bf16 ? 2 : 4;
   const int dh = d / heads;
   const int n_kv = dk / dh;
   if (dk % dh || n_kv < 1 || heads % n_kv || (is_int8 && dk != d))
     return (int)cudaErrorInvalidValue;
-  if (group == 1) {
-    const int lanes = 16 / elt;               // cache lanes per thread and row
-    const int lph = dh / lanes;               // threads per head of a row
-    if (dh % lanes || lph > 32 || (lph & (lph - 1)) || kThreads % (dk / lanes) ||
-        heads / n_kv > kMaxGroup || row_smem(t, d, dk, heads, elt) > (size_t)kMaxSmem)
-      return (int)cudaErrorInvalidValue;
-  } else {
-    if (dk != d || dh % 16 || d > kMaxD || (d * elt) % 16 ||
-        grouped_smem(group, t, d, heads, elt) > (size_t)kMaxSmem)
-      return (int)cudaErrorInvalidValue;
-  }
   if (is_int8 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int* ln = static_cast<const int*>(lens);
@@ -720,13 +915,11 @@ extern "C" int nd_decode_attention(const void* q, const void* k, const void* v,
   const float* vs = is_int8 ? static_cast<const float*>(v_scale) : nullptr;
   int* am = static_cast<int*>(amax);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ND_DISPATCH(TQ, TKV)                                                               \
+  dispatch_group<TQ, TKV>(q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st, \
+                          launched)
   if (is_int8)
-    return (int)(is_bf16 ? dispatch_group<__nv_bfloat16, int8_t>(
-                               q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st)
-                         : dispatch_group<float, int8_t>(
-                               q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st));
-  return (int)(is_bf16 ? dispatch_group<__nv_bfloat16, __nv_bfloat16>(
-                             q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st)
-                       : dispatch_group<float, float>(
-                             q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st));
+    return (int)(is_bf16 ? ND_DISPATCH(__nv_bfloat16, int8_t) : ND_DISPATCH(float, int8_t));
+  return (int)(is_bf16 ? ND_DISPATCH(__nv_bfloat16, __nv_bfloat16) : ND_DISPATCH(float, float));
+#undef ND_DISPATCH
 }

@@ -53,8 +53,14 @@
 // Register tiles fed by float4 shared loads: for the scores the two
 // halves of the block each take half of the head's channels with 4 x 4
 // tiles (16 FMAs per K load), then add; for P.V a thread keeps 2 rows x 8
-// columns.  S is limited by the strip's shared memory (S <= 1408 at Dh
-// 128); the wrapper raises above it.
+// columns at Dh 128.  Where the strip does not fit in shared memory (S
+// over 1408 at Dh 128), `enc_attn_f32_2p` takes two passes over K instead,
+// as the bf16 kernel does.
+//
+// Head dims: the kernels are instantiated for Dh 32, 64, 128 and 256; the
+// wrapper pads other head dims with zero lanes up to the next of them
+// (zeros add nothing to a score or to P.V; the scale stays 1/sqrt(Dh) of
+// the true Dh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -349,14 +355,134 @@ enc_attn_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 constexpr int kTQ = 32;          // query rows per block
 constexpr int kTK = 64;          // key/value rows per tile
 constexpr int kThreads32 = 256;  // 8 warps
+constexpr int kTP = kTK + 4;     // row pitch of the two-pass kernel's score tile
 
 template <int DH> __host__ __device__ constexpr int srow32() { return DH + 4; }  // keeps float4 rows aligned
-inline int strip_stride(int s) { return (s + 31) / 32 * 32 + 8; }
+__host__ __device__ inline int strip_stride(int s) { return (s + 31) / 32 * 32 + 8; }
 size_t smem32(int dh, int s) {
   return sizeof(float) *
          ((size_t)(kTQ + kTK) * (dh + 4) + (size_t)kTQ * strip_stride(s));
 }
+size_t smem32_2p(int dh) {
+  return sizeof(float) * ((size_t)(kTQ + kTK) * (dh + 4) + (size_t)kTQ * kTP);
+}
 
+// The value product's register tile: thread (ry, cx) owns RT rows and NV
+// float4 column groups at 4cx + u * DH / 2.
+template <int DH> struct PvTile {
+  static constexpr int NV = DH >= 128 ? 2 : 1;
+  static constexpr int TX = DH / (4 * NV);
+  static constexpr int TY = kThreads32 / TX;
+  static constexpr int RT = kTQ / TY;
+};
+
+// Scores of the block's kTQ query rows (qs) against the K tile in kv,
+// keys k0 .. k0 + kTK - 1, into ss (row pitch sp) at column key - col0
+// for keys < s: the two halves of the block take the two halves of the
+// head's channels; thread (ty, tx) of a half owns rows 4ty .. 4ty + 3 and
+// keys tx + 16j, a 4 x 4 register tile.  The first half leaves its
+// partial sums in ss; the second adds its own, scales and masks (keys at
+// or past n get -1e9).  Ends with the block synchronised.
+template <int DH>
+__device__ __forceinline__ void score_tile32(const float* qs, const float* kv, float* ss,
+                                             int sp, int k0, int col0, int n, int s,
+                                             float scale) {
+  constexpr int SROW = srow32<DH>();
+  const int tid = threadIdx.x;
+  const int half = tid / 128, ty = (tid % 128) / 16, tx = tid % 16;
+  float acc[4][4] = {};
+#pragma unroll 4
+  for (int c = half * (DH / 2); c < (half + 1) * (DH / 2); c += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * SROW + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 kk = *reinterpret_cast<const float4*>(kv + (tx + 16 * j) * SROW + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][j] = fmaf(a[i].x, kk.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, kk.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, kk.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, kk.w, acc[i][j]);
+      }
+    }
+  }
+  if (half == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        if (key < s) ss[(4 * ty + i) * sp + key - col0] = acc[i][j];
+      }
+  }
+  __syncthreads();
+  if (half == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        float* cell = ss + (4 * ty + i) * sp + key - col0;
+        if (key < s) *cell = key < n ? (*cell + acc[i][j]) * scale : kNegInf;
+      }
+  }
+  __syncthreads();
+}
+
+// o += P (columns 0 .. jmax - 1 of p, row pitch sp, jmax a multiple of 4)
+// times the V tile in kv.
+template <int DH>
+__device__ __forceinline__ void pv_tile32(const float* p, int sp, const float* kv, int jmax,
+                                          float4 (&o)[PvTile<DH>::RT][PvTile<DH>::NV]) {
+  using PT = PvTile<DH>;
+  constexpr int SROW = srow32<DH>();
+  const int ry = threadIdx.x / PT::TX, cx = threadIdx.x % PT::TX;
+  for (int j = 0; j < jmax; j += 4) {
+    float4 pr4[PT::RT];
+#pragma unroll
+    for (int r = 0; r < PT::RT; ++r)
+      pr4[r] = *reinterpret_cast<const float4*>(p + (PT::RT * ry + r) * sp + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int u = 0; u < PT::NV; ++u) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(kv + (j + jj) * SROW + 4 * cx + u * (DH / 2));
+#pragma unroll
+        for (int r = 0; r < PT::RT; ++r) {
+          const float pr = jj == 0 ? pr4[r].x : jj == 1 ? pr4[r].y : jj == 2 ? pr4[r].z
+                                                                             : pr4[r].w;
+          o[r][u].x = fmaf(pr, vv.x, o[r][u].x);
+          o[r][u].y = fmaf(pr, vv.y, o[r][u].y);
+          o[r][u].z = fmaf(pr, vv.z, o[r][u].z);
+          o[r][u].w = fmaf(pr, vv.w, o[r][u].w);
+        }
+      }
+    }
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void store_rows32(float* out, const float4 (&o)[PvTile<DH>::RT][PvTile<DH>::NV],
+                                             int b, int q0, int s, int heads, int col) {
+  using PT = PvTile<DH>;
+  const int ry = threadIdx.x / PT::TX, cx = threadIdx.x % PT::TX;
+  const int d = heads * DH;
+#pragma unroll
+  for (int r = 0; r < PT::RT; ++r) {
+    const int qi = q0 + PT::RT * ry + r;
+    if (qi >= s) continue;
+    float* dst = out + ((size_t)b * s + qi) * d + col + 4 * cx;
+#pragma unroll
+    for (int u = 0; u < PT::NV; ++u) *reinterpret_cast<float4*>(dst + u * (DH / 2)) = o[r][u];
+  }
+}
+
+// One pass over K and one over V: the block's (32, S) score strip stays
+// in shared memory (S up to about 1400 at Dh 128, 1000 at Dh 256).
 template <int DH>
 __global__ void __launch_bounds__(kThreads32, 2)
 enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -364,10 +490,11 @@ enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
              float* __restrict__ out, int s, int heads, int ld, float scale) {
   extern __shared__ float4 smem_f4[];
   constexpr int SROW = srow32<DH>();
+  using PT = PvTile<DH>;
   float* qs = reinterpret_cast<float*>(smem_f4);  // [kTQ][SROW]
   float* kv = qs + kTQ * SROW;                     // [kTK][SROW]
   float* ss = kv + kTK * SROW;                     // [kTQ][sp] scores, then probs
-  const int sp = (s + 31) / 32 * 32 + 8;
+  const int sp = strip_stride(s);
 
   const int q0 = blockIdx.x * kTQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -383,11 +510,6 @@ enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int nk = (keys_needed(n, s) + kTK - 1) / kTK;
   const int kend = min(s, nk * kTK);  // keys past kend have probability 0
 
-  // Scores: the two halves of the block take the two halves of the head's
-  // channels; thread (ty, tx) of a half owns rows 4ty .. 4ty + 3 and keys
-  // tx + 16j, a 4 x 4 register tile.  The first half leaves its partial
-  // sums in the strip; the second adds its own, scales and masks.
-  const int half = tid / 128, ty = (tid % 128) / 16, tx = tid % 16;
   for (int kt = 0; kt < nk; ++kt) {
     if (kt > 0) {
       load_rows<float, DH, kThreads32>(kv, SROW, k + row0, kt * kTK, kTK, s, ld, col);
@@ -395,46 +517,7 @@ enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_wait<0>();
     __syncthreads();
-    float acc[4][4] = {};
-#pragma unroll 4
-    for (int c = half * (DH / 2); c < (half + 1) * (DH / 2); c += 4) {
-      float4 a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * SROW + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 kk = *reinterpret_cast<const float4*>(kv + (tx + 16 * j) * SROW + c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] = fmaf(a[i].x, kk.x, acc[i][j]);
-          acc[i][j] = fmaf(a[i].y, kk.y, acc[i][j]);
-          acc[i][j] = fmaf(a[i].z, kk.z, acc[i][j]);
-          acc[i][j] = fmaf(a[i].w, kk.w, acc[i][j]);
-        }
-      }
-    }
-    if (half == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = kt * kTK + tx + 16 * j;
-          if (key < s) ss[(4 * ty + i) * sp + key] = acc[i][j];
-        }
-    }
-    __syncthreads();
-    if (half == 1) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = kt * kTK + tx + 16 * j;
-          float* cell = ss + (4 * ty + i) * sp + key;
-          if (key < s) *cell = key < n ? (*cell + acc[i][j]) * scale : kNegInf;
-        }
-    }
-    __syncthreads();  // the K tile is consumed; the scores are complete
+    score_tile32<DH>(qs, kv, ss, sp, kt * kTK, 0, n, s, scale);
   }
 
   // Softmax over keys [0, kend); keys [kend, kend rounded up to 4) get 0
@@ -456,57 +539,109 @@ enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = lane; c < kend4; c += 32) row[c] = c < kend ? div_prob(row[c], sum) : 0.f;
   }
 
-  // Value product: thread (ry, cx) owns RT rows and NV float4 column groups
-  // at 4cx + u * DH / 2.
-  constexpr int NV = DH == 128 ? 2 : 1;
-  constexpr int TX = DH / (4 * NV);
-  constexpr int TY = kThreads32 / TX;
-  constexpr int RT = kTQ / TY;
-  const int ry = tid / TX, cx = tid % TX;
-  float4 o[RT][NV];
+  float4 o[PT::RT][PT::NV];
 #pragma unroll
-  for (int r = 0; r < RT; ++r)
+  for (int r = 0; r < PT::RT; ++r)
 #pragma unroll
-    for (int u = 0; u < NV; ++u) o[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int u = 0; u < PT::NV; ++u) o[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();  // probabilities complete; previous V tile consumed
     load_rows<float, DH, kThreads32>(kv, SROW, v + row0, kt * kTK, kTK, s, ld, col);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    const int jmax = min(kTK, kend4 - kt * kTK);
-    for (int j = 0; j < jmax; j += 4) {
-      float4 p[RT];
+    pv_tile32<DH>(ss + kt * kTK, sp, kv, min(kTK, kend4 - kt * kTK), o);
+  }
+  store_rows32<DH>(out, o, b, q0, s, heads, col);
+}
+
+// For an S whose strip does not fit: two passes over K, as the bf16
+// kernel takes them.  Pass 1 keeps each row's max and its sum of
+// exp(s - max), the sum rescaled when the max grows; pass 2 recomputes the
+// scores tile by tile into a (32, 64) tile, forms the probabilities with
+// the same max and sum, and takes the value product of the tile.
+template <int DH>
+__global__ void __launch_bounds__(kThreads32, 2)
+enc_attn_f32_2p(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ lengths,
+                float* __restrict__ out, int s, int heads, int ld, float scale) {
+  extern __shared__ float4 smem_f4[];
+  constexpr int SROW = srow32<DH>();
+  constexpr int kRowsPerWarp = kTQ / (kThreads32 / 32);
+  using PT = PvTile<DH>;
+  float* qs = reinterpret_cast<float*>(smem_f4);  // [kTQ][SROW]
+  float* kv = qs + kTQ * SROW;                     // [kTK][SROW] a K tile, then a V tile
+  float* st = kv + kTK * SROW;                     // [kTQ][kTP] one tile's scores
+
+  const int q0 = blockIdx.x * kTQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row0 = (size_t)b * s * ld;
+  const int col = h * DH;
+
+  load_rows<float, DH, kThreads32>(qs, SROW, q + row0, q0, kTQ, s, ld, col);
+  load_rows<float, DH, kThreads32>(kv, SROW, k + row0, 0, kTK, s, ld, col);
+  cp_async_commit();
+  const int n = lengths[b];
+  const int nk = (keys_needed(n, s) + kTK - 1) / kTK;
+  const int kend = min(s, nk * kTK);
+
+  // Pass 1: warp w keeps rows w + 8i, its lanes holding the same max and sum.
+  float m[kRowsPerWarp], l[kRowsPerWarp];
 #pragma unroll
-      for (int r = 0; r < RT; ++r)
-        p[r] = *reinterpret_cast<const float4*>(ss + (RT * ry + r) * sp + kt * kTK + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int u = 0; u < NV; ++u) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(kv + (j + jj) * SROW + 4 * cx + u * (DH / 2));
-#pragma unroll
-          for (int r = 0; r < RT; ++r) {
-            const float pr = jj == 0 ? p[r].x : jj == 1 ? p[r].y : jj == 2 ? p[r].z : p[r].w;
-            o[r][u].x = fmaf(pr, vv.x, o[r][u].x);
-            o[r][u].y = fmaf(pr, vv.y, o[r][u].y);
-            o[r][u].z = fmaf(pr, vv.z, o[r][u].z);
-            o[r][u].w = fmaf(pr, vv.w, o[r][u].w);
-          }
-        }
-      }
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt > 0) {
+      load_rows<float, DH, kThreads32>(kv, SROW, k + row0, kt * kTK, kTK, s, ld, col);
+      cp_async_commit();
     }
-  }
-  const int d = heads * DH;
+    cp_async_wait<0>();
+    __syncthreads();
+    score_tile32<DH>(qs, kv, st, kTP, kt * kTK, kt * kTK, n, s, scale);
+    const int cols = min(kTK, kend - kt * kTK);
 #pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    const int qi = q0 + RT * ry + r;
-    if (qi >= s) continue;
-    float* dst = out + ((size_t)b * s + qi) * d + col + 4 * cx;
-#pragma unroll
-    for (int u = 0; u < NV; ++u) *reinterpret_cast<float4*>(dst + u * (DH / 2)) = o[r][u];
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const float* row = st + (warp + 8 * i) * kTP;
+      float mt = m[i];
+      for (int c = lane; c < cols; c += 32) mt = fmaxf(mt, row[c]);
+      mt = warp_max(mt);
+      float sum = 0.f;
+      for (int c = lane; c < cols; c += 32) sum += expf(row[c] - mt);
+      l[i] = l[i] * expf(m[i] - mt) + warp_sum(sum);
+      m[i] = mt;
+    }
+    __syncthreads();  // the tile's scores are consumed
   }
+
+  // Pass 2.
+  float4 o[PT::RT][PT::NV];
+#pragma unroll
+  for (int r = 0; r < PT::RT; ++r)
+#pragma unroll
+    for (int u = 0; u < PT::NV; ++u) o[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int kt = 0; kt < nk; ++kt) {
+    load_rows<float, DH, kThreads32>(kv, SROW, k + row0, kt * kTK, kTK, s, ld, col);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    score_tile32<DH>(qs, kv, st, kTP, kt * kTK, kt * kTK, n, s, scale);
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      float* row = st + (warp + 8 * i) * kTP;
+      for (int c = lane; c < kTK; c += 32)
+        row[c] = kt * kTK + c < kend ? div_prob(expf(row[c] - m[i]), l[i]) : 0.f;
+    }
+    __syncthreads();  // probabilities complete; the K tile is consumed
+    load_rows<float, DH, kThreads32>(kv, SROW, v + row0, kt * kTK, kTK, s, ld, col);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    pv_tile32<DH>(st, kTP, kv, min(kTK, (kend - kt * kTK + 3) / 4 * 4), o);
+    __syncthreads();  // the V tile and the probabilities are consumed
+  }
+  store_rows32<DH>(out, o, b, q0, s, heads, col);
 }
 
 // ---- launch ------------------------------------------------------------------
@@ -530,13 +665,23 @@ template <int DH>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lengths,
                        void* out, int b, int s, int heads, int ld, float scale,
                        cudaStream_t stream) {
-  static std::atomic<uint64_t> done{0};
-  cudaError_t err = allow_smem(enc_attn_f32<DH>, done);
-  if (err != cudaSuccess) return err;
+  static std::atomic<uint64_t> done{0}, done_2p{0};
   const dim3 grid((s + kTQ - 1) / kTQ, heads, b);
-  enc_attn_f32<DH><<<grid, kThreads32, smem32(DH, s), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), lengths, static_cast<float*>(out), s, heads, ld, scale);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  cudaError_t err;
+  if (smem32(DH, s) <= (size_t)kMaxSmem) {
+    err = allow_smem(enc_attn_f32<DH>, done);
+    if (err != cudaSuccess) return err;
+    enc_attn_f32<DH><<<grid, kThreads32, smem32(DH, s), stream>>>(
+        qf, kf, vf, lengths, static_cast<float*>(out), s, heads, ld, scale);
+  } else {
+    err = allow_smem(enc_attn_f32_2p<DH>, done_2p);
+    if (err != cudaSuccess) return err;
+    enc_attn_f32_2p<DH><<<grid, kThreads32, smem32_2p(DH), stream>>>(
+        qf, kf, vf, lengths, static_cast<float*>(out), s, heads, ld, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -553,8 +698,7 @@ extern "C" int nd_encoder_attention(const void* q, const void* k, const void* v,
   const int elt = is_bf16 ? 2 : 4;
   const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
   if (b <= 0 || s <= 0 || heads <= 0 || b > 65535 || heads > 65535 ||
-      ld < heads * dh || (ld * elt) % 16 || !aligned ||
-      (!is_bf16 && smem32(dh, s) > (size_t)kMaxSmem))
+      ld < heads * dh || (ld * elt) % 16 || !aligned)
     return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -563,12 +707,14 @@ extern "C" int nd_encoder_attention(const void* q, const void* k, const void* v,
       case 32: return (int)launch_bf16<32>(q, k, v, len, out, b, s, heads, ld, scale, st);
       case 64: return (int)launch_bf16<64>(q, k, v, len, out, b, s, heads, ld, scale, st);
       case 128: return (int)launch_bf16<128>(q, k, v, len, out, b, s, heads, ld, scale, st);
+      case 256: return (int)launch_bf16<256>(q, k, v, len, out, b, s, heads, ld, scale, st);
     }
   } else {
     switch (dh) {
       case 32: return (int)launch_f32<32>(q, k, v, len, out, b, s, heads, ld, scale, st);
       case 64: return (int)launch_f32<64>(q, k, v, len, out, b, s, heads, ld, scale, st);
       case 128: return (int)launch_f32<128>(q, k, v, len, out, b, s, heads, ld, scale, st);
+      case 256: return (int)launch_f32<256>(q, k, v, len, out, b, s, heads, ld, scale, st);
     }
   }
   return (int)cudaErrorInvalidValue;

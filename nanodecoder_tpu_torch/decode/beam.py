@@ -4,8 +4,12 @@ The port's counterpart of `nanodecoder_tpu.decode.beam`: the alive /
 finished formulation over one (B * K)-row batch (row b * K + j is beam j
 of chunk b).  Each step:
 
-  decode step -> kernel K3 (score add, top 2K over K * V, new alive
-  set, merged finished set) -> gather the self caches by beam origin.
+  decode step -> advance (score add, top 2K over K * V, new alive set,
+  merged finished set) -> gather the self caches by beam origin.
+
+The advance is kernel K3 with `DecodeConfig.use_pallas`, else
+`advance_top_k`, the counterpart of the JAX package's three `lax.top_k`
+selections (which do not repeat an index where K3's extraction does).
 
 The loop runs on the host, one step per iteration, as in
 `decode.greedy`; before each step one host read checks the admissible
@@ -63,6 +67,33 @@ def check_ported(dcfg: DecodeConfig) -> None:
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, N, C), idx (B, M) -> (B, M, C)."""
     return x.gather(1, idx.long()[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def _top_k(x: torch.Tensor, n: int):
+    """The n largest entries of each row, in order, ties to the lowest
+    index (`lax.top_k`'s order; `torch.topk` promises no order of ties)."""
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :n], idx[:, :n]
+
+
+def advance_top_k(alive: torch.Tensor, log_probs: torch.Tensor, fin: torch.Tensor,
+                  pen: float, k: int, v: int, eos_id: int):
+    """The advance without kernel K3, as the JAX package runs it when
+    use_pallas is false: the top 2K candidates of alive + log_probs over
+    K * V, the best K of them that are not EOS, and the best K of the old
+    finished scores and the EOS candidates divided by pen (an IEEE f32
+    division).  Returns K3's (top_ids, alive_s, alive_sel, fin_s,
+    fin_sel), indices int64."""
+    b = log_probs.shape[0]
+    flat = (alive[:, :, None] + log_probs).reshape(b, k * v)
+    tops, top_ids = _top_k(flat, 2 * k)
+    is_eos = top_ids % v == eos_id
+    alive_s, alive_sel = _top_k(torch.where(is_eos, NEG_INF, tops), k)
+    # A device tensor divisor: a host scalar may become a reciprocal multiply.
+    pen_t = torch.tensor(pen, dtype=torch.float32, device=tops.device)
+    fin_cand = torch.where(is_eos, tops / pen_t, NEG_INF)
+    fin_s, fin_sel = _top_k(torch.cat([fin, fin_cand], dim=1), k)
+    return top_ids, alive_s, alive_sel, fin_s, fin_sel
 
 
 def _backtrack(hist, eos_at, start_beam, emit_eos, fin_lp, fin_pos, tmax: int):
@@ -139,6 +170,7 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
                                      NEG_INF).min(dim=1).values
         return bool((worst_finished >= best_alive_bound).all())
 
+    advance = beam_advance if dcfg.use_pallas else advance_top_k
     t = 0
     for i, st in enumerate(stages):
         scfg = dataclasses.replace(cfg, max_decode_len=st)
@@ -150,7 +182,7 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
                 log_probs[:, EOS_ID] = NEG_INF
             lp = log_probs.reshape(b, k, v)
             pen = float(length_penalty(t + 1, dcfg.length_penalty, dcfg.alpha))
-            top_ids, alive, alive_idx, fin_scores, fin_idx = beam_advance(
+            top_ids, alive, alive_idx, fin_scores, fin_idx = advance(
                 alive, lp, fin_scores, pen, k, v, EOS_ID)
             top_ids = top_ids.long()
             tok = top_ids % v

@@ -23,9 +23,10 @@ R = B * beam_k rows (row b * beam_k + j is beam j of chunk b):
                  `step`, flushed into self_kv by kernel K2 every step
 
 Cross K/V and masks stay per chunk: the beams of a chunk share them.
-Cross attention of an MHA model (Hk == H) runs kernel K4a (one row per
-chunk) or K4b (the beams of a chunk against its one cache row); GQA/MQA
-runs plain PyTorch, over dequantized caches when they are int8.
+With `use_pallas`, cross attention of an MHA model (Hk == H) runs kernel
+K4a (one row per chunk) or K4b (the beams of a chunk against its one
+cache row); GQA/MQA, and every model with `use_pallas` false, runs plain
+PyTorch, over dequantized caches when they are int8.
 
 The steps update their self caches (on the card) in place and return the
 new state dict.
@@ -237,7 +238,7 @@ def _transformer_decoder_step_lean(lean, cfg: ModelConfig, y1: torch.Tensor,
         h = _ln_normalize(y1)
         a, probs, am = _attn_step(
             {"q": ll["cross_q"], "o": ll["cross_o"]}, nh, h, cache["cross_k"],
-            cache["cross_v"], state["cross_mask"], state["mem_lengths"], True,
+            cache["cross_v"], state["cross_mask"], state["mem_lengths"], cfg.use_pallas,
             cache.get("cross_k_scale"), cache.get("cross_v_scale"))
         if am is not None:
             amax = am
@@ -285,7 +286,7 @@ def transformer_decoder_step(p, cfg: ModelConfig, y1: torch.Tensor,
         h = nn.layer_norm(layer["ln2"], y1)
         a, probs, amax = _attn_step(
             layer["cross_attn"], cfg.dec_heads, h, cache["cross_k"], cache["cross_v"],
-            state["cross_mask"], state["mem_lengths"], True,
+            state["cross_mask"], state["mem_lengths"], cfg.use_pallas,
             cache.get("cross_k_scale"), cache.get("cross_v_scale"))
         y1 = y1 + a
         h = nn.layer_norm(layer["ln3"], y1)

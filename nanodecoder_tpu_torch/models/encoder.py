@@ -6,7 +6,9 @@ and `encoder_apply` (the unfolded body, which projects q, k and v apart
 and calls kernel K5 for the attention), and `fold_encoder_lean`,
 `transformer_encoder_lean` and `encoder_apply_lean` (the lean body, which
 folds each layer norm's affine into the matmul after it, runs one fused
-QKV projection per layer, and calls kernel K1).
+QKV projection per layer, and calls kernel K1).  With `use_pallas` false
+both bodies take `attention_core` with the length mask instead, as the
+JAX package's XLA path does.
 """
 
 from __future__ import annotations
@@ -52,14 +54,19 @@ def transformer_encoder(p, cfg: ModelConfig, x: torch.Tensor,
     x: (B, T, D) in the compute dtype; returns the memory bank (B, T, D),
     zero at padded positions."""
     valid = nn.length_mask(enc_lengths, x.shape[1])
+    attn_mask = valid[:, None, None, :]
     lengths32 = enc_lengths.to(torch.int32).contiguous()
     for layer in p["layers"]:
         h = nn.layer_norm(layer["ln1"], x)
         ap = layer["attn"]
-        ctx = flash_encoder_attention_nld(nn.dense(ap["q"], h), nn.dense(ap["k"], h),
-                                          nn.dense(ap["v"], h), lengths32,
-                                          cfg.enc_heads)
-        x = x + nn.dense(ap["o"], ctx)
+        if cfg.use_pallas:
+            ctx = flash_encoder_attention_nld(nn.dense(ap["q"], h), nn.dense(ap["k"], h),
+                                              nn.dense(ap["v"], h), lengths32,
+                                              cfg.enc_heads)
+            a = nn.dense(ap["o"], ctx)
+        else:
+            a, _ = nn.mha(ap, cfg.enc_heads, h, h, attn_mask)
+        x = x + a
         x = x + nn.ffn(layer["ffn"], nn.layer_norm(layer["ln2"], x))
     x = nn.layer_norm(p["ln_out"], x)
     return x * valid[:, :, None].to(x.dtype)
@@ -115,13 +122,19 @@ def transformer_encoder_lean(lean, cfg: ModelConfig, x: torch.Tensor,
     """Pre-norm transformer over folded weights.  x: (B, T, D) in the
     compute dtype; returns the memory bank (B, T, D), zero at padded
     positions."""
-    t = x.shape[1]
+    t, d = x.shape[1], cfg.d_model
     valid = nn.length_mask(enc_lengths, t)
+    attn_mask = valid[:, None, None, :]
     lengths32 = enc_lengths.to(torch.int32).contiguous()
     for layer in lean["layers"]:
         h = _ln_normalize(x)
         qkv = h @ layer["w_qkv"] + layer["b_qkv"]   # (B, T, 3D) one matmul
-        ctx = flash_encoder_attention_qkv(qkv, lengths32, cfg.enc_heads)
+        if cfg.use_pallas:
+            ctx = flash_encoder_attention_qkv(qkv, lengths32, cfg.enc_heads)
+        else:
+            q, k, v = (nn._split_heads(qkv[..., i * d:(i + 1) * d], cfg.enc_heads)
+                       for i in range(3))
+            ctx = nn._merge_heads(nn.attention_core(q, k, v, attn_mask)[0])
         x = x + nn.dense(layer["o"], ctx)
         h = _ln_normalize(x)
         x = x + torch.relu(h @ layer["w_f1"] + layer["b_f1"]) @ layer["w_f2"] \

@@ -27,6 +27,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_intp = ctypes.POINTER(ctypes.c_int)
 # C signature of each launcher: all return a cudaError_t as int.
 _SIGNATURES = {
     # q, k, v, lengths, out, batch, seq, heads, head_dim, row stride,
@@ -34,9 +35,10 @@ _SIGNATURES = {
     "nd_encoder_attention": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
                              _int, _int, _float, _vp],
     # q, k, v, valid_lens, k_scale, v_scale, out, amax, batch, group, T, D,
-    # cache width Dk, heads, is_bf16, is_int8, scale, stream
+    # cache width Dk, heads, is_bf16, is_int8, scale, stream, the kernel
+    # launched (out: 0 row, 1 grouped, 2 scalar)
     "nd_decode_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
-                            _int, _int, _int, _int, _int, _int, _float, _vp],
+                            _int, _int, _int, _int, _int, _int, _float, _vp, _intp],
     # cache, slab, batch, T, C, elem_bytes, step, stream
     "nd_write_cache_block": [_vp, _vp, _int, _int, _int, _int, _int, _vp],
     # alive, log_probs, fin, pen, batch, k, v, eos_id, top_ids, alive_s,

@@ -28,15 +28,28 @@ caches are MHA only, as the JAX kernels assert.
 
 On a CUDA tensor the wrappers launch the kernels in
 `csrc/decode_attention.cu` (K4a and K4b have a kernel each: K4a streams
-its row with 16-byte loads several rows deep and takes GQA caches; the
-grouped one streams the chunk's cache through a cp.async ring, is
-instantiated per group size and is MHA only); on a CPU tensor they run
-the plain PyTorch versions below.  Nothing falls back from one to the
-other: a CUDA input the kernels do not take raises.
+its row with 16-byte loads several rows deep; the grouped one streams
+the chunk's cache through a cp.async ring for up to 8 beams a block, in
+sub-groups beyond; a scalar kernel takes the shapes neither fits, so
+every shape the JAX kernels take runs a CUDA kernel); on a CPU tensor
+they run the plain PyTorch versions below.  Nothing falls back from one
+to the other: a CUDA input the kernels do not take raises (int8 + GQA,
+and H x T scores of one query row beyond a block's shared memory).
+
+The scalar kernel reads 10 to 150 times under the other two's bound
+shares on an H100 (PERF.md section 6).  It runs what they do not take:
+in K4a, heads that are no power of two of 16-byte loads up to 32 (int8
+at Dh 8, any dtype at Dh 24) and over 8 query heads per KV head; in K4b,
+GQA caches, Dh not a multiple of 16 and D over 1024 (the tiny test
+config's beam path); in both, caches whose base is not 16-byte aligned
+(a view at an odd offset).  Each wrapper counts its launches in
+`.launches` and, of those, the scalar kernel's in `.scalar_launches`,
+so the slow route stays visible.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -44,11 +57,10 @@ import torch
 from nanodecoder_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-MAX_GROUP = 8
-GROUPED_MAX_D = 1024  # K4b: a thread owns at most D / 256 = 4 output channels
-MAX_KV_GROUP = 8  # K4a: query heads per KV head a thread keeps accumulators for
 _DTYPES = (torch.float32, torch.bfloat16)
 _NO_IDX = 2 ** 30
+_SCALAR_KERNEL = 2            # nd_decode_attention's report of the scalar kernel
+_launched = ctypes.c_int(-1)  # the kernel the last launch ran
 
 
 def quantize_cache_int8(x: torch.Tensor):
@@ -136,7 +148,7 @@ def _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
         raise ValueError(f"q must be (rows, D) and k/v (B, T, Dk); got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}")
-    b, t, dk = k_cache.shape
+    b, _, dk = k_cache.shape
     rows, d = q.shape
     if n_heads <= 0 or d % n_heads:
         raise ValueError(f"query width {d} is no multiple of n_heads={n_heads}")
@@ -170,28 +182,10 @@ def _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
         return True
     if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
         raise ValueError("all inputs must lie on one CUDA device")
-    if group > MAX_GROUP:
-        raise ValueError(f"group {group} > {MAX_GROUP}")
-    if group == 1:
-        vec = 16 // k_cache.element_size()              # lanes per 16-byte load
-        per_head = dh // vec
-        if dh % vec or per_head & (per_head - 1) or per_head > 32 or 256 % (dk // vec):
-            raise ValueError(f"K4a needs Dh a multiple of {vec} with Dh / {vec} a power "
-                             f"of two <= 32, and Dk / {vec} dividing 256; got Dk {dk}, "
-                             f"Dh {dh}")
-        if n_heads // n_kv > MAX_KV_GROUP:
-            raise ValueError(f"K4a takes at most {MAX_KV_GROUP} query heads per KV "
-                             f"head; got {n_heads // n_kv}")
-    else:
-        if dk != d:
-            raise ValueError("GQA caches are not ported to the grouped kernel (K4b)")
-        if dh % 16 or d > GROUPED_MAX_D:
-            raise ValueError(f"the grouped kernel needs Dh a multiple of 16 and D <= "
-                             f"{GROUPED_MAX_D}; got D {d}, Dh {dh}")
     if valid_lens.dtype != torch.int32:
         raise TypeError("valid_lens must be int32")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in tensors):
-        raise ValueError("inputs must be contiguous and 16-byte aligned")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("inputs must be contiguous")
     return False
 
 
@@ -211,8 +205,12 @@ def _launch(wrapper, q, k_cache, v_cache, valid_lens, n_heads, group, k_scale,
             v_scale.data_ptr() if quantized else None, out.data_ptr(),
             amax.data_ptr(), b, group, t, d, k_cache.shape[2], n_heads,
             int(q.dtype == torch.bfloat16), int(quantized),
-            1.0 / math.sqrt(d // n_heads), stream), "decode attention kernel")
+            1.0 / math.sqrt(d // n_heads), stream, ctypes.byref(_launched)),
+            f"decode attention kernel at {n_heads} heads x T {t} (every kernel holds "
+            f"one query row's H x T f32 scores in a block's shared memory)")
         wrapper.launches += 1
+        if _launched.value == _SCALAR_KERNEL:
+            wrapper.scalar_launches += 1
     return out, amax
 
 
@@ -233,7 +231,7 @@ def decode_attention_grouped(q, k_cache, v_cache, valid_lens, n_heads: int,
                              group: int, k_scale=None, v_scale=None):
     """K4b.  q: (B * group, D), rows b * group .. + group - 1 against cache
     row b; otherwise as decode_attention.  Returns (out (B * group, D),
-    amax (B * group,) int32).  The CUDA kernel takes MHA caches only."""
+    amax (B * group,) int32)."""
     if _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
         return decode_attention_grouped_plain(q, k_cache, v_cache, valid_lens,
                                               n_heads, group, k_scale, v_scale)
@@ -241,5 +239,5 @@ def decode_attention_grouped(q, k_cache, v_cache, valid_lens, n_heads: int,
                    n_heads, group, k_scale, v_scale)
 
 
-decode_attention.launches = 0
-decode_attention_grouped.launches = 0
+decode_attention.launches = decode_attention.scalar_launches = 0
+decode_attention_grouped.launches = decode_attention_grouped.scalar_launches = 0

@@ -14,9 +14,9 @@ times).  `torch.topk` neither promises the lowest index on ties nor
 repeats an index, so it is no stand-in for either kernel.
 
 On a CUDA tensor each wrapper launches its kernel in
-`csrc/beam_step.cu` (K3: one warp per row for K <= 10, V >= 4 and
-K * V <= 2048, else one block per row); on a CPU tensor it runs the
-plain PyTorch version below.  Nothing falls back from one to the other.
+`csrc/beam_step.cu` (one warp per row for V >= 4 and K * V <= 2048 with
+K <= 10 in K3, K <= 32 and n_out <= 20 in K7, else one block per row);
+on a CPU tensor it runs the plain PyTorch version below.  Nothing falls back from one to the other.
 The inputs are finite or -inf (log-softmax outputs, -1e9 from the
 min_len mask): the order of NaNs is not part of the contract, and of two
 tied zeros of opposite sign the kernels return the one at the picked

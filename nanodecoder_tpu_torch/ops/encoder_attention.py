@@ -16,11 +16,14 @@ accumulated in f32 and cast to the input dtype.
 On a CUDA tensor each wrapper launches the hand-written kernels in
 `csrc/encoder_attention.cu` (one kernel family for all three layouts,
 given three pointers and a row stride: tensor cores in bf16, register-
-tiled CUDA cores in exact f32) and counts its own launches; on a CPU
-tensor it runs the plain PyTorch version below.  Nothing falls back from
-one to the other: a CUDA input the kernels do not take raises.  The f32
-kernel keeps a (32, S) score strip in shared memory, which bounds S
-(`f32_max_seq`); the bf16 kernel takes any S.
+tiled CUDA cores in exact f32, any S in both) and counts its own
+launches; on a CPU tensor it runs the plain PyTorch version below.
+Nothing falls back from one to the other: a CUDA input the kernels do
+not take raises.  The kernels are built for head dims 32, 64, 128 and
+256; for any other Dh up to 256 the wrapper pads q, k and v with zero
+lanes up to the next of them and drops the pad from the output (zero
+lanes add nothing to a score or to P.V, and the scale stays 1/sqrt(Dh)
+of the true Dh).
 """
 
 from __future__ import annotations
@@ -32,16 +35,13 @@ import torch
 from nanodecoder_tpu_torch.models import modules as nn
 from nanodecoder_tpu_torch.ops import _build
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # instantiated; others are padded up
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_SMEM = 227 * 1024  # shared memory one block may use on the H100
 
 
-def f32_max_seq(dh: int) -> int:
-    """The longest S the f32 kernel takes at head dim dh: its shared
-    memory holds Q (32 rows) and K/V (64 rows) tiles of Dh + 4 floats and
-    the (32, S) score strip, S rounded up to 32 plus 8 (csrc smem32)."""
-    return ((_MAX_SMEM // 4 - 96 * (dh + 4)) // 32 - 8) // 32 * 32
+def kernel_head_dim(dh: int) -> int:
+    """The instantiated head dim a head dim of dh runs at (dh <= 256)."""
+    return next(w for w in KERNEL_HEAD_DIMS if w >= dh)
 
 
 def encoder_attention_heads_plain(q, k, v, lengths):
@@ -74,8 +74,8 @@ def _check(x: torch.Tensor, lengths: torch.Tensor, b: int, dh: int) -> bool:
         return True
     if x.device.type != "cuda" or lengths.device != x.device:
         raise ValueError("inputs and lengths must lie on one CUDA device")
-    if dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {SUPPORTED_HEAD_DIMS}")
+    if not 0 < dh <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {dh} outside [1, {KERNEL_HEAD_DIMS[-1]}]")
     if x.dtype not in _DTYPES:
         raise TypeError(f"dtype {x.dtype} not in {_DTYPES}")
     if lengths.dtype != torch.int32:
@@ -84,28 +84,37 @@ def _check(x: torch.Tensor, lengths: torch.Tensor, b: int, dh: int) -> bool:
         raise ValueError("inputs and lengths must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError("the kernels read 16-byte rows: inputs must be 16-byte aligned")
-    if x.dtype == torch.float32 and x.shape[1] > f32_max_seq(dh):
-        raise ValueError(f"the f32 kernel keeps a (32, S) score strip in shared memory "
-                         f"and takes S <= {f32_max_seq(dh)} at head dim {dh}; got S "
-                         f"{x.shape[1]} (the bf16 kernel takes any S)")
     return False
 
 
 def _launch(wrapper, q_ptr: int, k_ptr: int, v_ptr: int, lengths: torch.Tensor,
-            out: torch.Tensor, heads: int, ld: int) -> torch.Tensor:
-    """Run the kernel into out (B, S, D); q/k/v_ptr address position 0 of
-    batch row 0, positions `ld` elements apart."""
+            out: torch.Tensor, heads: int, ld: int, dh: int) -> torch.Tensor:
+    """Run the kernel into out (B, S, heads * kernel Dh); q/k/v_ptr address
+    position 0 of batch row 0, positions `ld` elements apart; dh is the
+    true head dim, which sets the scale."""
     b, s, d = out.shape
     if b and s:
-        dh = d // heads
         lib = _build.load()
         stream = torch.cuda.current_stream(out.device).cuda_stream
         _build.check(lib.nd_encoder_attention(
-            q_ptr, k_ptr, v_ptr, lengths.data_ptr(), out.data_ptr(), b, s, heads, dh,
-            ld, int(out.dtype == torch.bfloat16), 1.0 / math.sqrt(dh), stream),
-            "encoder attention kernel")
+            q_ptr, k_ptr, v_ptr, lengths.data_ptr(), out.data_ptr(), b, s, heads,
+            d // heads, ld, int(out.dtype == torch.bfloat16), 1.0 / math.sqrt(dh),
+            stream), "encoder attention kernel")
         wrapper.launches += 1
     return out
+
+
+def _launch_padded(wrapper, q, k, v, lengths, heads: int) -> torch.Tensor:
+    """The kernel on (B, S, H, Dh) views whose Dh has no instantiation:
+    q, k and v padded with zero lanes to the next kernel head dim, the
+    pad dropped from the (B, S, H, Dh) result."""
+    b, s, _h, dh = q.shape
+    dp = kernel_head_dim(dh)
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, dp - dh)).contiguous() for x in (q, k, v))
+    out = torch.empty((b, s, heads * dp), dtype=q.dtype, device=q.device)
+    _launch(wrapper, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), lengths, out, heads,
+            heads * dp, dh)
+    return out.view(b, s, heads, dp)[..., :dh]
 
 
 def flash_encoder_attention_qkv(qkv: torch.Tensor, lengths: torch.Tensor,
@@ -117,12 +126,17 @@ def flash_encoder_attention_qkv(qkv: torch.Tensor, lengths: torch.Tensor,
                          f" with heads={heads}")
     b, s, d3 = qkv.shape
     d = d3 // 3
-    if _check(qkv, lengths, b, d // heads):
+    dh = d // heads
+    if _check(qkv, lengths, b, dh):
         return encoder_attention_plain(qkv, lengths, heads)
+    if dh not in KERNEL_HEAD_DIMS:
+        return _launch_padded(flash_encoder_attention_qkv,
+                              *(nn._split_heads(qkv[..., i * d:(i + 1) * d], heads)
+                                for i in range(3)), lengths, heads).reshape(b, s, d)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     p, step = qkv.data_ptr(), d * qkv.element_size()
     return _launch(flash_encoder_attention_qkv, p, p + step, p + 2 * step, lengths,
-                   out, heads, d3)
+                   out, heads, d3, dh)
 
 
 def flash_encoder_attention_nld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -138,9 +152,13 @@ def flash_encoder_attention_nld(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
         return encoder_attention_nld_plain(q, k, v, lengths, heads)
     for x in (k, v):
         _check(x, lengths, b, d // heads)
+    if d // heads not in KERNEL_HEAD_DIMS:
+        return _launch_padded(flash_encoder_attention_nld,
+                              *(nn._split_heads(x, heads) for x in (q, k, v)), lengths,
+                              heads).reshape(b, s, d)
     out = torch.empty_like(q)
     return _launch(flash_encoder_attention_nld, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), lengths, out, heads, d)
+                   v.data_ptr(), lengths, out, heads, d, d // heads)
 
 
 def flash_encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,9 +174,11 @@ def flash_encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return encoder_attention_heads_plain(q, k, v, lengths)
     for x in (k, v):
         _check(x, lengths, b, dh)
+    if dh not in KERNEL_HEAD_DIMS:
+        return _launch_padded(flash_encoder_attention, q, k, v, lengths, h).contiguous()
     out = torch.empty_like(q)
     _launch(flash_encoder_attention, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lengths, out.view(b, s, h * dh), h, h * dh)
+            lengths, out.view(b, s, h * dh), h, h * dh, dh)
     return out
 
 

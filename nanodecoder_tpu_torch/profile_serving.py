@@ -11,7 +11,9 @@ once to warm up, then times it with CUDA events split into phases
 backtrack), and profiles it with torch.profiler: device busy time (the
 sum of kernel times; one stream, so kernels never overlap), the
 device's idle share of the batch, and the kernels that take the most
-device time.  Needs one CUDA card.
+device time.  It profiles the kernel route: it sets model.use_pallas
+and decode.use_pallas true, as the evaluate CLI does on the card (the
+committed config says model.use_pallas false).  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -61,8 +63,10 @@ def main() -> int:
     with open(os.path.join(REPO, "bench_results", "config.json")) as f:
         cfg = Config.from_json(f.read())
     cfg = dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, compute_dtype=args.dtype),
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype=args.dtype,
+                                       use_pallas=True),
         decode=dataclasses.replace(cfg.decode, mode=args.mode, h2d_dtype=args.h2d,
+                                   use_pallas=True,
                                    batch_chunks=args.batch,
                                    batch_chunks_beam=args.batch))
     tr = Translator(load_params_npz(os.path.join(

@@ -152,6 +152,83 @@ def test_beam_topk_plain_matches_jax_interpret(b, k, v, case, rng_np):
     assert i.numpy().tobytes() == np.asarray(ri).tobytes()
 
 
+@jax.jit
+def _jax_advance_top_k(alive, lp, fin, pen):
+    """The JAX package's advance when use_pallas is false (decode/beam.py,
+    the lax.top_k branch without coverage), pen traced as in its loop."""
+    b, k, v = lp.shape
+    top_scores, top_ids = jax.lax.top_k((alive[:, :, None] + lp).reshape(b, k * v),
+                                        2 * k)
+    is_eos = (top_ids % v).astype(jnp.int32) == EOS
+    alive_s, alive_sel = jax.lax.top_k(jnp.where(is_eos, NEG_INF, top_scores), k)
+    fin_cand = jnp.where(is_eos, top_scores / pen - jnp.zeros((b, 2 * k), jnp.float32),
+                         NEG_INF)
+    fin_s, fin_sel = jax.lax.top_k(jnp.concatenate([fin, fin_cand], axis=1), k)
+    return top_ids, alive_s, alive_sel, fin_s, fin_sel
+
+
+@pytest.mark.parametrize("case", CASES + ["ties"])
+@pytest.mark.parametrize("b,k,v", SHAPES)
+def test_advance_top_k_matches_jax(b, k, v, case, rng_np):
+    """The advance of use_pallas false against JAX's lax.top_k branch:
+    all five outputs bitwise equal, ties to the lowest index."""
+    from nanodecoder_tpu_torch.decode.beam import advance_top_k
+    from nanodecoder_tpu_torch.decode.penalties import length_penalty
+
+    if case == "ties":
+        alive, lp, fin = (np.zeros(s, np.float32) for s in ((b, k), (b, k, v), (b, k)))
+    else:
+        alive, lp, fin = _beam_inputs(rng_np, b, k, v, case)
+    pen = length_penalty(7, "wu", 0.6)
+    ref = _jax_advance_top_k(jnp.asarray(alive), jnp.asarray(lp), jnp.asarray(fin),
+                             jnp.asarray(pen.numpy()))
+    got = advance_top_k(_t(alive), _t(lp), _t(fin), float(pen), k, v, EOS)
+    for name, g, r in zip(("top_ids", "alive_s", "alive_sel", "fin_s", "fin_sel"),
+                          got, ref):
+        r = np.asarray(r)
+        assert g.numpy().astype(r.dtype).tobytes() == r.tobytes(), name
+    if case == "ties":
+        np.testing.assert_array_equal(got[0].numpy(), np.tile(np.arange(2 * k), (b, 1)))
+
+
+def test_evaluate_pallas_flag(monkeypatch, small_ckpt):
+    """--pallas / --no-pallas set model.use_pallas and decode.use_pallas;
+    without either, the kernel route on the card and the plain one with
+    --cpu (the card's default checked with the device lookup and the
+    params load stubbed)."""
+    from nanodecoder_tpu_torch import device as device_mod
+    from nanodecoder_tpu_torch.cli import common, evaluate
+    from nanodecoder_tpu_torch.decode import translator
+
+    ap = evaluate.build_argparser()
+    assert ap.parse_args([]).pallas is None
+    assert ap.parse_args(["--pallas"]).pallas is True
+    assert ap.parse_args(["--no-pallas"]).pallas is False
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_translator(params, config, device):
+        seen.append((config.model.use_pallas, config.decode.use_pallas, device.type))
+        raise Stop
+
+    monkeypatch.setattr(translator, "Translator", fake_translator)
+    base = ["--ckpt", small_ckpt, "--simulate", "1"]
+    runs = [["--cpu"], ["--cpu", "--pallas"], ["--cpu", "--no-pallas"], [], ["--no-pallas"]]
+    for i, extra in enumerate(runs):
+        if i == 3:  # the card: its device, the params left on the CPU
+            load = common.load_params_and_config
+            monkeypatch.setattr(device_mod, "resolve_device",
+                                lambda d: torch.device("cuda"))
+            monkeypatch.setattr(common, "load_params_and_config",
+                                lambda path, _dev: load(path, "cpu"))
+        with pytest.raises(Stop):
+            evaluate.main(base + extra)
+    assert seen == [(False, False, "cpu"), (True, True, "cpu"), (False, False, "cpu"),
+                    (True, True, "cuda"), (False, False, "cuda")]
+
+
 def test_beam_topk_all_ties_lowest_index():
     from nanodecoder_tpu.ops.beam_step import beam_topk as jtopk
     from nanodecoder_tpu_torch.ops.beam_step import beam_topk

@@ -52,23 +52,23 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _jcfg(variant: str):
+def _jcfg(variant: str, pallas: bool = True):
     from nanodecoder_tpu.config import Config, DecodeConfig, ModelConfig, SignalConfig
 
     model = ModelConfig(vocab_size=8, d_model=64, conv_channels=(16, 32, 64),
                         enc_layers=2, enc_heads=2, enc_ffn_dim=128, dec_layers=2,
                         dec_heads=4, dec_kv_heads=0, dec_ffn_dim=128,
                         max_decode_len=48, staged_decode=True,
-                        compute_dtype="float32", use_pallas=True)
+                        compute_dtype="float32", use_pallas=pallas)
     return Config(signal=SignalConfig(chunk_len=256, chunk_overlap=32),
                   model=dataclasses.replace(model, **VARIANTS[variant]),
-                  decode=DecodeConfig(max_len=48, batch_chunks=8, use_pallas=True))
+                  decode=DecodeConfig(max_len=48, batch_chunks=8, use_pallas=pallas))
 
 
-def _port_cfg(variant: str):
+def _port_cfg(variant: str, pallas: bool = True):
     from nanodecoder_tpu_torch.config import Config
 
-    return Config.from_json(_jcfg(variant).to_json())
+    return Config.from_json(_jcfg(variant, pallas).to_json())
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,11 +96,11 @@ def _flatten(params) -> dict:
     return flat
 
 
-def _port_served(variant: str):
+def _port_served(variant: str, pallas: bool = True):
     from nanodecoder_tpu_torch.models.model import prepare_serving_params
     from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy
 
-    cfg = _port_cfg(variant)
+    cfg = _port_cfg(variant, pallas)
     params = params_from_numpy(_flatten(_jparams(cfg.model.dec_kv_heads)), cfg.model,
                                device="cpu")
     return prepare_serving_params(params, cfg.model), cfg
@@ -126,14 +126,14 @@ def _chunks(b=6):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_bank(variant: str):
+def _jax_bank(variant: str, pallas: bool = True):
     """(signal, lengths, JAX memory bank, JAX encoder lengths)."""
     import jax
     import jax.numpy as jnp
 
     from nanodecoder_tpu.models.model import encode, prepare_serving_params
 
-    jcfg = _jcfg(variant)
+    jcfg = _jcfg(variant, pallas)
     sig, lens = _chunks()
     served = prepare_serving_params(_jparams(jcfg.model.dec_kv_heads), jcfg.model)
     mem, mlen = jax.jit(encode, static_argnums=1)(served, jcfg.model, jnp.asarray(sig),
@@ -500,6 +500,85 @@ def test_beam_matches_jax(variant):
                                    rtol=1e-5, err_msg=name)
 
 
+# --- use_pallas false: the plain PyTorch route against JAX's XLA path ------------
+
+
+def _forbid(monkeypatch, module, *names):
+    """Make the named kernel wrappers, as `module` imported them, raise."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a kernel wrapper was called with use_pallas false")
+    for name in names:
+        monkeypatch.setattr(module, name, refuse)
+
+
+@pytest.mark.parametrize("variant", ["lean", "unfolded"])
+def test_encode_without_kernels_matches_jax(variant, monkeypatch):
+    """use_pallas false: both encoders take attention_core (neither K1's
+    nor K5's wrapper is called); the bank allclose 1e-5 to JAX's XLA
+    encoder."""
+    from nanodecoder_tpu_torch.models import encoder
+    from nanodecoder_tpu_torch.models.model import encode
+
+    sig, lens, rmem, rlen = _jax_bank(variant, False)
+    served, cfg = _port_served(variant, False)
+    _forbid(monkeypatch, encoder, "flash_encoder_attention_qkv",
+            "flash_encoder_attention_nld")
+    with torch.inference_mode():
+        mem, mlen = encode(served, cfg.model, _t(sig), _t(lens))
+    np.testing.assert_array_equal(mlen.numpy(), rlen)
+    np.testing.assert_allclose(mem.numpy(), rmem, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+@pytest.mark.parametrize("variant", ["lean", "unfolded"])
+def test_decode_without_kernels_matches_jax(variant, mode, monkeypatch):
+    """use_pallas false on both sides: MHA cross attention by the einsum,
+    attention positions the head-mean argmax, and (beam 3) the advance by
+    three top-k selections.  Tokens, lengths, positions (and finished
+    flags) equal; log-probs (and scores) allclose 1e-5 (f32 sums in
+    another order).  No decode-attention wrapper is called."""
+    import jax
+    import jax.numpy as jnp
+
+    from nanodecoder_tpu.decode.beam import beam_decode as jbeam
+    from nanodecoder_tpu.decode.greedy import greedy_decode as jgreedy
+    from nanodecoder_tpu.models.model import prepare_serving_params as jprep
+    from nanodecoder_tpu_torch.decode import beam
+    from nanodecoder_tpu_torch.decode.beam import beam_decode
+    from nanodecoder_tpu_torch.decode.greedy import greedy_decode
+    from nanodecoder_tpu_torch.models import decoder
+
+    jcfg = _jcfg(variant, False)
+    _sig, _lens, mem, mlen = _jax_bank(variant, False)
+    jserved = jprep(_jparams(0), jcfg.model)
+    served, cfg = _port_served(variant, False)
+    _forbid(monkeypatch, decoder, "decode_attention", "decode_attention_grouped")
+    _forbid(monkeypatch, beam, "beam_advance")
+    if mode == "greedy":
+        ref = jax.jit(jgreedy, static_argnums=1)(jserved, jcfg.model, jnp.asarray(mem),
+                                                 jnp.asarray(mlen))
+        res = greedy_decode(served, cfg.model, _t(mem), _t(mlen))
+        exact, close = ("tokens", "lengths", "attn_pos"), ("token_log_probs",)
+    else:
+        jd = dataclasses.replace(jcfg.decode, mode="beam", beam_size=3,
+                                 length_penalty="avg")
+        ref = jax.jit(jbeam, static_argnums=(1, 2))(jserved, jcfg.model, jd,
+                                                    jnp.asarray(mem), jnp.asarray(mlen))
+        dcfg = dataclasses.replace(cfg.decode, mode="beam", beam_size=3,
+                                   length_penalty="avg")
+        res = beam_decode(served, cfg.model, dcfg, _t(mem), _t(mlen))
+        exact = ("tokens", "lengths", "finished", "attn_pos")
+        close = ("scores", "token_log_probs")
+    for name in exact:
+        np.testing.assert_array_equal(getattr(res, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    for name in close:
+        np.testing.assert_allclose(getattr(res, name).numpy(),
+                                   np.asarray(getattr(ref, name)), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    assert len(set(res.lengths.numpy().ravel().tolist())) > 2
+
+
 # --- the flagship in MHA form ----------------------------------------------------
 
 
@@ -553,11 +632,14 @@ def test_mha_flagship_greedy_and_unfolded_match_golden():
 K4_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2), "int8": (2e-5, 1e-5)}
 
 
-def _k4_on_card(dev, kind, group, b, t, seed=0, h=8, dh=32, n_kv=None):
+def _k4_on_card(dev, kind, group, b, t, seed=0, h=8, dh=32, n_kv=None, tie_is_max=True):
     """K4a (group 1) or K4b against its plain version on _decode_inputs
     (with n_kv, K/V cut to the first n_kv heads: GQA): outputs within
-    K4_TOL, attention positions equal in at least 99% of rows, and row
-    2's tie resolved to the lower position."""
+    K4_TOL, attention positions equal in at least 99% of rows and in
+    every row of chunk 2, and (tie_is_max) chunk 2's tie resolved to the
+    lower position.  Under GQA the tied key need not be the strongest for
+    the heads that read another KV head's lanes, so another position may
+    win there (tie_is_max false)."""
     rng = np.random.default_rng(seed)
     q, k, v, lens = _decode_inputs(rng, b, t, h, dh, group)
     if n_kv is not None:
@@ -581,7 +663,10 @@ def _k4_on_card(dev, kind, group, b, t, seed=0, h=8, dh=32, n_kv=None):
     atol, rtol = K4_TOL[kind]
     torch.testing.assert_close(got[0].float(), ref[0].float(), atol=atol, rtol=rtol)
     assert (got[1] == ref[1]).float().mean() > 0.99
-    assert (got[1][2 * group:3 * group] == 5).all()
+    tied = slice(2 * group, 3 * group)
+    assert torch.equal(got[1][tied], ref[1][tied])
+    if tie_is_max:
+        assert (got[1][tied] == 5).all()
 
 
 @pytest.mark.cuda
@@ -622,14 +707,121 @@ def test_k4a_kernel_gqa_on_card(cuda, kind, h, dh, n_kv):
 
 @pytest.mark.cuda
 def test_k4_kernels_gqa_contract_on_card(cuda):
-    """The grouped kernel and int8 take MHA caches only and raise on GQA."""
-    q, n = torch.zeros(6, 64, device=cuda), torch.ones(2, dtype=torch.int32, device=cuda)
-    kv = torch.zeros(2, 8, 16, device=cuda)
-    with pytest.raises(ValueError, match="not ported to the grouped kernel"):
-        attention.decode_attention_grouped(q, kv, kv, n, 4, 3)
+    """Both kernels take GQA/MQA caches in exact dtypes, the grouped one
+    too; int8 caches are MHA only and raise on GQA, as the JAX kernels
+    assert."""
+    q, n = torch.randn(6, 64, device=cuda), torch.full((2,), 8, dtype=torch.int32,
+                                                        device=cuda)
+    kv = torch.randn(2, 8, 16, device=cuda)
+    got = attention.decode_attention_grouped(q, kv, kv, n, 4, 3)
+    ref = attention.decode_attention_grouped_plain(q, kv, kv, n, 4, 3)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
+    assert torch.equal(got[1], ref[1])
     i8, sc = kv.to(torch.int8), torch.ones(2, 64, device=cuda)
     with pytest.raises(ValueError, match="MHA only"):
         attention.decode_attention(q[:2], i8, i8, n, 4, sc, sc)
+    with pytest.raises(ValueError, match="MHA only"):
+        attention.decode_attention_grouped(q, i8, i8, n, 4, 3, sc, sc)
+
+
+_ALL, _EXACT = ("float32", "bfloat16", "int8"), ("float32", "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,h,dh,n_kv", [
+    (kind, h, dh, n_kv)
+    for h, dh, n_kv, kinds in [(4, 8, 4, _ALL), (6, 64, 6, _ALL), (12, 64, 12, _ALL),
+                               (16, 32, 1, _EXACT), (32, 16, 2, _EXACT)]
+    for kind in kinds])
+def test_k4a_kernel_wide_shapes_on_card(cuda, kind, h, dh, n_kv):
+    """K4a at shapes the 16-byte row kernel took only in part or not at
+    all: Dh 8 (the tiny config; int8 on the scalar kernel), D 384 and 768
+    (rows of 48 or 96 16-byte loads), 16 query heads per KV head."""
+    _k4_on_card(cuda, kind, 1, b=40, t=256, seed=h * 1000 + dh + n_kv, h=h, dh=dh,
+                n_kv=None if n_kv == h else n_kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,group,h,dh,n_kv", [
+    (kind, group, h, dh, n_kv)
+    for group, h, dh, n_kv, kinds in [
+        (9, 8, 32, 8, _ALL), (12, 8, 32, 8, _ALL), (16, 8, 32, 8, _ALL),
+        (5, 8, 32, 1, _EXACT), (12, 8, 32, 1, _EXACT), (5, 8, 32, 2, _EXACT),
+        (12, 8, 32, 2, _EXACT), (5, 4, 8, 4, _ALL), (5, 4, 24, 4, _ALL),
+        (5, 16, 128, 16, _ALL)]
+    for kind in kinds])
+def test_k4b_kernel_wide_shapes_on_card(cuda, kind, group, h, dh, n_kv):
+    """K4b at shapes the earlier kernel refused: groups over 8 (equal
+    sub-groups of the grouped kernel), GQA/MQA caches, Dh 8 and 24, and D
+    2048 (16 heads of 128; the scalar kernel)."""
+    _k4_on_card(cuda, kind, group, b=24, t=37, seed=group * 100 + dh + n_kv, h=h, dh=dh,
+                n_kv=None if n_kv == h else n_kv, tie_is_max=n_kv == h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,group,h,dh,n_kv,scalar", [
+    ("bfloat16", 1, 8, 32, None, False),  # the MHA flagship's K4a: the row kernel
+    ("int8", 1, 8, 32, None, False),
+    ("int8", 1, 4, 8, None, True),        # int8 at Dh 8: no whole 16-byte load a head
+    ("float32", 1, 16, 32, 1, True),      # 16 query heads per KV head
+    ("bfloat16", 5, 8, 32, None, False),  # the MHA flagship's K4b: the grouped kernel
+    ("float32", 5, 4, 8, None, True),     # the tiny config's K4b (Dh 8)
+    ("bfloat16", 5, 8, 32, 2, True),      # GQA caches in K4b
+])
+def test_k4_kernel_route_on_card(cuda, kind, group, h, dh, n_kv, scalar):
+    """Which kernel a shape runs, as the wrapper counts it: every call is
+    one launch, and the scalar kernel's are counted apart."""
+    fn = attention.decode_attention if group == 1 else attention.decode_attention_grouped
+    launches, scalar_launches = fn.launches, fn.scalar_launches
+    _k4_on_card(cuda, kind, group, b=24, t=37, seed=7, h=h, dh=dh, n_kv=n_kv,
+                tie_is_max=n_kv is None)
+    assert fn.launches == launches + 1
+    assert fn.scalar_launches == scalar_launches + int(scalar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 5])
+def test_k4_kernel_misaligned_cache_on_card(cuda, group):
+    """Caches whose base is not 16-byte aligned (views one element into
+    their storage) run the scalar kernel, counted as such, and match the
+    plain version."""
+    rng = np.random.default_rng(11)
+    b, t, h = 24, 37, 8
+    q, k, v, lens = _decode_inputs(rng, b, t, h, 32, group)
+
+    def shifted(x):
+        buf = torch.empty(x.size + 1, dtype=torch.bfloat16, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(_t(x))
+        return view
+
+    tq, tk, tv, n = _t(q).to(cuda, torch.bfloat16), shifted(k), shifted(v), _t(lens).to(cuda)
+    assert tk.is_contiguous() and tk.data_ptr() % 16
+    fn = attention.decode_attention if group == 1 else attention.decode_attention_grouped
+    args = (tq, tk, tv, n, h) + ((group,) if group > 1 else ())
+    plain = (attention.decode_attention_plain if group == 1
+             else attention.decode_attention_grouped_plain)
+    scalar_launches = fn.scalar_launches
+    got = fn(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert fn.scalar_launches == scalar_launches + 1
+    atol, rtol = K4_TOL["bfloat16"]
+    torch.testing.assert_close(got[0].float(), ref[0].float(), atol=atol, rtol=rtol)
+    assert (got[1] == ref[1]).float().mean() > 0.99
+
+
+@pytest.mark.cuda
+def test_k4_kernel_refuses_scores_beyond_shared_memory_on_card(cuda):
+    """One query row's H x T f32 scores must fit a block's shared memory
+    (8 heads x T 8192 do not): the kernel refuses, and the error names
+    the limit."""
+    b, t, h, dh = 2, 8192, 8, 32
+    q = torch.zeros(b, h * dh, device=cuda)
+    k = torch.zeros(b, t, h * dh, device=cuda)
+    n = torch.full((b,), t, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="H x T f32 scores"):
+        attention.decode_attention(q, k, k, n, h)
 
 
 @pytest.mark.cuda

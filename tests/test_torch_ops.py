@@ -117,6 +117,7 @@ def test_k1_kernel_matches_plain_on_card(cuda, dtype, atol):
 # states them: f32 sums in another order; bf16 one rounding step of an
 # output or of a probability at a rounding boundary.
 ENC_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (3e-2, 2e-2)}
+_F32_BF16 = (torch.float32, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -128,6 +129,25 @@ def test_encoder_attention_layouts_on_card(cuda, dtype, dh, heads, s):
     """K1 (QKV slab), K5 (separate q/k/v) and K6 ((B, S, H, Dh)) against
     their plain versions, with lengths 0 (uniform), 1, the 64-key tile
     edges 63, 64, 65 and S, each clipped to S."""
+    _encoder_layouts_on_card(cuda, dtype, dh, heads, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh,heads,s", [
+    (dtype, dh, heads, s)
+    for dh, heads, s, dtypes in [
+        (8, 4, 256, _F32_BF16), (16, 2, 256, _F32_BF16), (48, 2, 256, _F32_BF16),
+        (96, 2, 256, _F32_BF16), (256, 1, 256, _F32_BF16), (256, 2, 300, _F32_BF16),
+        (128, 2, 2048, (torch.float32,)), (128, 2, 4096, (torch.float32,))]
+    for dtype in dtypes])
+def test_encoder_attention_wide_on_card(cuda, dtype, dh, heads, s):
+    """The layouts at head dims without an instantiation (padded with zero
+    lanes to the next one), at Dh 256, and in f32 at S beyond the score
+    strip (the two-pass kernel), lengths as above."""
+    _encoder_layouts_on_card(cuda, dtype, dh, heads, s)
+
+
+def _encoder_layouts_on_card(cuda, dtype, dh, heads, s):
     ea = encoder_attention
     lengths = np.minimum([0, 1, 63, 64, 65, s], s).astype(np.int32)
     b, d = len(lengths), heads * dh
@@ -159,6 +179,38 @@ def test_k2_kernel_bit_exact_on_card(cuda, dtype):
     ref = cache.clone()
     for step in range(0, 96, 7):
         slab = torch.randn(5, 8, 256, device=cuda).to(dtype)
+        ref = cache_update.write_cache_block_plain(ref, slab, step)
+        cache = cache_update.write_cache_block(cache, slab, step)
+    torch.cuda.synchronize()
+    assert torch.equal(cache, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1536, 130, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_kernel_other_widths_on_card(cuda, dtype, c):
+    """K2 at the MHA self-cache width and at widths whose rows take 4-byte
+    (C 130 bf16) or 1-byte (C 129 bf16) units."""
+    cache = torch.randn(7, 48, c, device=cuda).to(dtype)
+    ref = cache.clone()
+    for step in range(0, 48, 5):
+        slab = torch.randn(7, 8, c, device=cuda).to(dtype)
+        ref = cache_update.write_cache_block_plain(ref, slab, step)
+        cache = cache_update.write_cache_block(cache, slab, step)
+    torch.cuda.synchronize()
+    assert torch.equal(cache, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dtype", [(1, torch.bfloat16), (4, torch.float32)])
+def test_k2_kernel_many_rows_on_card(cuda, c, dtype):
+    """K2 at B 262147, past 65535 groups of 4 batch rows (one grid
+    column's worth), so blocks go on to further row groups."""
+    b = 262147
+    cache = torch.randn(b, 16, c, device=cuda).to(dtype)
+    ref = cache.clone()
+    for step in (3, 12):
+        slab = torch.randn(b, 8, c, device=cuda).to(dtype)
         ref = cache_update.write_cache_block_plain(ref, slab, step)
         cache = cache_update.write_cache_block(cache, slab, step)
     torch.cuda.synchronize()
