@@ -51,18 +51,33 @@ Phases, in order; any failure exits non-zero before the last line:
      beam 5 f32 on golden read 101 (0.99 to phase 5's card call); no
      kernel but K2 (which the lean step runs whatever the flag) launches;
  10. wide shapes: K4a, K4b and K1/K5/K6 at shapes the earlier kernels
-     refused (Dh 8 to 256, D 384 to 2048, groups 9 to 16, GQA in K4b, 16
-     query heads per KV head, f32 encoder attention at S 2048 and 4096),
-     each against its plain version at phase 2's tolerances, with the
-     decode-attention kernel each ran (fast or scalar);
+     refused (Dh 8 to 512, D 384 to 2048, groups 9 to 16, GQA in K4b, 16
+     query heads per KV head, f32 encoder attention at S 2048 and 4096,
+     32 heads x T 1800 in K4a/K4b, MHA and GQA, whose scores overflow
+     shared memory), K1/K5 on operands not 16-byte aligned, K1 at B 65540
+     and K2 on a batch row's block of 2^31 + 8 bytes, each against its
+     plain version at phase 2's tolerances (K2 bit for bit against
+     copy_), with the kernel each ran (fast, padded or scalar);
  11. tiny: the JAX package's tiny_test_config with random params,
      greedy and beam 5, lean and unfolded, by the kernel route (its
      kernels counted) against the plain route on the card (0.99);
- 12. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
-     beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11), K4a's and
-     K4b's launches of the scalar decode-attention kernel apart (none on
-     phases 3-9), errors, times;
- 13. the last line: {"ok": true, "device": {...}}.
+ 12. engine: the streaming engine on signal files written to a temporary
+     directory (fast5 where h5py imports, else pod5 where pyarrow,
+     zstandard and flatbuffers do, else .npz through a substitute
+     reader): the golden reads in f32, trim stitch (0.99; this run
+     also starts the ingest pool), greedy bf16/int6 at 512-chunk batches
+     on 200 simulated reads (every read back once; mean identity 0.90 to
+     the truth, 0.99 to phase 4's Translator calls), beam 5 on 20 reads
+     at 256-chunk batches (0.90, K3 launched), with real rows per batch,
+     ksamples/s and the stage split; then the basecall CLI once as a
+     subprocess on 20 reads (one FASTQ record a read); the ingest pool,
+     its forkserver and the resource tracker are stopped and waited for,
+     and the run fails if any child process is still running;
+ 13. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+     beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11; engine,
+     12), K4a's and K4b's launches of the scalar decode-attention kernel
+     apart (none on phases 3-9), errors, times;
+ 14. the last line: {"ok": true, "device": {...}}.
 
 `--kernels` runs phase 1 and the named kernels' phase 2 only and prints
 their numbers as one JSON line; with `--root` it imports (and builds) the
@@ -73,14 +88,19 @@ git-ignored directory, to compare two versions in one call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -115,6 +135,23 @@ class SmokeError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeError(msg)
+
+
+def live_children() -> list[str]:
+    """The command lines of this process's children that are still running
+    (zombies aside), read from /proc."""
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline") as f:
+                cmd = f.read().replace("\0", " ").strip()
+        except OSError:
+            continue
+        if int(ppid) == os.getpid() and state != "Z":
+            found.append(f"{pid}: {cmd[:120]}")
+    return found
 
 
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -314,7 +351,8 @@ def k4_inputs(kind: str, b: int, group: int, t: int, h: int, dh: int, n_kv: int,
               for _ in range(2))
     lengths = np.full(b, t, np.int32)
     lengths[3::16] = rng.integers(1, t + 1, size=len(lengths[3::16]))
-    lengths[:3] = (0, 100, t)
+    head = (0, 100, t)[:b]
+    lengths[:len(head)] = head
     lens = torch.from_numpy(lengths).to(dev)
     if kind == "int8":
         (k, ks), (v, vs) = at.quantize_cache_int8(kf), at.quantize_cache_int8(vf)
@@ -629,8 +667,9 @@ def simulated_reads(n_reads: int, n_bases: int = 3000):
     return [simulate_read(rng, n_bases, spec, levels) for _ in range(n_reads)]
 
 
-def call_reads(tr, reads) -> tuple[list[float], int, float]:
-    """Basecall reads (attn stitch): (identities, samples, wall seconds)."""
+def call_reads(tr, reads) -> tuple[list[float], int, float, list[str]]:
+    """Basecall reads (attn stitch): (identities, samples, wall seconds,
+    sequences)."""
     from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.fast5 import RawRead
 
@@ -642,7 +681,7 @@ def call_reads(tr, reads) -> tuple[list[float], int, float]:
     wall = time.perf_counter() - t0
     idents = [read_identity(bc.sequence, truth)
               for bc, (truth, _sig) in zip(calls, reads)]
-    return idents, sum(bc.n_samples for bc in calls), wall
+    return idents, sum(bc.n_samples for bc in calls), wall, [bc.sequence for bc in calls]
 
 
 def phase_golden(params, cfg, label="golden f32") -> tuple[int, int]:
@@ -672,13 +711,16 @@ def phase_golden(params, cfg, label="golden f32") -> tuple[int, int]:
     return tr.batches, tr.decode_steps
 
 
-def phase_serving(params, cfg, n_reads=100, label=None):
-    """Returns (batches, decode steps, per-read identities)."""
+def phase_serving(params, cfg, n_reads=100, label=None, record=None):
+    """Returns (batches, decode steps, per-read identities); fills
+    `record` with the calls' sequences and ksamples/s."""
     from nanodecoder_tpu_torch.decode.translator import Translator
 
     label = label or f"serving bf16/int6/b{cfg.decode.batch_chunks}"
     tr = Translator(params, cfg)
-    idents, samples, wall = call_reads(tr, simulated_reads(n_reads))
+    idents, samples, wall, seqs = call_reads(tr, simulated_reads(n_reads))
+    if record is not None:
+        record.update(seqs=seqs, idents=idents, ksamples_per_s=samples / wall / 1e3)
     mean_id = float(np.mean(idents))
     print(f"{label}: {n_reads} reads, {tr.batches} batches, {tr.decode_steps} decode "
           f"steps, mean identity {mean_id:.4f} (min {min(idents):.4f}), "
@@ -752,7 +794,7 @@ def phase_beam_serving(params, cfg, greedy_idents=None, n_reads=20, label="beam"
           f"steps, {wall_ms / max(steps, 1):.3f} ms/step")
     if greedy_idents is None:
         return tr.batches, tr.decode_steps
-    idents, samples, wall = call_reads(tr, simulated_reads(n_reads))
+    idents, samples, wall, _seqs = call_reads(tr, simulated_reads(n_reads))
     mean_id = float(np.mean(idents))
     greedy = float(np.mean(greedy_idents[:n_reads]))
     print(f"beam serving bf16/int6/b{bsz}/K{cfg.decode.beam_size}: {n_reads} reads, "
@@ -773,25 +815,33 @@ K4B_WIDE = [(9, 8, 32, 8, ALL_KINDS), (12, 8, 32, 8, ALL_KINDS), (16, 8, 32, 8, 
             (5, 8, 32, 1, EXACT_KINDS), (12, 8, 32, 1, EXACT_KINDS),
             (5, 8, 32, 2, EXACT_KINDS), (12, 8, 32, 2, EXACT_KINDS),
             (5, 4, 8, 4, ALL_KINDS), (5, 4, 24, 4, ALL_KINDS), (5, 16, 128, 16, ALL_KINDS)]
+# Where one query row's H x T f32 scores overflow shared memory (the
+# scalar kernel's device-memory workspace): (B, T, group, heads, Dh, KV
+# heads, kinds).
+K4_SCORES_WIDE = [(4, 1800, 1, 32, 32, 32, ALL_KINDS), (4, 1800, 3, 32, 32, 32, EXACT_KINDS),
+                  (2, 1800, 1, 32, 32, 2, EXACT_KINDS), (2, 1800, 3, 32, 32, 2, EXACT_KINDS)]
 F32_BF16 = (torch.float32, torch.bfloat16)
 ENC_WIDE = [(8, 4, 256, F32_BF16), (16, 2, 256, F32_BF16), (48, 2, 256, F32_BF16),
             (96, 2, 256, F32_BF16), (256, 1, 256, F32_BF16),
-            (128, 2, 2048, (torch.float32,)), (128, 2, 4096, (torch.float32,))]
+            (128, 2, 2048, (torch.float32,)), (128, 2, 4096, (torch.float32,)),
+            (320, 2, 256, F32_BF16), (512, 2, 256, F32_BF16)]
 
 
 def phase_wide(dev, rng) -> dict:
-    """Phase 10: K4a (B 640), K4b (B 256) at T 256 and K1/K5/K6 (B 6,
-    lengths 0, 1, 63, 64, 65 and S) at shapes the earlier kernels refused,
-    each against its plain version at phase 2's tolerances; device-only
-    time (one input set, CUDA graph) of K4a, K4b and K1."""
+    """Phase 10: K4a (B 640), K4b (B 256) at T 256, K4a/K4b at 32 heads x
+    T 1800 (B 4, and B 2 on GQA caches) and K1/K5/K6 (B 6, lengths 0, 1,
+    63, 64, 65 and S) at shapes the earlier kernels refused, each against
+    its plain version at phase 2's tolerances, with device-only time (one
+    input set, CUDA graph) of K4a, K4b and K1 and the kernel each ran;
+    then K1/K5 on operands one element into their storage, K1 at B 65540,
+    and K2 on a batch row's block of 2^31 + 8 bytes (phase_repaired)."""
     from nanodecoder_tpu_torch.ops import attention as at
     from nanodecoder_tpu_torch.ops import encoder_attention as ea
 
     out = {}
-    t = 256
-    cases = [(1, h, dh, n_kv, kinds) for h, dh, n_kv, kinds in K4A_WIDE] + K4B_WIDE
-    for group, h, dh, n_kv, kinds in cases:
-        b = 640 if group == 1 else 256
+    cases = [(640, 256, 1, h, dh, n_kv, kinds) for h, dh, n_kv, kinds in K4A_WIDE] + \
+        [(256, 256) + c for c in K4B_WIDE] + K4_SCORES_WIDE
+    for b, t, group, h, dh, n_kv, kinds in cases:
         for kind in kinds:
             q, k, v, lens, lengths, scales = k4_inputs(kind, b, group, t, h, dh, n_kv,
                                                        dev, rng)
@@ -814,6 +864,7 @@ def phase_wide(dev, rng) -> dict:
                                       scales)
             g_ms = graph_ms(run, 20)
             bms, by = k4_bound(q, k, lengths, group, scales)
+            label += f" T{t}" if t != 256 else ""
             print(f"wide {label} B{b} ({kernel} kernel): max_abs_err {max_err:.3g}, "
                   f"{n_bad} near-tie positions; device only {g_ms:.4f} ms, bound "
                   f"{bms:.4f} ms ({by}), bound share {bms / g_ms:.3f}")
@@ -829,6 +880,7 @@ def phase_wide(dev, rng) -> dict:
             q, k, v = (x[..., i * d:(i + 1) * d].contiguous() for i in range(3))
             split = lambda y: y.view(b, s, heads, dh)  # noqa: E731
             ref = ea.encoder_attention_plain(x, n, heads)
+            scalar0 = ea.flash_encoder_attention_qkv.scalar_launches
             got = {"K1": ea.flash_encoder_attention_qkv(x, n, heads),
                    "K5": ea.flash_encoder_attention_nld(q, k, v, n, heads),
                    "K6": ea.flash_encoder_attention(split(q), split(k), split(v),
@@ -843,14 +895,111 @@ def phase_wide(dev, rng) -> dict:
                 check(bool((err <= atol + rtol * ref.float().abs()).all()),
                       f"wide {name} {dtype} Dh{dh} S{s}: max |kernel - plain| "
                       f"{errs[-1]} over tolerance")
+            kernel = ("scalar" if ea.flash_encoder_attention_qkv.scalar_launches > scalar0
+                      else "padded" if ea.kernel_head_dim(dh) != dh else "fast")
             g_ms = graph_ms(lambda: ea.flash_encoder_attention_qkv(x, n, heads), 10)
             bms, by = enc_bound(x, lengths)
             label = f"K1/K5/K6 {str(dtype)[6:]} Dh{dh} H{heads} S{s}"
-            print(f"wide {label} B{b}: max_abs_err {max(errs):.3g}; K1 device only "
-                  f"{g_ms:.4f} ms, bound {bms:.4f} ms ({by}), bound share "
+            print(f"wide {label} B{b} ({kernel} kernel): max_abs_err {max(errs):.3g}; K1 "
+                  f"device only {g_ms:.4f} ms, bound {bms:.4f} ms ({by}), bound share "
                   f"{bms / g_ms:.3f}")
-            out[label] = {"max_abs_err": max(errs), "graph_ms": g_ms, "bound_ms": bms,
-                          "bound_by": by}
+            out[label] = {"kernel": kernel, "max_abs_err": max(errs), "graph_ms": g_ms,
+                          "bound_ms": bms, "bound_by": by}
+    out.update(phase_repaired(dev, rng))
+    return out
+
+
+def shifted(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a contiguous view one element into its storage (not
+    16-byte aligned)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def phase_repaired(dev, rng) -> dict:
+    """Phase 10, the rest: K1 and K5 on operands one element into their
+    storage (the scalar kernel) at B 6, S 256, 2 heads of 128; K1 at B
+    65540 (past grid z's 65535), S 32, 1 head of 32, f32 (the fast kernel
+    looping over batch rows); K2 at B 1, T 8 on an int8 cache of C 2^28 + 1
+    bytes a row (a block of 2^31 + 8 one-byte units), bit for bit against
+    copy_, timed, then freed."""
+    from nanodecoder_tpu_torch.ops import cache_update as cu
+    from nanodecoder_tpu_torch.ops import encoder_attention as ea
+
+    out = {}
+    k1, k5 = ea.flash_encoder_attention_qkv, ea.flash_encoder_attention_nld
+    lengths = np.asarray([0, 1, 63, 64, 65, 256], np.int32)
+    b, s, heads, dh = len(lengths), 256, 2, 128
+    d = heads * dh
+    n = torch.from_numpy(lengths).to(dev)
+    for dtype in F32_BF16:
+        x = torch.from_numpy(rng.standard_normal((b, s, 3 * d), np.float32)).to(dev, dtype)
+        xs = shifted(x)
+        q, k, v = (shifted(x[..., i * d:(i + 1) * d].contiguous()) for i in range(3))
+        scalar0 = (k1.scalar_launches, k5.scalar_launches)
+        got1, got5 = k1(xs, n, heads), k5(q, k, v, n, heads)
+        check((k1.scalar_launches, k5.scalar_launches) == (scalar0[0] + 1, scalar0[1] + 1),
+              "unaligned encoder operands did not run the scalar kernel")
+        ref = ea.encoder_attention_plain(x, n, heads)
+        torch.cuda.synchronize()
+        atol, rtol = K1_TOL[dtype]
+        errs = []
+        for name, y in (("K1", got1), ("K5", got5)):
+            err = (y.float() - ref.float()).abs()
+            errs.append(float(err.max()))
+            check(bool(torch.isfinite(y).all())
+                  and bool((err <= atol + rtol * ref.float().abs()).all()),
+                  f"unaligned {name} {dtype}: max |kernel - plain| {errs[-1]}")
+        g_ms = graph_ms(lambda: k1(xs, n, heads), 10)
+        g_fast = graph_ms(lambda: k1(x, n, heads), 10)
+        bms, by = enc_bound(x, lengths)
+        label = f"K1/K5 unaligned {str(dtype)[6:]} Dh{dh} H{heads} S{s}"
+        print(f"wide {label} B{b} (scalar kernel): max_abs_err {max(errs):.3g}; K1 device "
+              f"only {g_ms:.4f} ms (aligned, fast kernel: {g_fast:.4f} ms), bound "
+              f"{bms:.4f} ms ({by}), bound share {bms / g_ms:.3f}")
+        out[label] = {"kernel": "scalar", "max_abs_err": max(errs), "graph_ms": g_ms,
+                      "fast_graph_ms": g_fast, "bound_ms": bms, "bound_by": by}
+
+    b, s, d = 65540, 32, 32
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(b, s, 3 * d, device=dev, generator=gen)
+    n = torch.randint(0, s + 1, (b,), device=dev, generator=gen, dtype=torch.int32)
+    scalar0 = k1.scalar_launches
+    got, ref = k1(x, n, 1), ea.encoder_attention_plain(x, n, 1)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    max_err = float(err.max())
+    check(k1.scalar_launches == scalar0 and bool((err <= 1e-5 + 1e-5 * ref.abs()).all()),
+          f"K1 B{b}: max |kernel - plain| {max_err}")
+    g_ms = graph_ms(lambda: k1(x, n, 1), 10)
+    bms, by = enc_bound(x, n.cpu().numpy())
+    print(f"wide K1 float32 Dh{d} H1 S{s} B{b} (fast kernel, batch rows past grid z): "
+          f"max_abs_err {max_err:.3g}; device only {g_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), bound share {bms / g_ms:.3f}")
+    out[f"K1 float32 Dh{d} H1 S{s} B{b}"] = {"kernel": "fast", "max_abs_err": max_err,
+                                            "graph_ms": g_ms, "bound_ms": bms,
+                                            "bound_by": by}
+    del x, n, got, ref, err
+
+    c = 2 ** 28 + 1
+    cache = torch.zeros(1, 8, c, dtype=torch.int8, device=dev)
+    slab = torch.randint(-128, 128, (1, 8, c), dtype=torch.int8, device=dev, generator=gen)
+    ref = torch.empty_like(cache).copy_(slab)
+    cu.write_cache_block(cache, slab, 5)
+    torch.cuda.synchronize()
+    check(torch.equal(cache, ref), f"K2 int8 C{c}: kernel differs from copy_")
+    ms = cuda_ms(lambda: cu.write_cache_block(cache, slab, 5), reps=5, warmup=1)
+    lib_ms = cuda_ms(lambda: cache.copy_(slab), reps=5, warmup=1)
+    bms, by = bound(2 * slab.numel(), 0.0, torch.float32)
+    print(f"wide K2 int8 B1 T8 C{c} (a block of 2^31 + 8 one-byte units): bit-exact "
+          f"against copy_; kernel {ms:.4f} ms, copy_ {lib_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), bound share {bms / ms:.3f}")
+    out[f"K2 int8 B1 T8 C{c}"] = {"max_abs_err": 0.0, "ms": ms, "library_ms": lib_ms,
+                                 "bound_ms": bms, "bound_by": by}
+    del cache, slab, ref
+    torch.cuda.empty_cache()
     return out
 
 
@@ -946,6 +1095,284 @@ def phase_tiny(dev, reset, counts) -> dict:
         check(min(idents) >= 0.99, f"tiny {form} {mode}: identity {min(idents)} < 0.99")
     return total
 
+# The engine phase's signal files: int16 DAC counts, signal = raw *
+# range / digitisation (offset 0), as a flow cell's channel calibrates.
+# The simulator's signal spans about +-4, so a step of 2 / 8192 keeps 15
+# bits of it.
+DAC_RANGE, DAC_DIGITISATION = 2.0, 8192.0
+
+
+def signal_file_format() -> tuple[str, str]:
+    """(format, reason) of the signal files the engine phase writes:
+    fast5 where h5py imports, else pod5 where pyarrow, zstandard and
+    flatbuffers all import, else "npz" (read through a substitute reader,
+    read_npz_signals)."""
+    have = {}
+    for mod in ("h5py", "pyarrow", "zstandard", "flatbuffers"):
+        try:
+            importlib.import_module(mod)
+            have[mod] = True
+        except ImportError:
+            have[mod] = False
+    found = ", ".join(f"{m} {'imports' if ok else 'missing'}" for m, ok in have.items())
+    if have["h5py"]:
+        return "fast5", found
+    if have["pyarrow"] and have["zstandard"] and have["flatbuffers"]:
+        return "pod5", found
+    return "npz", found
+
+
+def write_signal_files(root: str, reads, fmt: str, per_file: int = 20) -> list[str]:
+    """reads: [(read id, f32 picoamp signal)] -> files of `per_file` reads
+    each in `fmt`: multi-read fast5 or pod5 of int16 DAC counts with their
+    calibration, or .npz of the f32 signals."""
+    scale = DAC_RANGE / DAC_DIGITISATION
+    files = []
+    for start in range(0, len(reads), per_file):
+        group = reads[start:start + per_file]
+        path = os.path.join(root, f"reads{start // per_file:03d}.{fmt}")
+        if fmt == "fast5":
+            import h5py
+
+            with h5py.File(path, "w") as f:
+                for rid, sig in group:
+                    grp = f.create_group(f"read_{rid}")
+                    raw = grp.create_group("Raw")
+                    raw.attrs["read_id"] = rid.encode()
+                    raw.create_dataset("Signal", data=np.rint(sig / scale).astype(np.int16))
+                    ch = grp.create_group("channel_id")
+                    ch.attrs["offset"] = 0.0
+                    ch.attrs["range"] = DAC_RANGE
+                    ch.attrs["digitisation"] = DAC_DIGITISATION
+        elif fmt == "pod5":
+            from nanodecoder_tpu_torch.io.pod5 import Pod5Read, write_pod5
+
+            write_pod5(path, [Pod5Read(rid, np.rint(sig / scale).astype(np.int16),
+                                       calibration_scale=scale) for rid, sig in group])
+        else:
+            np.savez(path, **{rid: np.asarray(sig, np.float32) for rid, sig in group})
+        files.append(path)
+    return files
+
+
+def read_npz_signals(path: str):
+    """The substitute file reader: the reads of an .npz of f32 signals."""
+    from nanodecoder_tpu_torch.io.fast5 import RawRead
+
+    with np.load(path) as data:
+        return [RawRead(rid, data[rid], path) for rid in data.files]
+
+
+def list_npz_files(root: str) -> list[str]:
+    return [root] if os.path.isfile(root) else sorted(
+        os.path.join(root, f) for f in os.listdir(root) if f.endswith(".npz"))
+
+
+def _ingest_npz_worker(path: str, scfg, h2d_name: str):
+    """The engine's ingest worker with read_npz_signals installed, for
+    this call, in the worker process itself (a pool worker does not see
+    the parent's substitution)."""
+    from nanodecoder_tpu_torch.io import pipeline
+
+    saved, pipeline.read_fast5_file = pipeline.read_fast5_file, read_npz_signals
+    try:
+        return pipeline._ingest_file_worker(path, scfg, h2d_name)
+    finally:
+        pipeline.read_fast5_file = saved
+
+
+@contextlib.contextmanager
+def npz_ingest():
+    """The engine's ingest and the CLI's file listing with .npz files in
+    place of fast5/pod5."""
+    from nanodecoder_tpu_torch.io import fast5, pipeline
+
+    saved = pipeline._ingest_file_worker, fast5.list_signal_files
+    pipeline._ingest_file_worker, fast5.list_signal_files = _ingest_npz_worker, list_npz_files
+    try:
+        yield
+    finally:
+        pipeline._ingest_file_worker, fast5.list_signal_files = saved
+
+
+def basecall_cli_npz(argv: list[str]) -> int:
+    """The basecall CLI on .npz signal files (run as
+    `python -c "import sys, chip_smoke; sys.exit(chip_smoke.basecall_cli_npz(sys.argv[1:]))" ...`)."""
+    from nanodecoder_tpu_torch.cli import basecall
+    from nanodecoder_tpu_torch.io.pipeline import stop_ingest_processes
+
+    try:
+        with npz_ingest():
+            return basecall.main(argv)
+    finally:
+        stop_ingest_processes()
+
+
+def parse_fastq(text: str, label: str) -> dict[str, str]:
+    """id -> sequence of a FASTQ text: 4 lines a record, one record a read,
+    a quality per base."""
+    lines = text.splitlines()
+    check(len(lines) % 4 == 0 and lines, f"{label}: FASTQ of {len(lines)} lines")
+    ids = [x[1:] for x in lines[0::4]]
+    check(all(x.startswith("@") for x in lines[0::4]) and all(x == "+" for x in lines[2::4])
+          and all(len(q) == len(sq) for sq, q in zip(lines[1::4], lines[3::4])),
+          f"{label}: malformed FASTQ record")
+    check(len(ids) == len(set(ids)), f"{label}: a read came back more than once")
+    return dict(zip(ids, lines[1::4]))
+
+
+def engine_call(params, cfg, files, label: str, stitch: str = "attn"):
+    """One StreamingBasecaller.run over `files` (4 workers): (id ->
+    sequence, meter, stage timer, engine)."""
+    from nanodecoder_tpu_torch.decode.engine import StreamingBasecaller
+    from nanodecoder_tpu_torch.utils.profiling import StageTimer
+
+    engine = StreamingBasecaller(params, cfg)
+    timer, out = StageTimer(), io.StringIO()
+    meter = engine.run(files, out, stitch_method=stitch, num_workers=4, stage_timer=timer)
+    torch.cuda.synchronize()
+    return parse_fastq(out.getvalue(), label), meter, timer, engine
+
+
+def phase_engine(params, reset, counts, phase4: dict, root: str) -> dict:
+    """Phase 12: the streaming engine (decode/engine.StreamingBasecaller)
+    on signal files, at full batches: the golden reads in f32, greedy
+    (bf16, int6 wire, 512-chunk batches) on 200 simulated reads, beam 5
+    on 20 reads at 256-chunk batches; then the basecall CLI once as a
+    subprocess.  Returns the engine runs' launches (the CLI's are in its
+    own process)."""
+    from nanodecoder_tpu_torch.io.pipeline import stop_ingest_processes
+    from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
+
+    fmt, found = signal_file_format()
+    print(f"ingest: {fmt} files" + (" through a substitute reader (the port's fast5 "
+                                     "reader needs h5py, its pod5 reader pyarrow, "
+                                     "zstandard and flatbuffers)" if fmt == "npz" else "")
+          + f"; {found}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    try:
+        reads = simulated_reads(200)
+        files = write_signal_files(tmp, [(f"sim{i}", sig) for i, (_t, sig) in enumerate(reads)],
+                                   fmt)
+        spec = SimSpec()
+        gold_dir = os.path.join(tmp, "golden")
+        os.makedirs(gold_dir)
+        gold_files = write_signal_files(
+            gold_dir, [(f"golden_{seed}", simulate_read(np.random.default_rng(seed), n, spec,
+                                                        spec.level_table())[1])
+                       for seed, n in GOLDEN_READS], fmt)
+        with (npz_ingest() if fmt == "npz" else contextlib.nullcontext()):
+            launches = engine_runs(params, reset, counts, phase4, reads, files, gold_files)
+        engine_cli(files[0], fmt, tmp, root, {f"sim{i}" for i in range(20)})
+    finally:
+        stop_ingest_processes()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def stage_line(timer) -> str:
+    return ", ".join(f"{name} {st['total_sec']:.3f} s / {st['count']}"
+                     for name, st in timer.summary().items())
+
+
+def engine_runs(params, reset, counts, phase4, reads, files, gold_files) -> dict:
+    """The engine's three runs, their checks and numbers; returns their
+    launches.  The golden run goes first: it also starts the ingest
+    pool's processes, so the greedy run's wall is the steady state."""
+    from nanodecoder_tpu_torch.identity import read_identity
+
+    reset()
+    with open(GOLDEN) as f:
+        golden = json.load(f)["reads"]
+    gcalls, _m, gtimer, _e = engine_call(params, load_config("float32", "float32", 640),
+                                         gold_files, "engine golden", stitch="trim")
+    check(sorted(gcalls) == sorted(golden), f"engine golden: reads {sorted(gcalls)}")
+    gid = {rid: read_identity(seq, golden[rid]["sequence"]) for rid, seq in gcalls.items()}
+    print(f"engine golden f32 (trim stitch, as the goldens): "
+          f"{sum(gcalls[r] == golden[r]['sequence'] for r in gcalls)}/3 exact, identity to "
+          f"golden " + ", ".join(f"{gid[r]:.4f}" for r in sorted(gid))
+          + f"; stages, the ingest pool starting: {stage_line(gtimer)}")
+    check(min(gid.values()) >= 0.99, f"engine golden: identity {min(gid.values())} < 0.99")
+
+    serve_cfg = load_config("bfloat16", "int6", 640)
+    bsz = serve_cfg.decode.effective_batch_chunks(engine=True)
+    check(bsz == 512, f"engine batch {bsz}, expected batch_chunks_engine 512")
+    enc_layers = serve_cfg.model.enc_layers
+    before = counts()
+    calls, meter, timer, engine = engine_call(params, serve_cfg, files, "engine greedy")
+    check(sorted(calls) == sorted(f"sim{i}" for i in range(len(reads))),
+          f"engine greedy: {len(calls)} reads came back of {len(reads)}")
+    # A call equal to phase 4's has phase 4's identity: scoring those
+    # reads again would take most of the phase's time.
+    idents, to_tr = [], []
+    for i, (truth, _s) in enumerate(reads):
+        seq = calls[f"sim{i}"]
+        same = i < len(phase4["seqs"]) and seq == phase4["seqs"][i]
+        if i < len(phase4["seqs"]):
+            to_tr.append(1.0 if same else read_identity(seq, phase4["seqs"][i]))
+        idents.append(phase4["idents"][i] if same else read_identity(seq, truth))
+    wall = timer.totals["wall"]
+    greedy = {name: n - before[name] for name, n in counts().items()}
+    check(greedy["K1"] == enc_layers * engine.batches and greedy["K3"] == 0
+          and greedy["K2"] >= engine.decode_steps > 0,
+          f"engine greedy launches {greedy} for {engine.batches} batches")
+    print(f"engine greedy bf16/int6/b{bsz}: {len(reads)} reads, {meter.n_chunks} chunks in "
+          f"{engine.batches} batches ({meter.n_chunks / engine.batches:.1f} real rows of "
+          f"{bsz} a batch), {engine.decode_steps} decode steps; mean identity "
+          f"{np.mean(idents):.4f} to the truth (min {min(idents):.4f}), "
+          f"{np.mean(to_tr):.4f} to Translator's calls of phase 4's {len(to_tr)} reads "
+          f"(min {min(to_tr):.4f}, {sum(x == 1.0 for x in to_tr)} identical); wall "
+          f"{wall:.2f} s, {meter.n_samples / wall / 1e3:.1f} ksamples/s (phase 4, "
+          f"Translator: {phase4['ksamples_per_s']:.1f})")
+    print(f"engine greedy stages: {stage_line(timer)}")
+    print(f"engine greedy launches: K1 {greedy['K1']}, K2 {greedy['K2']}, K3 {greedy['K3']}")
+    check(np.mean(idents) >= 0.90, f"engine greedy: mean identity {np.mean(idents)} < 0.90")
+    check(np.mean(to_tr) >= 0.99,
+          f"engine greedy: mean identity to Translator {np.mean(to_tr)} < 0.99")
+
+    beam_cfg = load_config("bfloat16", "int6", 640, mode="beam", beam_size=5,
+                           batch_chunks_beam=256, batch_chunks_engine=256)
+    k3_before = counts()["K3"]
+    bcalls, bmeter, btimer, bengine = engine_call(params, beam_cfg, files[:1], "engine beam")
+    n_beam = len(bcalls)
+    check(sorted(bcalls) == sorted(f"sim{i}" for i in range(n_beam)) and n_beam == 20,
+          f"engine beam: reads {sorted(bcalls)[:5]}...")
+    bid = [read_identity(bcalls[f"sim{i}"], reads[i][0]) for i in range(n_beam)]
+    k3 = counts()["K3"] - k3_before
+    print(f"engine beam bf16/int6/b256/K5: {n_beam} reads, {bmeter.n_chunks} chunks in "
+          f"{bengine.batches} batches, {bengine.decode_steps} decode steps, K3 launched "
+          f"{k3} times; mean identity {np.mean(bid):.4f} (min {min(bid):.4f}), greedy "
+          f"engine on the same reads {np.mean(idents[:n_beam]):.4f} (difference "
+          f"{np.mean(bid) - np.mean(idents[:n_beam]):+.4f}); wall "
+          f"{btimer.totals['wall']:.2f} s, "
+          f"{bmeter.n_samples / btimer.totals['wall'] / 1e3:.1f} ksamples/s; stages: "
+          f"{stage_line(btimer)}")
+    check(k3 == bengine.decode_steps > 0, f"engine beam: K3 launched {k3} times")
+    check(np.mean(bid) >= 0.90, f"engine beam: mean identity {np.mean(bid)} < 0.90")
+    return counts()
+
+
+def engine_cli(path: str, fmt: str, tmp: str, root: str, want: set[str]) -> None:
+    """`python -m nanodecoder_tpu_torch.cli.basecall` on one signal file of
+    20 reads, with --stage-times (on .npz files through basecall_cli_npz)."""
+    out = os.path.join(tmp, "cli.fastq")
+    args = ["--input", path, "--output", out, "--ckpt", NPZ, "--stage-times",
+            "--workers", "4"]
+    cmd = ([sys.executable, "-m", "nanodecoder_tpu_torch.cli.basecall"] if fmt != "npz"
+           else [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.basecall_cli_npz(sys.argv[1:]))"]) + args
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"basecall CLI exit {res.returncode}: {res.stderr[-2000:]}")
+    with open(out) as f:
+        calls = parse_fastq(f.read(), "basecall CLI")
+    check(set(calls) == want, f"basecall CLI: {len(calls)} reads, expected {len(want)}")
+    stages = [x.split("] ", 1)[-1] for x in res.stderr.splitlines()
+              if "] stage " in x or "ksamples/s" in x]
+    print(f"basecall CLI ({' '.join(cmd[1:3])} ...): {len(calls)} reads, 4 lines a read, "
+          f"one record a read, process wall {wall:.1f} s; " + "; ".join(stages))
+
 
 def kernel_times(names: list[str]) -> int:
     """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
@@ -1038,6 +1465,9 @@ def main(argv: list[str] | None = None) -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    def elapsed(done: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] {done} done")
     try:
         phase_card()
         phase_build()
@@ -1062,9 +1492,11 @@ def main(argv: list[str] | None = None) -> int:
         enc_layers, dec_layers = golden_cfg.model.enc_layers, golden_cfg.model.dec_layers
         paths = {}
 
+        elapsed("phases 1-2")
         reset()  # the greedy path: phases 3-4
         gb, gs = phase_golden(params, golden_cfg)
-        sb, ss, greedy_idents = phase_serving(params, serve_cfg)
+        phase4 = {}
+        sb, ss, greedy_idents = phase_serving(params, serve_cfg, record=phase4)
         paths["greedy"] = greedy = counts()
         batches, steps = gb + sb, gs + ss
         check(greedy["K2"] >= steps > 0,
@@ -1073,6 +1505,7 @@ def main(argv: list[str] | None = None) -> int:
 
         beam = {"mode": "beam", "beam_size": 5, "batch_chunks_beam": 256}
         parity_beam = {**beam, "batch_chunks_beam": 8}
+        elapsed("phases 3-4")
         reset()  # the beam path: phases 5-6
         pb, ps, mqa_beam_seq = phase_beam_parity(
             params, load_config("float32", "float32", 640, **parity_beam))
@@ -1092,6 +1525,7 @@ def main(argv: list[str] | None = None) -> int:
         mha_params = params_from_numpy(
             flat, load_config("float32", "float32", 640, model=mha).model, device=dev)
 
+        elapsed("phases 5-6")
         reset()  # lean MHA: phase 7
         gb, gs = phase_golden(mha_params, load_config("float32", "float32", 640,
                                                       model=mha), "lean MHA golden f32")
@@ -1120,6 +1554,7 @@ def main(argv: list[str] | None = None) -> int:
                K4a=dec_layers * greedy_steps, K4b=dec_layers * beam_steps, K3=beam_steps,
                K5=0, K4a_scalar=0, K4b_scalar=0)
 
+        elapsed("phase 7")
         reset()  # unfolded MHA: phase 8
         unf = {**mha, "lean_step": False}
         gb, gs = phase_golden(mha_params, load_config("float32", "float32", 640,
@@ -1135,6 +1570,7 @@ def main(argv: list[str] | None = None) -> int:
         expect("unfolded", unfc, K1=0, K2=0, K4a=dec_layers * (gs + ss),
                K4b=dec_layers * ps, K3=ps, K5=enc_layers * (gb + sb + pb), K4a_scalar=0,
                K4b_scalar=0)
+        elapsed("phase 8")
         reset()  # phase 9: the flagship by the plain PyTorch route
         gb, gs = phase_golden(params, load_config("float32", "float32", 640, pallas=False),
                               "golden f32 without kernels")
@@ -1146,14 +1582,22 @@ def main(argv: list[str] | None = None) -> int:
               f"K2 launched {plainc['K2']} times for {gs + ps} decode steps")
         expect("no_pallas", plainc, K1=0, K3=0, K4a=0, K4b=0, K5=0, K6=0, K7=0)
 
+        elapsed("phase 9")
         wide = phase_wide(dev, rng)  # phase 10
-        for key, prefix in (("K1", "K1/"), ("K4a", "K4a "), ("K4b", "K4b ")):
-            stats[key]["wide"] = {k: v for k, v in wide.items() if k.startswith(prefix)}
+        elapsed("phase 10")
+        for key, prefixes in (("K1", ("K1/", "K1 ")), ("K2", ("K2 ",)),
+                              ("K4a", ("K4a ",)), ("K4b", ("K4b ",))):
+            stats[key]["wide"] = {k: v for k, v in wide.items() if k.startswith(prefixes)}
         paths["tiny"] = phase_tiny(dev, reset, counts)  # phase 11
+        elapsed("phase 11")
+        paths["engine"] = phase_engine(params, reset, counts, phase4, root)  # phase 12
+        elapsed("phase 12")
         check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
               "K6 or K7 launched on a serving path")
         for path, c in paths.items():
             print(f"launches, {path} path: {c}")
+        left = live_children()
+        check(not left, f"processes still running: {left}")
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

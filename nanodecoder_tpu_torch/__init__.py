@@ -16,9 +16,21 @@ NVIDIA H100:
     params = load_params_npz("bench_results/flagship_params.npz", cfg.model)
     call = Translator(params, cfg).basecall_read(read)   # device="cuda"
 
-cfg.decode.mode selects greedy or beam search.  The evaluate CLI:
+cfg.decode.mode selects greedy or beam search.  The streaming engine
+packs the chunks of many reads from fast5/pod5 files into full batches
+and writes FASTQ as reads complete:
+
+    from nanodecoder_tpu_torch.decode.engine import StreamingBasecaller
+    with open("out.fastq", "w") as out:
+        StreamingBasecaller(params, cfg).run(files, out)   # device="cuda"
+
+The CLIs:
+`python -m nanodecoder_tpu_torch.cli.basecall --input reads/ --output out.fastq --ckpt x.npz`
+and
 `python -m nanodecoder_tpu_torch.cli.evaluate --ckpt x.npz --simulate N --beam 5`.
 
-Entry points run on the card unless the caller passes device="cpu".
-The package imports torch, numpy and the standard library only.
+Entry points run on the card unless the caller passes device="cpu"
+(--cpu for the CLIs).  The package imports torch, numpy and the standard
+library only, plus h5py (fast5) and pyarrow, zstandard and flatbuffers
+(pod5) where they are installed.
 """

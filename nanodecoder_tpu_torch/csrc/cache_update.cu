@@ -20,8 +20,9 @@
 // no division, issues its four loads, then its four stores.  At the
 // flagship's C 256 bf16 that is 160 blocks of 256 threads, one wave.
 // Beyond 65535 row groups (B > 262140) a block goes on to the row groups
-// gridDim.y further on.  A batch row's run must stay under 2^31 - 256
-// units (at least 2 GiB); the launcher refuses longer ones.  Six other
+// gridDim.y further on.  Runs and indices are 64-bit, so a batch row's
+// block may exceed 2^31 copy units (2 GiB of a cache whose rows are not
+// 4-byte aligned, copied a byte a thread).  Six other
 // designs were timed against this one on an "NVIDIA H100 80GB HBM3,
 // 700.00 W" (the earlier grid-stride loop, one element a thread, TMA bulk
 // copies, a block a row with 8 loads a thread first, row groups of 2 and
@@ -40,9 +41,9 @@ constexpr int kRows = 4;   // batch rows a block copies
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-write_block_kernel(V* __restrict__ cache, const V* __restrict__ slab, int b, int run,
+write_block_kernel(V* __restrict__ cache, const V* __restrict__ slab, int b, long long run,
                    long long row_stride, long long offset) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= run) return;
   for (int r0 = blockIdx.y * kRows; r0 < b; r0 += gridDim.y * kRows) {
     V x[kRows];
@@ -59,11 +60,12 @@ template <typename V>
 cudaError_t launch(void* cache, const void* slab, int b, long long run_bytes,
                    long long stride_bytes, long long offset_bytes, cudaStream_t stream) {
   const long long run = run_bytes / (long long)sizeof(V);
-  if (run > 0x7fffffffLL - kThreads) return cudaErrorInvalidValue;
+  const long long blocks = (run + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // grid x: 2^39 units
   const int groups = (b + kRows - 1) / kRows;
-  const dim3 grid((unsigned)((run + kThreads - 1) / kThreads), groups < 65535 ? groups : 65535);
+  const dim3 grid((unsigned)blocks, groups < 65535 ? groups : 65535);
   write_block_kernel<V><<<grid, kThreads, 0, stream>>>(
-      static_cast<V*>(cache), static_cast<const V*>(slab), b, (int)run,
+      static_cast<V*>(cache), static_cast<const V*>(slab), b, run,
       stride_bytes / (long long)sizeof(V), offset_bytes / (long long)sizeof(V));
   return cudaGetLastError();
 }

@@ -56,7 +56,11 @@
 // offset) runs `decode_attn_any_kernel`, a plain scalar kernel: one block
 // per cache row and sub-group of up to 8 query rows; a thread per
 // (position, row, head) takes a score, a warp per (row, head) its
-// softmax, a thread per output channel its P.V sums.  It keeps the JAX
+// softmax, a thread per output channel its P.V sums.  Its scores sit in
+// shared memory, or, where one query row's H x T f32 scores do not fit
+// there (H * T over about 57,000, e.g. 32 heads at T 1800), in a
+// (rows, H, T) f32 workspace in device memory that the wrapper allocates
+// (`nd_decode_attention_workspace` says when).  It keeps the JAX
 // kernels' contract, 10 to 150 times under the fast kernels' bound
 // shares (PERF.md section 6).  Of the repository's models only the tiny
 // test config (Dh 8) runs it, in K4b on its beam path.  The launcher
@@ -696,28 +700,41 @@ int any_sub(int group, int t, int d, int heads) {
   return sub;
 }
 
+// Query rows per block when the scores go to the global workspace: up to
+// 8 whose f32 queries fit in shared memory.
+int any_sub_ws(int group, int d) {
+  int sub = group < kAnyMaxSub ? group : kAnyMaxSub;
+  while (sub > 0 && sizeof(float) * (size_t)sub * d > (size_t)kMaxSmem) --sub;
+  return sub;
+}
+
 // Block (b, y): query rows b * group + y * sub .. + gn - 1 against cache
-// row b.  Same math and rounding points as the kernels above.
+// row b.  Same math and rounding points as the kernels above.  The H x T
+// scores of a query row live in shared memory, or, where not even one
+// row's fit there (H * T over about 57,000), in the (rows, H, T) f32
+// workspace `ws` in device memory: the same arithmetic in the same order,
+// at device-memory latency.
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_any_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                        const TKV* __restrict__ v, const int* __restrict__ lens,
                        const float* __restrict__ ks, const float* __restrict__ vs,
-                       TQ* __restrict__ out, int* __restrict__ amax, int t_len, int d,
-                       int dk, int heads, int group, int sub, float scale) {
+                       TQ* __restrict__ out, int* __restrict__ amax, float* __restrict__ ws,
+                       int t_len, int d, int dk, int heads, int group, int sub, float scale) {
   extern __shared__ float smem[];
-  const int ts = row_score_stride(t_len);
+  const int ts = ws != nullptr ? t_len : row_score_stride(t_len);
   const int dh = d / heads, grp = heads / (dk / dh);
   const int b = blockIdx.x, g0 = blockIdx.y * sub, gn = min(sub, group - g0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t row0 = (size_t)b * group + g0;
   float* qs = smem;                                // [sub][D] f32 queries
-  float* ss = qs + (size_t)sub * d;                // [sub * H][ts] scores, then probabilities
+  // [sub * H][ts] scores, then probabilities
+  float* ss = ws != nullptr ? ws + row0 * heads * t_len : qs + (size_t)sub * d;
   const int n = lens[b];
   const int nk = n > 0 ? min(n, t_len) : 0;        // K rows scored (length 0: all masked)
   const int nv = n > 0 ? nk : t_len;               // V rows read (length 0: uniform)
   const TKV* kb = k + (size_t)b * t_len * dk;
   const TKV* vb = v + (size_t)b * t_len * dk;
-  const size_t row0 = (size_t)b * group + g0;
 
   for (int i = tid; i < gn * d; i += kThreads) {
     float x = to_f32(q[row0 * d + i]);
@@ -803,20 +820,29 @@ decode_attn_any_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
+// ws: the (B * group, H, T) f32 score workspace, used (and then required)
+// only where one query row's scores do not fit in shared memory.
 template <typename TQ, typename TKV>
 cudaError_t launch_any(const void* q, const void* k, const void* v, const int* lens,
-                       const float* ks, const float* vs, void* out, int* amax, int b,
-                       int group, int t, int d, int dk, int heads, float scale,
+                       const float* ks, const float* vs, void* out, int* amax, float* ws,
+                       int b, int group, int t, int d, int dk, int heads, float scale,
                        cudaStream_t st) {
   static std::atomic<uint64_t> done{0};
   cudaError_t err = allow_max_smem(decode_attn_any_kernel<TQ, TKV>, done);
   if (err != cudaSuccess) return err;
-  const int sub = any_sub(group, t, d, heads);
-  if (sub == 0) return cudaErrorInvalidValue;
+  int sub = any_sub(group, t, d, heads);
+  size_t smem = any_smem(sub, t, d, heads);
+  if (sub > 0) {
+    ws = nullptr;
+  } else {
+    sub = any_sub_ws(group, d);
+    smem = sizeof(float) * (size_t)sub * d;
+    if (ws == nullptr || sub == 0) return cudaErrorInvalidValue;
+  }
   const dim3 grid(b, (group + sub - 1) / sub);
-  decode_attn_any_kernel<TQ, TKV><<<grid, kThreads, any_smem(sub, t, d, heads), st>>>(
+  decode_attn_any_kernel<TQ, TKV><<<grid, kThreads, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      lens, ks, vs, static_cast<TQ*>(out), amax, t, d, dk, heads, group, sub, scale);
+      lens, ks, vs, static_cast<TQ*>(out), amax, ws, t, d, dk, heads, group, sub, scale);
   return cudaGetLastError();
 }
 
@@ -851,7 +877,7 @@ enum Launched { kRowKernel = 0, kGroupedKernel = 1, kScalarKernel = 2 };
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch_group(const void* q, const void* k, const void* v, const int* lens,
-                           const float* ks, const float* vs, void* out, int* amax,
+                           const float* ks, const float* vs, void* out, int* amax, float* ws,
                            int b, int group, int t, int d, int dk, int heads, float scale,
                            cudaStream_t st, int* launched) {
   constexpr int elt = (int)sizeof(TKV);
@@ -891,17 +917,27 @@ cudaError_t dispatch_group(const void* q, const void* k, const void* v, const in
 #undef ND_GROUPED
   }
   *launched = kScalarKernel;
-  return launch_any<TQ, TKV>(q, k, v, lens, ks, vs, out, amax, b, group, t, d, dk, heads,
-                             scale, st);
+  return launch_any<TQ, TKV>(q, k, v, lens, ks, vs, out, amax, ws, b, group, t, d, dk,
+                             heads, scale, st);
 }
 
 }  // namespace
 
+// Floats of score workspace each query row needs (H * T), or 0 where the
+// scores fit in a block's shared memory and the launch takes no workspace.
+extern "C" long long nd_decode_attention_workspace(int group, int t, int d, int heads) {
+  if (group < 1 || t <= 0 || d <= 0 || heads <= 0) return 0;
+  return any_sub(group, t, d, heads) > 0 ? 0 : (long long)heads * t;
+}
+
+// workspace: a (B * group, H, T) f32 buffer where
+// nd_decode_attention_workspace asks for one, else null.
 extern "C" int nd_decode_attention(const void* q, const void* k, const void* v,
                                    const void* lens, const void* k_scale,
-                                   const void* v_scale, void* out, void* amax, int b,
-                                   int group, int t, int d, int dk, int heads, int is_bf16,
-                                   int is_int8, float scale, void* stream, int* launched) {
+                                   const void* v_scale, void* out, void* amax,
+                                   void* workspace, int b, int group, int t, int d, int dk,
+                                   int heads, int is_bf16, int is_int8, float scale,
+                                   void* stream, int* launched) {
   if (b <= 0 || t <= 0 || d <= 0 || dk <= 0 || heads <= 0 || group < 1 || d % heads)
     return (int)cudaErrorInvalidValue;
   const int dh = d / heads;
@@ -916,8 +952,8 @@ extern "C" int nd_decode_attention(const void* q, const void* k, const void* v,
   int* am = static_cast<int*>(amax);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define ND_DISPATCH(TQ, TKV)                                                               \
-  dispatch_group<TQ, TKV>(q, k, v, ln, ks, vs, out, am, b, group, t, d, dk, heads, scale, st, \
-                          launched)
+  dispatch_group<TQ, TKV>(q, k, v, ln, ks, vs, out, am, static_cast<float*>(workspace), b, \
+                          group, t, d, dk, heads, scale, st, launched)
   if (is_int8)
     return (int)(is_bf16 ? ND_DISPATCH(__nv_bfloat16, int8_t) : ND_DISPATCH(float, int8_t));
   return (int)(is_bf16 ? ND_DISPATCH(__nv_bfloat16, __nv_bfloat16) : ND_DISPATCH(float, float));

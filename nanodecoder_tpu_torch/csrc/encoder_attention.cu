@@ -58,9 +58,12 @@
 // as the bf16 kernel does.
 //
 // Head dims: the kernels are instantiated for Dh 32, 64, 128 and 256; the
-// wrapper pads other head dims with zero lanes up to the next of them
-// (zeros add nothing to a score or to P.V; the scale stays 1/sqrt(Dh) of
-// the true Dh).
+// wrapper pads other head dims up to 256 with zero lanes up to the next of
+// them (zeros add nothing to a score or to P.V; the scale stays
+// 1/sqrt(Dh) of the true Dh).  Head dims over 256 and operands that are
+// not 16-byte aligned run `enc_attn_any`, a scalar kernel of the same
+// math (below).  Every kernel loops over grid y and z, so any B and any
+// number of heads run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -227,16 +230,16 @@ __device__ __forceinline__ void score_tile(float (&sc)[8][4], const uint32_t (&q
 // and V tile t (pass 2); stage i goes to slots 2 (i % 2) and 2 (i % 2) + 1,
 // one stage in flight while the other is used.
 template <int DH>
-__global__ void __launch_bounds__(kThreads16)
-enc_attn_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-              __nv_bfloat16* __restrict__ out, int s, int heads, int ld, float scale) {
+__device__ __forceinline__ void enc_attn_bf16_tile(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+    __nv_bfloat16* __restrict__ out, int s, int heads, int ld, float scale, int h, int b) {
   extern __shared__ uint4 smem_raw[];
   __nv_bfloat16* slots = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   constexpr int SROW = srow16<DH>();
   auto slot = [&](int j) { return slots + j * kBK * SROW; };
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kBQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row0 = (size_t)b * s * ld;
   const int col = h * DH;
@@ -348,6 +351,22 @@ enc_attn_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       *reinterpret_cast<__nv_bfloat162*>(dst + nb * 8) =
           __floats2bfloat162_rn(o[nb][2 * r], o[nb][2 * r + 1]);
   }
+}
+
+// Block (x, y, z) takes query tile x of heads y, y + gridDim.y, ... of
+// batch rows z, z + gridDim.z, ...: grid y and z stop at 65535, B and H
+// do not.  The same loop wraps every kernel below.
+template <int DH>
+__global__ void __launch_bounds__(kThreads16)
+enc_attn_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+              __nv_bfloat16* __restrict__ out, int nb, int s, int heads, int ld,
+              float scale) {
+  for (int b = blockIdx.z; b < nb; b += gridDim.z)
+    for (int h = blockIdx.y; h < heads; h += gridDim.y) {
+      enc_attn_bf16_tile<DH>(q, k, v, lengths, out, s, heads, ld, scale, h, b);
+      __syncthreads();  // the next (head, batch row) reuses shared memory
+    }
 }
 
 // ---- f32: register-tiled CUDA cores ----------------------------------------
@@ -484,10 +503,10 @@ __device__ __forceinline__ void store_rows32(float* out, const float4 (&o)[PvTil
 // One pass over K and one over V: the block's (32, S) score strip stays
 // in shared memory (S up to about 1400 at Dh 128, 1000 at Dh 256).
 template <int DH>
-__global__ void __launch_bounds__(kThreads32, 2)
-enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const int* __restrict__ lengths,
-             float* __restrict__ out, int s, int heads, int ld, float scale) {
+__device__ __forceinline__ void enc_attn_f32_tile(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ lengths, float* __restrict__ out, int s, int heads, int ld,
+    float scale, int h, int b) {
   extern __shared__ float4 smem_f4[];
   constexpr int SROW = srow32<DH>();
   using PT = PvTile<DH>;
@@ -496,7 +515,7 @@ enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* ss = kv + kTK * SROW;                     // [kTQ][sp] scores, then probs
   const int sp = strip_stride(s);
 
-  const int q0 = blockIdx.x * kTQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kTQ;
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)b * s * ld;
   const int col = h * DH;
@@ -555,16 +574,28 @@ enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
   store_rows32<DH>(out, o, b, q0, s, heads, col);
 }
 
+template <int DH>
+__global__ void __launch_bounds__(kThreads32, 2)
+enc_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ lengths,
+             float* __restrict__ out, int nb, int s, int heads, int ld, float scale) {
+  for (int b = blockIdx.z; b < nb; b += gridDim.z)
+    for (int h = blockIdx.y; h < heads; h += gridDim.y) {
+      enc_attn_f32_tile<DH>(q, k, v, lengths, out, s, heads, ld, scale, h, b);
+      __syncthreads();
+    }
+}
+
 // For an S whose strip does not fit: two passes over K, as the bf16
 // kernel takes them.  Pass 1 keeps each row's max and its sum of
 // exp(s - max), the sum rescaled when the max grows; pass 2 recomputes the
 // scores tile by tile into a (32, 64) tile, forms the probabilities with
 // the same max and sum, and takes the value product of the tile.
 template <int DH>
-__global__ void __launch_bounds__(kThreads32, 2)
-enc_attn_f32_2p(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const int* __restrict__ lengths,
-                float* __restrict__ out, int s, int heads, int ld, float scale) {
+__device__ __forceinline__ void enc_attn_f32_2p_tile(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ lengths, float* __restrict__ out, int s, int heads, int ld,
+    float scale, int h, int b) {
   extern __shared__ float4 smem_f4[];
   constexpr int SROW = srow32<DH>();
   constexpr int kRowsPerWarp = kTQ / (kThreads32 / 32);
@@ -573,7 +604,7 @@ enc_attn_f32_2p(const float* __restrict__ q, const float* __restrict__ k,
   float* kv = qs + kTQ * SROW;                     // [kTK][SROW] a K tile, then a V tile
   float* st = kv + kTK * SROW;                     // [kTQ][kTP] one tile's scores
 
-  const int q0 = blockIdx.x * kTQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kTQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row0 = (size_t)b * s * ld;
   const int col = h * DH;
@@ -644,7 +675,182 @@ enc_attn_f32_2p(const float* __restrict__ q, const float* __restrict__ k,
   store_rows32<DH>(out, o, b, q0, s, heads, col);
 }
 
+template <int DH>
+__global__ void __launch_bounds__(kThreads32, 2)
+enc_attn_f32_2p(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ lengths,
+                float* __restrict__ out, int nb, int s, int heads, int ld, float scale) {
+  for (int b = blockIdx.z; b < nb; b += gridDim.z)
+    for (int h = blockIdx.y; h < heads; h += gridDim.y) {
+      enc_attn_f32_2p_tile<DH>(q, k, v, lengths, out, s, heads, ld, scale, h, b);
+      __syncthreads();
+    }
+}
+
+// ---- any head dim, any alignment: the scalar kernel ---------------------------
+
+// For head dims without an instantiation above 256 and for operands that
+// are not 16-byte aligned in base or row stride (such as a view at an odd
+// element offset), both dtypes: plain loads of one element, any Dh in
+// slices.  One block of 256 threads per (kAnyRows query rows, head, batch
+// row); warp r owns query row r.  Two passes over K, as the bf16 kernel
+// takes them: pass 1 keeps each row's max and its sum of exp(s - max)
+// (the sum rescaled when the max grows); pass 2 recomputes the scores,
+// forms the probabilities, rounds them to the input dtype and adds P.V
+// into f32 accumulators in shared memory.  Scores of a 64-key tile
+// accumulate over Dh in slices of 32 channels, each slice of the K tile
+// staged in shared memory with coalesced loads (a lane a key, two keys a
+// lane).  Shared memory: the rows' f32 queries and accumulators (2 x rows
+// x Dh floats), one K slice, one tile of probabilities: 45 KB at Dh 512
+// and 8 rows; fewer rows a block at larger Dh.
+constexpr int kAnyRows = 8;    // query rows per block, one a warp
+constexpr int kAnyKeys = 64;   // keys per tile, two a lane
+constexpr int kAnySlice = 32;  // channels per staged K slice
+
+__device__ __forceinline__ float elt_f32(float x) { return x; }
+__device__ __forceinline__ float elt_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_elt(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_elt(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+// A probability as the value product sees it: rounded to the input dtype.
+__device__ __forceinline__ float prob_as(float p, float) { return p; }
+__device__ __forceinline__ float prob_as(float p, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
+
+size_t any_smem(int rows, int dh) {
+  return sizeof(float) * (2 * (size_t)rows * dh + (size_t)kAnyKeys * (kAnySlice + 1) +
+                          (size_t)rows * kAnyKeys);
+}
+
+// Query rows per block: up to 8 whose queries and accumulators fit; 0 if
+// not even one row's do (Dh over about 29,000).
+int any_rows(int dh) {
+  int rows = kAnyRows;
+  while (rows > 0 && any_smem(rows, dh) > (size_t)kMaxSmem) --rows;
+  return rows;
+}
+
+// The (rows, 64) scores of query rows q0.. against keys k0 .. k0 + 63 for
+// warp `warp`'s row, into sc0 (key k0 + lane) and sc1 (key k0 + 32 +
+// lane): scaled, -1e9 at or past n, -inf at or past s.  Every thread of
+// the block takes part (the K slices are staged together).
+template <typename T>
+__device__ __forceinline__ void any_scores(const float* qs, float* kt, const T* __restrict__ k,
+                                           size_t row0, int ld, int col, int dh, int k0,
+                                           int n, int s, int rows, float scale, float& sc0,
+                                           float& sc1) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float a0 = 0.f, a1 = 0.f;
+  for (int c0 = 0; c0 < dh; c0 += kAnySlice) {
+    const int w = min(kAnySlice, dh - c0);
+    __syncthreads();  // the previous slice (or tile's use of kt) is consumed
+    for (int i = threadIdx.x; i < kAnyKeys * kAnySlice; i += blockDim.x) {
+      const int r = i / kAnySlice, c = i % kAnySlice, key = k0 + r;
+      kt[r * (kAnySlice + 1) + c] =
+          key < s && c < w ? elt_f32(k[row0 + (size_t)key * ld + col + c0 + c]) : 0.f;
+    }
+    __syncthreads();
+    if (warp < rows) {
+      const float* qr = qs + (size_t)warp * dh + c0;
+      for (int c = 0; c < w; ++c) {
+        a0 = fmaf(qr[c], kt[lane * (kAnySlice + 1) + c], a0);
+        a1 = fmaf(qr[c], kt[(lane + 32) * (kAnySlice + 1) + c], a1);
+      }
+    }
+  }
+  const int key0 = k0 + lane, key1 = k0 + 32 + lane;
+  sc0 = key0 >= s ? -INFINITY : (key0 < n ? a0 * scale : kNegInf);
+  sc1 = key1 >= s ? -INFINITY : (key1 < n ? a1 * scale : kNegInf);
+}
+
+template <typename T>
+__device__ __forceinline__ void enc_attn_any_tile(const T* __restrict__ q,
+                                                  const T* __restrict__ k,
+                                                  const T* __restrict__ v,
+                                                  const int* __restrict__ lengths,
+                                                  T* __restrict__ out, int s, int heads,
+                                                  int dh, int ld, int rows, float scale,
+                                                  int h, int b) {
+  extern __shared__ float smem_any[];
+  float* qs = smem_any;                           // [rows][Dh] f32 queries
+  float* acc = qs + (size_t)rows * dh;            // [rows][Dh] P.V sums
+  float* kt = acc + (size_t)rows * dh;            // [64][33] a K slice
+  float* ps = kt + kAnyKeys * (kAnySlice + 1);    // [rows][64] probabilities
+  const int q0 = blockIdx.x * rows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row0 = (size_t)b * s * ld;
+  const int col = h * dh;
+
+  for (int i = threadIdx.x; i < rows * dh; i += blockDim.x) {
+    const int r = i / dh, qi = q0 + r;
+    qs[i] = qi < s ? elt_f32(q[row0 + (size_t)qi * ld + col + i % dh]) : 0.f;
+    acc[i] = 0.f;
+  }
+  const int n = lengths[b];
+  const int nk = (keys_needed(n, s) + kAnyKeys - 1) / kAnyKeys;
+  const int kend = min(s, nk * kAnyKeys);  // keys past kend have probability 0
+
+  // Pass 1 (any_scores synchronises before it first reads qs).
+  float m = -INFINITY, l = 0.f;
+  for (int kt_i = 0; kt_i < nk; ++kt_i) {
+    float sc0, sc1;
+    any_scores(qs, kt, k, row0, ld, col, dh, kt_i * kAnyKeys, n, s, rows, scale, sc0, sc1);
+    const float mt = warp_max(fmaxf(m, fmaxf(sc0, sc1)));
+    const float sum = warp_sum(expf(sc0 - mt) + expf(sc1 - mt));
+    l = l * expf(m - mt) + sum;
+    m = mt;
+  }
+
+  // Pass 2.
+  for (int kt_i = 0; kt_i < nk; ++kt_i) {
+    const int k0 = kt_i * kAnyKeys;
+    float sc0, sc1;
+    any_scores(qs, kt, k, row0, ld, col, dh, k0, n, s, rows, scale, sc0, sc1);
+    if (warp < rows) {
+      ps[warp * kAnyKeys + lane] =
+          k0 + lane < kend ? prob_as(div_prob(expf(sc0 - m), l), T()) : 0.f;
+      ps[warp * kAnyKeys + 32 + lane] =
+          k0 + 32 + lane < kend ? prob_as(div_prob(expf(sc1 - m), l), T()) : 0.f;
+    }
+    __syncthreads();
+    const int keys = min(kAnyKeys, kend - k0);
+    for (int i = threadIdx.x; i < rows * dh; i += blockDim.x) {
+      const int r = i / dh, c = i % dh;
+      const float* pr = ps + r * kAnyKeys;
+      const T* vc = v + row0 + (size_t)k0 * ld + col + c;
+      float a = acc[i];
+      for (int j = 0; j < keys; ++j) a = fmaf(pr[j], elt_f32(vc[(size_t)j * ld]), a);
+      acc[i] = a;
+    }
+  }
+  __syncthreads();
+  const int d = heads * dh;
+  for (int i = threadIdx.x; i < rows * dh; i += blockDim.x) {
+    const int qi = q0 + i / dh;
+    if (qi < s) store_elt(out + ((size_t)b * s + qi) * d + col + i % dh, acc[i]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+enc_attn_any(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const int* __restrict__ lengths, T* __restrict__ out, int nb, int s, int heads,
+             int dh, int ld, int rows, float scale) {
+  for (int b = blockIdx.z; b < nb; b += gridDim.z)
+    for (int h = blockIdx.y; h < heads; h += gridDim.y) {
+      enc_attn_any_tile<T>(q, k, v, lengths, out, s, heads, dh, ld, rows, scale, h, b);
+      __syncthreads();
+    }
+}
+
 // ---- launch ------------------------------------------------------------------
+
+// Grid y and z, capped at 65535; the kernels loop over the rest.
+dim3 grid_of(int tiles, int heads, int b) {
+  return dim3(tiles, heads < 65535 ? heads : 65535, b < 65535 ? b : 65535);
+}
 
 template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* lengths,
@@ -653,10 +859,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
   static std::atomic<uint64_t> done{0};
   cudaError_t err = allow_smem(enc_attn_bf16<DH>, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + kBQ - 1) / kBQ, heads, b);
-  enc_attn_bf16<DH><<<grid, kThreads16, smem16<DH>(), stream>>>(
+  enc_attn_bf16<DH><<<grid_of((s + kBQ - 1) / kBQ, heads, b), kThreads16, smem16<DH>(),
+                      stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), s,
+      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), b, s,
       heads, ld, scale);
   return cudaGetLastError();
 }
@@ -666,7 +872,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* l
                        void* out, int b, int s, int heads, int ld, float scale,
                        cudaStream_t stream) {
   static std::atomic<uint64_t> done{0}, done_2p{0};
-  const dim3 grid((s + kTQ - 1) / kTQ, heads, b);
+  const dim3 grid = grid_of((s + kTQ - 1) / kTQ, heads, b);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -675,13 +881,29 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* l
     err = allow_smem(enc_attn_f32<DH>, done);
     if (err != cudaSuccess) return err;
     enc_attn_f32<DH><<<grid, kThreads32, smem32(DH, s), stream>>>(
-        qf, kf, vf, lengths, static_cast<float*>(out), s, heads, ld, scale);
+        qf, kf, vf, lengths, static_cast<float*>(out), b, s, heads, ld, scale);
   } else {
     err = allow_smem(enc_attn_f32_2p<DH>, done_2p);
     if (err != cudaSuccess) return err;
     enc_attn_f32_2p<DH><<<grid, kThreads32, smem32_2p(DH), stream>>>(
-        qf, kf, vf, lengths, static_cast<float*>(out), s, heads, ld, scale);
+        qf, kf, vf, lengths, static_cast<float*>(out), b, s, heads, ld, scale);
   }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_any(const void* q, const void* k, const void* v, const int* lengths,
+                       void* out, int b, int s, int heads, int dh, int ld, float scale,
+                       cudaStream_t stream) {
+  static std::atomic<uint64_t> done{0};
+  const int rows = any_rows(dh);
+  if (rows == 0) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(enc_attn_any<T>, done);
+  if (err != cudaSuccess) return err;
+  enc_attn_any<T><<<grid_of((s + rows - 1) / rows, heads, b), 256, any_smem(rows, dh),
+                    stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                              static_cast<const T*>(v), lengths, static_cast<T*>(out), b, s,
+                              heads, dh, ld, rows, scale);
   return cudaGetLastError();
 }
 
@@ -689,19 +911,29 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* l
 
 // q, k, v: the first element of position 0 of batch row 0 of each
 // operand; position p of batch row b starts at (b * s + p) * ld elements
-// after it.  All three 16-byte aligned, ld a multiple of 16 bytes.
-// out: (B, S, heads * dh), contiguous.
+// after it.  out: (B, S, heads * dh), contiguous.  Head dims 32, 64, 128
+// and 256 with all three operands and out 16-byte aligned and ld a
+// multiple of 16 bytes run the fast kernels; everything else runs the
+// scalar kernel.  *launched reports which: 0 fast, 1 scalar.
 extern "C" int nd_encoder_attention(const void* q, const void* k, const void* v,
                                     const void* lengths, void* out, int b, int s,
                                     int heads, int dh, int ld, int is_bf16, float scale,
-                                    void* stream) {
+                                    void* stream, int* launched) {
   const int elt = is_bf16 ? 2 : 4;
-  const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
-  if (b <= 0 || s <= 0 || heads <= 0 || b > 65535 || heads > 65535 ||
-      ld < heads * dh || (ld * elt) % 16 || !aligned)
+  if (b <= 0 || s <= 0 || heads <= 0 || dh <= 0 || ld < heads * dh)
     return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned =
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0 &&
+      ((long long)ld * elt) % 16 == 0;
+  const bool fast = aligned && (dh == 32 || dh == 64 || dh == 128 || dh == 256);
+  *launched = fast ? 0 : 1;
+  if (!fast)
+    return (int)(is_bf16 ? launch_any<__nv_bfloat16>(q, k, v, len, out, b, s, heads, dh, ld,
+                                                     scale, st)
+                         : launch_any<float>(q, k, v, len, out, b, s, heads, dh, ld, scale,
+                                             st));
   if (is_bf16) {
     switch (dh) {
       case 32: return (int)launch_bf16<32>(q, k, v, len, out, b, s, heads, ld, scale, st);

@@ -23,12 +23,12 @@ import torch
 
 from nanodecoder_tpu_torch.config import Config
 from nanodecoder_tpu_torch.decode.beam import beam_decode, check_ported
+from nanodecoder_tpu_torch.decode.finish import stitch_read
 from nanodecoder_tpu_torch.decode.greedy import greedy_decode
 from nanodecoder_tpu_torch.device import resolve_device
 from nanodecoder_tpu_torch.io.fast5 import RawRead
 from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
                                              normalize_signal, wire_to_f32)
-from nanodecoder_tpu_torch.io.stitch import stitch_chunks, stitch_chunks_attn
 from nanodecoder_tpu_torch.models.model import encode, prepare_serving_params
 from nanodecoder_tpu_torch.vocab import make_vocab
 
@@ -44,14 +44,6 @@ class Basecall:
     n_samples: int
     # Per-base Phred scores, positionally aligned with `sequence`.
     qualities: np.ndarray | None = None
-
-
-def _phred_from_log_probs(token_lps: np.ndarray) -> np.ndarray:
-    """Per-token Phred score from chosen-token log-probs:
-    q = -10 * log10(1 - p), clamped to [1, 50]."""
-    p = np.exp(np.minimum(token_lps, -1e-7))
-    q = -10.0 * np.log10(np.maximum(1.0 - p, 1e-5))
-    return np.clip(q, 1.0, 50.0)
 
 
 def _to_device(node: Any, dev: torch.device) -> Any:
@@ -116,9 +108,12 @@ class Translator:
         return res
 
     @torch.inference_mode()
-    def _decode_program(self, wire: np.ndarray, lengths: np.ndarray):
-        """Encode and decode one batch; the best hypothesis of each chunk
-        in beam mode, with its per-token log-probs and positions."""
+    def decode_program(self, wire: np.ndarray, lengths: np.ndarray):
+        """Encode and decode one batch of wire rows on the device; the best
+        hypothesis of each chunk in beam mode, with its per-token log-probs
+        and positions.  Returns the compact device tensors of
+        `_compact_d2h`: (tokens int16, lengths, log-probs f16, scores,
+        sample positions int16).  The streaming engine runs it too."""
         cfg = self.config.model
         if self.config.decode.mode == "beam":
             res = self._beam(wire, lengths)
@@ -169,7 +164,7 @@ class Translator:
                 blen = np.concatenate([blen, np.zeros((bsz - real,), blen.dtype)])
             wire = convert_h2d(np.asarray(batch, np.float32), self._h2d,
                                self.config.signal.clip_sigma)
-            results = self._decode_program(wire, blen)
+            results = self.decode_program(wire, blen)
             self.batches += 1
             for acc, r in zip(outs, results):
                 acc.append(r[:real].cpu().numpy())
@@ -186,23 +181,10 @@ class Translator:
                           scfg.min_chunk_fill)
         tokens, tok_lengths, token_lps, _scores, attn_pos = \
             self.decode_chunk_batch(cb.chunks, cb.lengths)
-        # Per-token streams (positions, log-probs) expanded per base so
-        # multi-base k-mer tokens stay aligned with the base string.
-        seqs, positions, qs = [], [], []
-        for i in range(cb.n_chunks):
-            tl = int(tok_lengths[i])
-            seq_i, pos_i, lp_i = self.vocab.decode_expand(
-                tokens[i, :tl], attn_pos[i, :tl], token_lps[i, :tl])
-            seqs.append(seq_i)
-            positions.append(pos_i)
-            qs.append(_phred_from_log_probs(lp_i))
-        if stitch_method == "attn":
-            seq, qual = stitch_chunks_attn(seqs, positions, cb.starts,
-                                           cb.lengths, quals=qs)
-        else:
-            seq, qual = stitch_chunks(seqs, cb.starts, cb.lengths,
-                                      scfg.chunk_len, scfg.chunk_overlap,
-                                      method=stitch_method, quals=qs)
+        parts = [(tokens[i], int(tok_lengths[i]), token_lps[i], attn_pos[i])
+                 for i in range(cb.n_chunks)]
+        seq, qual = stitch_read(parts, cb.starts, cb.lengths, scfg.chunk_len,
+                                scfg.chunk_overlap, stitch_method, self.vocab)
         mean_q = float(qual.mean()) if qual.size else 0.0
         return Basecall(read_id=read.read_id, sequence=seq, mean_qscore=mean_q,
                         n_chunks=cb.n_chunks, n_samples=read.n_samples,

@@ -34,11 +34,12 @@ _SIGNATURES = {
     # is_bf16, scale, stream
     "nd_encoder_attention": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
                              _int, _int, _float, _vp],
-    # q, k, v, valid_lens, k_scale, v_scale, out, amax, batch, group, T, D,
-    # cache width Dk, heads, is_bf16, is_int8, scale, stream, the kernel
-    # launched (out: 0 row, 1 grouped, 2 scalar)
-    "nd_decode_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
-                            _int, _int, _int, _int, _int, _int, _float, _vp, _intp],
+    # q, k, v, valid_lens, k_scale, v_scale, out, amax, score workspace,
+    # batch, group, T, D, cache width Dk, heads, is_bf16, is_int8, scale,
+    # stream, the kernel launched (out: 0 row, 1 grouped, 2 scalar)
+    "nd_decode_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
+                            _int, _int, _int, _int, _int, _int, _int, _float, _vp,
+                            _intp],
     # cache, slab, batch, T, C, elem_bytes, step, stream
     "nd_write_cache_block": [_vp, _vp, _int, _int, _int, _int, _int, _vp],
     # alive, log_probs, fin, pen, batch, k, v, eos_id, top_ids, alive_s,
@@ -49,6 +50,11 @@ _SIGNATURES = {
     "nd_beam_topk": [_vp, _vp, _int, _int, _int, _int, _vp, _vp, _vp],
     # stream: an empty kernel, the launch floor of device-only timings
     "nd_empty_kernel": [_vp],
+}
+# Queries that return a size rather than a cudaError_t.
+_SIZE_QUERIES = {
+    # group, T, D, heads -> score-workspace floats per query row (0: none)
+    "nd_decode_attention_workspace": [_int, _int, _int, _int],
 }
 
 
@@ -116,6 +122,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _SIZE_QUERIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         lib.nd_error_string.argtypes = [ctypes.c_int]
         lib.nd_error_string.restype = ctypes.c_char_p
         _lib = lib

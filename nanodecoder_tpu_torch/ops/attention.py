@@ -31,10 +31,11 @@ On a CUDA tensor the wrappers launch the kernels in
 its row with 16-byte loads several rows deep; the grouped one streams
 the chunk's cache through a cp.async ring for up to 8 beams a block, in
 sub-groups beyond; a scalar kernel takes the shapes neither fits, so
-every shape the JAX kernels take runs a CUDA kernel); on a CPU tensor
-they run the plain PyTorch versions below.  Nothing falls back from one
-to the other: a CUDA input the kernels do not take raises (int8 + GQA,
-and H x T scores of one query row beyond a block's shared memory).
+every shape the JAX kernels take runs a CUDA kernel; where one query
+row's H x T f32 scores overflow a block's shared memory, the wrapper
+gives the scalar kernel a (rows, H, T) f32 workspace in device memory
+for them); on a CPU tensor they run the plain PyTorch versions below.
+Nothing falls back from one to the other.
 
 The scalar kernel reads 10 to 150 times under the other two's bound
 shares on an H100 (PERF.md section 6).  It runs what they do not take:
@@ -50,6 +51,7 @@ so the slow route stays visible.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -189,6 +191,13 @@ def _check(q, k_cache, v_cache, valid_lens, n_heads, group, k_scale, v_scale):
     return False
 
 
+@functools.lru_cache(maxsize=256)
+def _workspace_floats(group: int, t: int, d: int, n_heads: int) -> int:
+    """Score-workspace floats per query row that a launch at this shape
+    needs (H * T), or 0 where the scores fit in shared memory."""
+    return int(_build.load().nd_decode_attention_workspace(group, t, d, n_heads))
+
+
 def _launch(wrapper, q, k_cache, v_cache, valid_lens, n_heads, group, k_scale,
             v_scale):
     b, t, _dk = k_cache.shape
@@ -198,16 +207,21 @@ def _launch(wrapper, q, k_cache, v_cache, valid_lens, n_heads, group, k_scale,
     if b and t:
         quantized = k_scale is not None
         lib = _build.load()
+        # Where one query row's H x T f32 scores overflow a block's shared
+        # memory, the scalar kernel keeps them in this workspace.
+        ws_floats = _workspace_floats(group, t, d, n_heads)
+        ws = torch.empty((q.shape[0], ws_floats), dtype=torch.float32,
+                         device=q.device) if ws_floats else None
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _build.check(lib.nd_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             valid_lens.data_ptr(), k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None, out.data_ptr(),
-            amax.data_ptr(), b, group, t, d, k_cache.shape[2], n_heads,
-            int(q.dtype == torch.bfloat16), int(quantized),
-            1.0 / math.sqrt(d // n_heads), stream, ctypes.byref(_launched)),
-            f"decode attention kernel at {n_heads} heads x T {t} (every kernel holds "
-            f"one query row's H x T f32 scores in a block's shared memory)")
+            amax.data_ptr(), ws.data_ptr() if ws is not None else None, b, group, t,
+            d, k_cache.shape[2], n_heads, int(q.dtype == torch.bfloat16),
+            int(quantized), 1.0 / math.sqrt(d // n_heads), stream,
+            ctypes.byref(_launched)),
+            f"decode attention kernel at {n_heads} heads x T {t}")
         wrapper.launches += 1
         if _launched.value == _SCALAR_KERNEL:
             wrapper.scalar_launches += 1

@@ -31,9 +31,9 @@ def write_cache_block(cache: torch.Tensor, slab: torch.Tensor,
                       step: int) -> torch.Tensor:
     """cache: (B, T, C) with T % 8 == 0; slab: (B, 8, C) of the same
     dtype, the rows of the aligned block holding `step` in [0, T).  On
-    the card a batch row's block, 8 * C elements, must be under 2^31 - 256
-    of the kernel's copy units (16, 4 or 1 bytes, the widest that the
-    addresses allow; at least 2 GiB); the kernel refuses longer ones."""
+    the card the kernel copies in the widest unit (16, 4 or 1 bytes) that
+    the addresses allow, with 64-bit indices: a batch row's block may
+    exceed 2 GiB."""
     if cache.dim() != 3 or cache.shape[1] % BLOCK:
         raise ValueError(f"cache must be (B, T, C) with T % {BLOCK} == 0, "
                          f"got {tuple(cache.shape)}")

@@ -18,16 +18,21 @@ On a CUDA tensor each wrapper launches the hand-written kernels in
 given three pointers and a row stride: tensor cores in bf16, register-
 tiled CUDA cores in exact f32, any S in both) and counts its own
 launches; on a CPU tensor it runs the plain PyTorch version below.
-Nothing falls back from one to the other: a CUDA input the kernels do
-not take raises.  The kernels are built for head dims 32, 64, 128 and
-256; for any other Dh up to 256 the wrapper pads q, k and v with zero
-lanes up to the next of them and drops the pad from the output (zero
-lanes add nothing to a score or to P.V, and the scale stays 1/sqrt(Dh)
-of the true Dh).
+Nothing falls back from one to the other.  The fast kernels are built
+for head dims 32, 64, 128 and 256; for any other Dh under 256 the
+wrapper pads q, k and v with zero lanes up to the next of them and drops
+the pad from the output (zero lanes add nothing to a score or to P.V,
+and the scale stays 1/sqrt(Dh) of the true Dh).  Head dims over 256 and
+operands that are not 16-byte aligned (a view at an odd element offset)
+run a scalar kernel of the same math and rounding points, which loops
+over Dh in slices; each wrapper counts those launches apart in
+`.scalar_launches`.  Any B and any number of heads run (the kernels
+loop over grid y and z past 65535).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -39,9 +44,14 @@ KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # instantiated; others are padded up
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+_SCALAR_KERNEL = 1            # nd_encoder_attention's report of the scalar kernel
+_launched = ctypes.c_int(-1)  # the kernel the last launch ran
+
+
 def kernel_head_dim(dh: int) -> int:
-    """The instantiated head dim a head dim of dh runs at (dh <= 256)."""
-    return next(w for w in KERNEL_HEAD_DIMS if w >= dh)
+    """The head dim a head dim of dh runs at: the next instantiated one up
+    to 256, dh itself beyond (the scalar kernel)."""
+    return next((w for w in KERNEL_HEAD_DIMS if w >= dh), dh)
 
 
 def encoder_attention_heads_plain(q, k, v, lengths):
@@ -74,16 +84,14 @@ def _check(x: torch.Tensor, lengths: torch.Tensor, b: int, dh: int) -> bool:
         return True
     if x.device.type != "cuda" or lengths.device != x.device:
         raise ValueError("inputs and lengths must lie on one CUDA device")
-    if not 0 < dh <= KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {dh} outside [1, {KERNEL_HEAD_DIMS[-1]}]")
+    if dh <= 0:
+        raise ValueError(f"head dim {dh} must be positive")
     if x.dtype not in _DTYPES:
         raise TypeError(f"dtype {x.dtype} not in {_DTYPES}")
     if lengths.dtype != torch.int32:
         raise TypeError("lengths must be int32")
     if not (x.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("inputs and lengths must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError("the kernels read 16-byte rows: inputs must be 16-byte aligned")
     return False
 
 
@@ -99,15 +107,22 @@ def _launch(wrapper, q_ptr: int, k_ptr: int, v_ptr: int, lengths: torch.Tensor,
         _build.check(lib.nd_encoder_attention(
             q_ptr, k_ptr, v_ptr, lengths.data_ptr(), out.data_ptr(), b, s, heads,
             d // heads, ld, int(out.dtype == torch.bfloat16), 1.0 / math.sqrt(dh),
-            stream), "encoder attention kernel")
+            stream, ctypes.byref(_launched)), "encoder attention kernel")
         wrapper.launches += 1
+        if _launched.value == _SCALAR_KERNEL:
+            wrapper.scalar_launches += 1
     return out
 
 
+def _padded(dh: int) -> bool:
+    """Whether a head dim runs padded: under 256 and not instantiated."""
+    return kernel_head_dim(dh) != dh
+
+
 def _launch_padded(wrapper, q, k, v, lengths, heads: int) -> torch.Tensor:
-    """The kernel on (B, S, H, Dh) views whose Dh has no instantiation:
-    q, k and v padded with zero lanes to the next kernel head dim, the
-    pad dropped from the (B, S, H, Dh) result."""
+    """The kernel on (B, S, H, Dh) views whose Dh (under 256) has no
+    instantiation: q, k and v padded with zero lanes to the next kernel
+    head dim, the pad dropped from the (B, S, H, Dh) result."""
     b, s, _h, dh = q.shape
     dp = kernel_head_dim(dh)
     qp, kp, vp = (torch.nn.functional.pad(x, (0, dp - dh)).contiguous() for x in (q, k, v))
@@ -129,7 +144,7 @@ def flash_encoder_attention_qkv(qkv: torch.Tensor, lengths: torch.Tensor,
     dh = d // heads
     if _check(qkv, lengths, b, dh):
         return encoder_attention_plain(qkv, lengths, heads)
-    if dh not in KERNEL_HEAD_DIMS:
+    if _padded(dh):
         return _launch_padded(flash_encoder_attention_qkv,
                               *(nn._split_heads(qkv[..., i * d:(i + 1) * d], heads)
                                 for i in range(3)), lengths, heads).reshape(b, s, d)
@@ -152,7 +167,7 @@ def flash_encoder_attention_nld(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
         return encoder_attention_nld_plain(q, k, v, lengths, heads)
     for x in (k, v):
         _check(x, lengths, b, d // heads)
-    if d // heads not in KERNEL_HEAD_DIMS:
+    if _padded(d // heads):
         return _launch_padded(flash_encoder_attention_nld,
                               *(nn._split_heads(x, heads) for x in (q, k, v)), lengths,
                               heads).reshape(b, s, d)
@@ -174,7 +189,7 @@ def flash_encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return encoder_attention_heads_plain(q, k, v, lengths)
     for x in (k, v):
         _check(x, lengths, b, dh)
-    if dh not in KERNEL_HEAD_DIMS:
+    if _padded(dh):
         return _launch_padded(flash_encoder_attention, q, k, v, lengths, h).contiguous()
     out = torch.empty_like(q)
     _launch(flash_encoder_attention, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -182,6 +197,6 @@ def flash_encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_encoder_attention_qkv.launches = 0
-flash_encoder_attention_nld.launches = 0
-flash_encoder_attention.launches = 0
+flash_encoder_attention_qkv.launches = flash_encoder_attention_qkv.scalar_launches = 0
+flash_encoder_attention_nld.launches = flash_encoder_attention_nld.scalar_launches = 0
+flash_encoder_attention.launches = flash_encoder_attention.scalar_launches = 0

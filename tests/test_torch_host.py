@@ -180,7 +180,7 @@ def test_stitch_matches_jax(method, rng_np):
 def test_fastq_writer_and_phred_match_jax(rng_np):
     from nanodecoder_tpu.decode.translator import _phred_from_log_probs as jphred
     from nanodecoder_tpu.io.fastx import write_fastq as jwrite
-    from nanodecoder_tpu_torch.decode.translator import _phred_from_log_probs
+    from nanodecoder_tpu_torch.decode.finish import _phred_from_log_probs
     from nanodecoder_tpu_torch.io.fastx import write_fastq
 
     lps = -rng_np.exponential(0.05, size=300).astype(np.float32)

@@ -812,16 +812,42 @@ def test_k4_kernel_misaligned_cache_on_card(cuda, group):
 
 
 @pytest.mark.cuda
-def test_k4_kernel_refuses_scores_beyond_shared_memory_on_card(cuda):
-    """One query row's H x T f32 scores must fit a block's shared memory
-    (8 heads x T 8192 do not): the kernel refuses, and the error names
-    the limit."""
-    b, t, h, dh = 2, 8192, 8, 32
-    q = torch.zeros(b, h * dh, device=cuda)
-    k = torch.zeros(b, t, h * dh, device=cuda)
-    n = torch.full((b,), t, dtype=torch.int32, device=cuda)
-    with pytest.raises(RuntimeError, match="H x T f32 scores"):
-        attention.decode_attention(q, k, k, n, h)
+@pytest.mark.parametrize("kind,group", [("float32", 1), ("bfloat16", 1), ("int8", 1),
+                                        ("float32", 3), ("bfloat16", 3)])
+def test_k4_kernel_scores_beyond_shared_memory_on_card(cuda, kind, group):
+    """32 heads at T 1800: one query row's H x T f32 scores (230 KB)
+    overflow a block's shared memory.  The scalar kernel keeps them in a
+    device-memory workspace and matches the plain version."""
+    fn = attention.decode_attention if group == 1 else attention.decode_attention_grouped
+    scalar_launches = fn.scalar_launches
+    _k4_on_card(cuda, kind, group, b=4, t=1800, seed=31 + group, h=32, dh=32)
+    assert fn.scalar_launches == scalar_launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_k4_kernel_gqa_scores_beyond_shared_memory_on_card(cuda, kind, group):
+    """The same on GQA caches (32 query heads on 2 KV heads) at B 2, with
+    a partial and a full row."""
+    rng = np.random.default_rng(41 + group)
+    b, t, h, dh, n_kv = 2, 1800, 32, 32, 2
+    dt = getattr(torch, kind)
+    q = torch.from_numpy(rng.normal(size=(b * group, h * dh)).astype(np.float32)).to(cuda, dt)
+    k, v = (torch.from_numpy(rng.normal(size=(b, t, n_kv * dh)).astype(np.float32)).to(cuda, dt)
+            for _ in range(2))
+    n = torch.tensor([1000, t], dtype=torch.int32, device=cuda)
+    fn = attention.decode_attention if group == 1 else attention.decode_attention_grouped
+    plain = (attention.decode_attention_plain if group == 1
+             else attention.decode_attention_grouped_plain)
+    args = (q, k, v, n, h) + ((group,) if group > 1 else ())
+    scalar_launches = fn.scalar_launches
+    got, ref = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert fn.scalar_launches == scalar_launches + 1
+    atol, rtol = K4_TOL[kind]
+    torch.testing.assert_close(got[0].float(), ref[0].float(), atol=atol, rtol=rtol)
+    assert torch.equal(got[1], ref[1])
 
 
 @pytest.mark.cuda

@@ -147,9 +147,77 @@ def test_encoder_attention_wide_on_card(cuda, dtype, dh, heads, s):
     _encoder_layouts_on_card(cuda, dtype, dh, heads, s)
 
 
-def _encoder_layouts_on_card(cuda, dtype, dh, heads, s):
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [320, 512])
+@pytest.mark.parametrize("dtype", _F32_BF16)
+def test_encoder_attention_head_dims_over_256_on_card(cuda, dtype, dh):
+    """The layouts at head dims over 256 (the scalar kernel, Dh in
+    slices), B 2, S 256, 2 heads, a length-0 and a partial row; every
+    launch runs the scalar kernel."""
     ea = encoder_attention
-    lengths = np.minimum([0, 1, 63, 64, 65, s], s).astype(np.int32)
+    fns = (ea.flash_encoder_attention_qkv, ea.flash_encoder_attention_nld,
+           ea.flash_encoder_attention)
+    before = [(f.launches, f.scalar_launches) for f in fns]
+    _encoder_layouts_on_card(cuda, dtype, dh, 2, 256, lengths=[0, 130])
+    assert [(f.launches, f.scalar_launches) for f in fns] == \
+        [(n + 1, m + 1) for n, m in before]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _F32_BF16)
+def test_encoder_attention_unaligned_view_on_card(cuda, dtype):
+    """Operands one element into their storage (contiguous, not 16-byte
+    aligned) run the scalar kernel and match the plain version; the same
+    values in aligned storage run the fast kernel."""
+    ea = encoder_attention
+    qkv, lens = _qkv(np.random.default_rng(5), 4, 100, 2, 64)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    aligned = torch.from_numpy(qkv).to(cuda, dtype)
+    d = aligned.shape[2] // 3
+    x = shifted(aligned)
+    q, k, v = (shifted(aligned[..., i * d:(i + 1) * d].contiguous()) for i in range(3))
+    assert x.is_contiguous() and x.data_ptr() % 16 and q.data_ptr() % 16
+    n = torch.from_numpy(lens).to(cuda)
+    f1, f5 = ea.flash_encoder_attention_qkv, ea.flash_encoder_attention_nld
+    before = (f1.scalar_launches, f5.scalar_launches)
+    got1, got5 = f1(x, n, 2), f5(q, k, v, n, 2)
+    assert (f1.scalar_launches, f5.scalar_launches) == (before[0] + 1, before[1] + 1)
+    fast = f1(aligned, n, 2)
+    assert f1.scalar_launches == before[0] + 1
+    ref1 = ea.encoder_attention_plain(x, n, 2)
+    ref5 = ea.encoder_attention_nld_plain(q, k, v, n, 2)
+    torch.cuda.synchronize()
+    atol, rtol = ENC_TOL[dtype]
+    for got, ref in ((got1, ref1), (got5, ref5), (fast, ref1)):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_encoder_attention_batch_over_65535_on_card(cuda):
+    """B 65540 (past grid z's 65535) at S 32, 1 head of 32, f32: the fast
+    kernel loops over batch rows, every row against the plain version."""
+    ea = encoder_attention
+    b, s, d = 65540, 32, 32
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(b, s, 3 * d, device=cuda, generator=gen)
+    n = torch.randint(0, s + 1, (b,), device=cuda, generator=gen, dtype=torch.int32)
+    before = ea.flash_encoder_attention_qkv.scalar_launches
+    got = ea.flash_encoder_attention_qkv(x, n, 1)
+    ref = ea.encoder_attention_plain(x, n, 1)
+    torch.cuda.synchronize()
+    assert ea.flash_encoder_attention_qkv.scalar_launches == before
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def _encoder_layouts_on_card(cuda, dtype, dh, heads, s, lengths=(0, 1, 63, 64, 65)):
+    ea = encoder_attention
+    lengths = np.minimum(list(lengths) + [s], s).astype(np.int32)
     b, d = len(lengths), heads * dh
     rng = np.random.default_rng(1000 * s + 10 * dh + heads)
     x = torch.from_numpy(rng.normal(size=(b, s, 3 * d)).astype(np.float32)).to(cuda, dtype)
@@ -199,6 +267,25 @@ def test_k2_kernel_other_widths_on_card(cuda, dtype, c):
         cache = cache_update.write_cache_block(cache, slab, step)
     torch.cuda.synchronize()
     assert torch.equal(cache, ref)
+
+
+@pytest.mark.cuda
+def test_k2_kernel_block_over_2gib_on_card(cuda):
+    """B 1, T 8, an int8 cache of C 2^28 + 1 bytes a row: one batch row's
+    block is 2^31 + 8 one-byte copy units (rows not 4-byte aligned), past
+    the 32-bit run of earlier kernels.  About 2 GiB each for the cache and
+    the slab; held bit for bit against copy_, then freed."""
+    c = 2 ** 28 + 1
+    cache = torch.zeros(1, 8, c, dtype=torch.int8, device=cuda)
+    slab = torch.randint(-128, 128, (1, 8, c), dtype=torch.int8, device=cuda)
+    ref = torch.empty_like(cache).copy_(slab)
+    out = cache_update.write_cache_block(cache, slab, 5)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == cache.data_ptr()
+    equal = torch.equal(out, ref)
+    del cache, slab, ref, out
+    torch.cuda.empty_cache()
+    assert equal
 
 
 @pytest.mark.cuda
