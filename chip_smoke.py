@@ -73,11 +73,41 @@ Phases, in order; any failure exits non-zero before the last line:
      subprocess on 20 reads (one FASTQ record a read); the ingest pool,
      its forkserver and the resource tracker are stopped and waited for,
      and the run fails if any child process is still running;
- 13. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+ 13. train: the flagship at full width with the committed train section
+     (cosine, lr 3e-4, label smoothing 0.1, guided attention 0.3, dropout
+     0.1), use_pallas true and TRAIN_OVERRIDES (warmup 10, train_steps
+     60): (a) two Adam steps at a constant lr 4e-5 from the flagship
+     params at dropout 0, batch 8, f32 without TF32, on the card and on
+     the CPU, each step from the card's state (losses within rtol 1e-4;
+     the FFN ReLU inputs that fall on the other side of 0 on the card
+     printed; gradients within rtol 1e-4 / atol 1e-6 in all but 0.1% of the
+     elements and each tensor within 1e-3 of its norm; the card's params
+     within 1e-6 of the host's update on the card's gradients, within
+     1e-4 of the CPU's, and within 1e-5 but for the elements the
+     gradients' tolerance did not hold or under 1e-6, under 10%);
+     (b) 50 steps from init_model (seed 0),
+     f32, batch 32, behind prefetch_batches (every loss finite, the mean
+     of the last 10 below that of the first 10; median step ms, chunks/s,
+     ksamples/s, target tokens/s, peak memory, the host's wait for data;
+     3 more steps under torch.profiler: device busy ms, idle share,
+     kernels a step, the costliest kernels), then 10 bf16 steps
+     (finite); the training steps launch no kernel;
+     (c) validation of (a)'s params on 4 batches of 32 with K5 and
+     without (K5 launches
+     6 x 4 and 0, xent_sum within rtol 1e-4, n_correct within 0.1% of
+     the tokens, the ms of each); (d) (a)'s trainer saved, restored into
+     a fresh trainer, one more step on each (within 1e-6), the restored
+     params served by Translator (bf16/int6, K1 and K2) on the first 20
+     reads of phase 4 (mean identity 0.90); (e) cli.preprocess
+     --synthetic, cli.train --data 5 steps, --resume to 8, cli.evaluate
+     on the checkpoint directory, as subprocesses (exit 0, checkpoints 5
+     and 8, 2 reads evaluated);
+ 14. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
      beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11; engine,
-     12), K4a's and K4b's launches of the scalar decode-attention kernel
-     apart (none on phases 3-9), errors, times;
- 14. the last line: {"ok": true, "device": {...}}.
+     12; train, 13 (a)-(c); train_serve, 13 (d)), K4a's and K4b's
+     launches of the scalar decode-attention kernel apart (none on
+     phases 3-9), errors, times;
+ 15. the last line: {"ok": true, "device": {...}}.
 
 `--kernels` runs phase 1 and the named kernels' phase 2 only and prints
 their numbers as one JSON line; with `--root` it imports (and builds) the
@@ -1374,6 +1404,428 @@ def engine_cli(path: str, fmt: str, tmp: str, root: str, want: set[str]) -> None
           f"one record a read, process wall {wall:.1f} s; " + "; ".join(stages))
 
 
+# Phase 13's training settings: the committed train section (cosine, lr
+# 3e-4, label smoothing 0.1, guided attention 0.3, dropout 0.1) at the
+# flagship's full width, with these overrides: a warmup that a few dozen
+# steps get past, and as many train steps as the learning run takes.
+TRAIN_OVERRIDES = {"warmup_steps": 10, "train_steps": 60}
+LEARN_STEPS, BF16_STEPS, PARITY_BATCH, PROFILED_STEPS = 50, 10, 8, 3
+# The parity steps run at a constant lr, so that every step moves the
+# params (the cosine's warmup starts at 0), low enough that the trainer
+# still serves the flagship's identity in (d) and that every param stays
+# within 1e-4 of the CPU's: where card and CPU take opposite signs of a
+# gradient at rounding level, Adam moves them apart by up to 2 x
+# ADAM_STEP x lr.  ADAM_STEP: the most an Adam step (b1 0.9, b2 0.998)
+# moves an element, in units of lr, in its first steps (1.0013 in the
+# second, when the gradient changes between steps).
+PARITY_STEPS, PARITY_LR, ADAM_STEP = 2, 4e-5, 1.01
+
+
+def train_config(batch: int, dtype: str = "float32", dropout: float | None = None,
+                 pallas: bool = True):
+    """The flagship config for training: f32 (or `dtype`) compute, the
+    kernel route for validation, TRAIN_OVERRIDES and this batch."""
+    cfg = load_config(dtype, "float32", 640, pallas=pallas)
+    model = cfg.model if dropout is None else dataclasses.replace(cfg.model,
+                                                                  dropout=dropout)
+    return dataclasses.replace(cfg, model=model, train=dataclasses.replace(
+        cfg.train, batch_size=batch, **TRAIN_OVERRIDES))
+
+
+def max_param_diff(a, b) -> float:
+    from nanodecoder_tpu_torch.models.model import named_leaves
+
+    la, lb = named_leaves(a), named_leaves(b)
+    return max(float((la[k].detach().cpu() - lb[k].detach().cpu()).abs().max())
+               for k in la)
+
+
+def quiet_trainer(cfg, params):
+    from nanodecoder_tpu_torch.train.trainer import Trainer
+    from nanodecoder_tpu_torch.utils.report import ReportManager
+
+    return Trainer(cfg, params, report=ReportManager(report_every=10 ** 9))
+
+
+def host_leaves(params, grad: bool = False) -> dict:
+    """{param key: a host copy of the tensor (or its .grad)}."""
+    from nanodecoder_tpu_torch.models.model import named_leaves
+
+    return {k: (t.grad if grad else t).detach().cpu().clone()
+            for k, t in named_leaves(params).items()}
+
+
+@contextlib.contextmanager
+def relu_inputs(store: list):
+    """While active, keep a host copy of every FFN's ReLU input (the
+    encoder's layers, then the decoder's)."""
+    from nanodecoder_tpu_torch.models import modules
+
+    real = modules.ffn
+
+    def ffn(p, x, *args, **kwargs):
+        store.append(modules.dense(p["in"], x).detach().cpu())
+        return real(p, x, *args, **kwargs)
+
+    modules.ffn = ffn
+    try:
+        yield
+    finally:
+        modules.ffn = real
+
+
+def parity_gradients(step: int, gg: dict, gc: dict) -> None:
+    """A step's gradients, card (gg) against CPU (gc): within rtol 1e-4 /
+    atol 1e-6 in all but 0.1% of the elements, and each tensor within
+    1e-3 of its norm (+ 1e-6 sqrt(n)).  The elementwise tolerance cannot
+    hold everywhere at this width: a ReLU whose input lies within
+    rounding of 0 takes the other side on the card and moves its hidden
+    unit's column, and everything below it a little."""
+    over = total = 0
+    worst, tensor = (0.0, ""), (0.0, "")
+    for k, c in gc.items():
+        d = (gg[k] - c).abs()
+        ratio = d / (1e-6 + 1e-4 * c.abs())
+        over, total = over + int((ratio > 1).sum()), total + c.numel()
+        worst = max(worst, (float(ratio.max()), k))
+        rel = float(d.norm() / (1e-3 * c.norm() + 1e-6 * c.numel() ** 0.5))
+        tensor = max(tensor, (rel, k))
+    print(f"train parity step {step}: gradients, {over} of {total} elements "
+          f"({over / total:.4%}) outside rtol 1e-4 / atol 1e-6 (the worst at "
+          f"{worst[0]:.2f} of its allowance, in {worst[1]}); the worst tensor's |card - CPU| "
+          f"at {tensor[0]:.3f} of 1e-3 of its norm + 1e-6 sqrt(n), {tensor[1]}")
+    check(over <= 1e-3 * total, f"train parity: {over} gradient elements differ")
+    check(tensor[0] <= 1.0, f"train parity: the gradient of {tensor[1]} differs")
+
+
+def train_parity(dev):
+    """(a) PARITY_STEPS Adam steps at a constant lr PARITY_LR from the
+    flagship params, dropout 0, batch 8, f32 without TF32, on the card
+    and on the CPU, each step from the card's state (params and
+    optimizer; from one state to the next the card's and the CPU's
+    would part wherever Adam's first steps, about lr whatever a
+    gradient's size, take opposite signs).  Each step: losses within rtol
+    1e-4; the gradients as `parity_gradients` holds them; an optimizer on
+    the host fed the card's gradients reproduces the card's params within
+    atol 1e-6, so a wrong update on the card (a flipped sign, a lost bias
+    correction, a wrong lr) fails; every param within 1e-4 of the CPU's,
+    and within 1e-5 but for the elements whose gradient was non-zero and
+    under 1e-6 on either side or outside the gradients' rtol 1e-4 /
+    atol 1e-6, under 10% of them (5.2% in step 1: the flagship's
+    gradients per token are small; 0.5% at the tiny config).  Returns the
+    card's trainer and its batches."""
+    from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
+    from nanodecoder_tpu_torch.train.data import synthetic_batches
+    from nanodecoder_tpu_torch.train.optim import Optimizer
+
+    cfg = train_config(PARITY_BATCH, dropout=0.0)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, optimizer="adam", lr_schedule="constant", learning_rate=PARITY_LR))
+    it = synthetic_batches(cfg, seed=0)
+    batches = [next(it) for _ in range(PARITY_STEPS + 1)]
+    card = quiet_trainer(cfg, load_params_npz(NPZ, cfg.model, device=dev))
+    cpu = quiet_trainer(cfg, load_params_npz(NPZ, cfg.model, device="cpu"))
+    replay = {k: v.requires_grad_(True) for k, v in host_leaves(card.params).items()}
+    replay_opt = Optimizer(replay, cfg.train, cfg.model.d_model)
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches[:PARITY_STEPS]):
+        cpu.state = card.state
+        zg, zc = [], []
+        with relu_inputs(zg):
+            mg = card.train_step(batch)
+        with relu_inputs(zc):
+            mc = cpu.train_step(batch)
+        sides = [int(((a > 0) != (b > 0)).sum()) for a, b in zip(zg, zc)]
+        lg, lc = float(mg["loss_sum"]), float(mc["loss_sum"])
+        gg, gc = host_leaves(card.params, grad=True), host_leaves(cpu.params, grad=True)
+        for k, t in replay.items():
+            t.grad = gg[k]
+        replay_opt.step()
+        pg, pc = host_leaves(card.params), host_leaves(cpu.params)
+        update = max(float((replay[k].detach() - v).abs().max()) for k, v in pg.items())
+        every = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+        held, n_ex, n_all = 0.0, 0, 0
+        for k, c in gc.items():
+            d = (gg[k] - c).abs()
+            lo, hi = torch.minimum(gg[k].abs(), c.abs()), torch.maximum(gg[k].abs(), c.abs())
+            exempt = ((lo < 1e-6) & (hi > 0)) | (d > 1e-6 + 1e-4 * c.abs())
+            held = max(held, float((pg[k] - pc[k]).abs().masked_fill(exempt, 0).max()))
+            n_ex, n_all = n_ex + int(exempt.sum()), n_all + c.numel()
+        print(f"train parity step {i + 1}: loss_sum card {lg:.6f} CPU {lc:.6f} "
+              f"(rel {abs(lg - lc) / abs(lc):.2e}), tokens {int(mg['n_tokens'])} / "
+              f"{int(mc['n_tokens'])}; params (lr {PARITY_LR:.0e}): max |card - host's "
+              f"update on the card's gradients| {update:.3e}, max |card - CPU| {every:.3e}, "
+              f"{held:.3e} over the elements held ({n_ex} exempt, {n_ex / n_all:.4%}); "
+              f"ReLU inputs on the other side of 0 on the card, by FFN: {sides} (largest "
+              f"|card - CPU| input {max(float((a - b).abs().max()) for a, b in zip(zg, zc)):.1e})")
+        check(int(mg["n_tokens"]) == int(mc["n_tokens"]), "train parity: token counts")
+        check(abs(lg - lc) <= 1e-4 * abs(lc), f"train parity: loss {lg} vs {lc}")
+        check(update <= 1e-6, f"train parity: the card's update differs by {update}")
+        check(every <= 1e-4 and held <= 1e-5, f"train parity: params differ by {every}, "
+              f"{held} over the elements held")
+        check(n_ex < 0.1 * n_all, f"train parity: {n_ex} of {n_all} elements exempt")
+        parity_gradients(i + 1, gg, gc)
+    print(f"train parity: {PARITY_STEPS} steps, {time.perf_counter() - t0:.1f} s with the "
+          f"CPU's steps")
+    return card, batches
+
+
+def profile_train_steps(trainer, batches) -> dict:
+    """Train steps under torch.profiler: the window's wall (host clock to
+    a synchronize), device busy time (the sum of its kernels' times), the
+    idle share, kernels per step and the costliest kernels by name."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Device events less the ranges that record_function marks on the
+    # device, which span kernels.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    check(bool(kernels), "train profile: the profiler recorded no device time")
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    n = len(batches)
+    print(f"train f32 profiled, {n} steps: wall {wall_us / 1e3 / n:.2f} ms a step, device "
+          f"busy {busy_us / 1e3 / n:.2f} ms a step, idle share {1 - busy_us / wall_us:.3f}, "
+          f"{len(kernels) / n:.0f} kernels a step; costliest: "
+          + "; ".join(f"{us / 1e3 / n:.2f} ms {name[:60]}" for name, us in top))
+    return {"profiled_step_ms": wall_us / 1e3 / n, "device_busy_ms": busy_us / 1e3 / n,
+            "idle_share": 1 - busy_us / wall_us, "kernels_per_step": len(kernels) / n}
+
+
+def train_learning(dev):
+    """(b) From init_model (seed 0), f32, batch 32, LEARN_STEPS steps of
+    simulated batches behind prefetch_batches: every loss finite, the mean
+    of the last 10 below that of the first 10; step time (CUDA events),
+    rates, peak memory and the host's wait for data.  Then BF16_STEPS
+    steps in bf16 (losses finite).  Returns the numbers."""
+    from nanodecoder_tpu_torch.models.model import init_model, params_to
+    from nanodecoder_tpu_torch.train.data import prefetch_batches, synthetic_batches
+
+    cfg = train_config(32)
+    trainer = quiet_trainer(cfg, params_to(init_model(torch.Generator().manual_seed(0),
+                                                      cfg.model), dev))
+    it = prefetch_batches(synthetic_batches(cfg, seed=cfg.train.seed))
+    losses, step_ms, waits, tokens = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LEARN_STEPS):
+        t0 = time.perf_counter()
+        batch = next(it)
+        waits.append(time.perf_counter() - t0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        start.record()
+        m = trainer.train_step(batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        tokens.append(int(m["n_tokens"]))
+        losses.append(float(m["loss_sum"]) / tokens[-1])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    profiled = profile_train_steps(trainer, [next(it) for _ in range(PROFILED_STEPS)])
+    it.close()
+    check(all(math.isfinite(x) for x in losses), f"train: non-finite loss in {losses}")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    ms = statistics.median(step_ms[2:])
+    b, s = cfg.train.batch_size, cfg.signal.chunk_len
+    tok_s = float(np.mean(tokens)) / (ms / 1e3)
+    print(f"train f32 b{b}: {LEARN_STEPS} steps, loss per token first 10 {first:.4f} "
+          f"last 10 {last:.4f} (step 1 {losses[0]:.4f}, step {LEARN_STEPS} "
+          f"{losses[-1]:.4f}); median step {ms:.2f} ms (CUDA events, steps 3-"
+          f"{LEARN_STEPS}), {b / ms * 1e3:.1f} chunks/s, {b * s / ms:.1f} "
+          f"ksamples/s, {tok_s:.0f} target tokens/s; peak memory {peak:.0f} MiB; host "
+          f"wait for data median {statistics.median(waits) * 1e3:.2f} ms, mean "
+          f"{float(np.mean(waits[1:])) * 1e3:.2f} ms per step")
+    check(last < first, f"train: loss did not fall ({first} -> {last})")
+
+    bf_cfg = train_config(32, "bfloat16")
+    bf = quiet_trainer(bf_cfg, params_to(init_model(torch.Generator().manual_seed(0),
+                                                    bf_cfg.model), dev))
+    bf_it = synthetic_batches(bf_cfg, seed=1)
+    bf_losses, bf_ms = [], []
+    for _ in range(BF16_STEPS):
+        batch = next(bf_it)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        start.record()
+        m = bf.train_step(batch)
+        end.record()
+        end.synchronize()
+        bf_ms.append(start.elapsed_time(end))
+        bf_losses.append(float(m["loss_sum"]) / int(m["n_tokens"]))
+    check(all(math.isfinite(x) for x in bf_losses), f"train bf16: losses {bf_losses}")
+    print(f"train bf16 b{b}: {BF16_STEPS} steps, losses finite ({bf_losses[0]:.4f} -> "
+          f"{bf_losses[-1]:.4f}), median step {statistics.median(bf_ms[2:]):.2f} ms")
+    return {**profiled, "step_ms": ms,
+                     "bf16_step_ms": statistics.median(bf_ms[2:]),
+                     "chunks_per_s": b / ms * 1e3, "ksamples_per_s": b * s / ms,
+                     "tokens_per_s": tok_s, "host_wait_ms": float(np.mean(waits[1:])) * 1e3,
+                     "peak_mib": peak, "loss_first10": first, "loss_last10": last}
+
+
+def train_validation(params, dev, reset, counts) -> dict:
+    """(c) synthetic_valid_batches (4 of 32) through the eval step on
+    `params` (those of (a)'s trainer, which start from the flagship and
+    read the encoder's memory) with use_pallas (K5 in every encoder
+    layer) and without: K5 launches 6 x 4 and 0, xent_sum within rtol
+    1e-4, n_correct within 0.1% of the tokens.  Returns the kernel run's
+    launches."""
+    from nanodecoder_tpu_torch.train.data import synthetic_valid_batches
+    from nanodecoder_tpu_torch.train.trainer import batch_to_device, make_eval_step
+
+    cfg = train_config(32)
+    plain = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                               use_pallas=False))
+    valid = [batch_to_device(b, dev) for b in synthetic_valid_batches(cfg, n_batches=4)]
+    out = {}
+    for name, c in (("K5", cfg), ("plain", plain)):
+        step = make_eval_step(c)
+        for b in valid:  # warm up, then time the 4 batches
+            step(params, b)
+        reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        start.record()
+        ms = [step(params, b) for b in valid]
+        end.record()
+        end.synchronize()
+        out[name] = ({k: sum(int(m[k]) if k.startswith("n_") else float(m[k])
+                             for m in ms) for k in ms[0]},
+                     start.elapsed_time(end), counts())
+    (mk, ms_k, ck), (mp, ms_p, cp) = out["K5"], out["plain"]
+    layers = cfg.model.enc_layers
+    print(f"validation 4 x b{cfg.train.batch_size}, (a)'s params: with K5 {ms_k:.2f} ms, "
+          f"plain {ms_p:.2f} ms; xent_sum {mk['xent_sum']:.4f} vs {mp['xent_sum']:.4f} "
+          f"({mp['xent_sum'] / mp['n_tokens']:.4f} a token), n_correct {mk['n_correct']} "
+          f"vs {mp['n_correct']} of {mk['n_tokens']} tokens; "
+          f"K5 launches {ck['K5']} and {cp['K5']}")
+    check(ck["K5"] == layers * 4 and cp["K5"] == 0,
+          f"validation: K5 launched {ck['K5']} / {cp['K5']} times, expected {layers * 4} / 0")
+    check(all(n == 0 for k, n in ck.items() if k != "K5"), f"validation launches {ck}")
+    check(mk["n_tokens"] == mp["n_tokens"], "validation: token counts differ")
+    check(abs(mk["xent_sum"] - mp["xent_sum"]) <= 1e-4 * abs(mp["xent_sum"]),
+          "validation: xent_sum differs beyond rtol 1e-4")
+    check(abs(mk["n_correct"] - mp["n_correct"]) <= 1e-3 * mk["n_tokens"],
+          "validation: n_correct differs beyond 0.1% of the tokens")
+    return {"valid_ms_k5": ms_k, "valid_ms_plain": ms_p, "launches": ck}
+
+
+def train_checkpoint_serve(card, batches, dev, tmp: str, phase4: dict) -> float:
+    """(d) Save (a)'s trainer, restore it into a fresh trainer, one more
+    step on each (equal within 1e-6, dropout 0, deterministic cuDNN); then
+    the restored params served by Translator (bf16, int6 wire) on the
+    first 20 reads of phase 4 (mean identity >= 0.90).  Returns the
+    identity."""
+    from nanodecoder_tpu_torch.models.model import init_model, params_to
+    from nanodecoder_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt = CheckpointManager(os.path.join(tmp, "ck"), card.config)
+    ckpt.save(card.step, card.state)
+    fresh = quiet_trainer(card.config, params_to(init_model(
+        torch.Generator().manual_seed(1), card.config.model), dev))
+    fresh.state = ckpt.restore(device=dev)
+    restored = max_param_diff(fresh.params, card.params)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        card.train_step(batches[2])
+        fresh.train_step(batches[2])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = max_param_diff(fresh.params, card.params)
+    print(f"checkpoint: saved and restored step {ckpt.latest_step()} (max |restored - "
+          f"saved| {restored:.1e}); one more step on each, max |resumed - "
+          f"uninterrupted| {diff:.3e}")
+    check(restored == 0.0 and diff <= 1e-6, f"checkpoint: resumed run differs by {diff}")
+    from nanodecoder_tpu_torch.decode.translator import Translator
+
+    serve = load_config("bfloat16", "int6", 640)
+    tr = Translator(ckpt.restore(device=dev).params, serve)
+    idents, _samples, _wall, _seqs = call_reads(tr, simulated_reads(20))
+    mean_id = float(np.mean(idents))
+    print(f"served from the checkpoint (bf16/int6/b640): 20 reads, mean identity "
+          f"{mean_id:.4f} (the flagship's on the same reads, phase 4: "
+          f"{float(np.mean(phase4['idents'][:20])):.4f})")
+    check(mean_id >= 0.90, f"served from the checkpoint: mean identity {mean_id} < 0.90")
+    return mean_id
+
+
+def train_clis(tmp: str, root: str) -> None:
+    """(e) cli.preprocess --synthetic 320, cli.train --data for 5 steps,
+    then --resume to 8, then cli.evaluate on the checkpoint directory:
+    each exits 0, steps 5 and 8 are saved, 2 reads are evaluated."""
+    cfg = train_config(32)
+    cfg_path = os.path.join(tmp, "train_config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    shards, ck = os.path.join(tmp, "shards"), os.path.join(tmp, "cli_ck")
+    runs = [("preprocess", ["--out", shards, "--config", cfg_path, "--synthetic", "320",
+                            "--shard-size", "160"]),
+            ("train", ["--ckpt-dir", ck, "--config", cfg_path, "--data", shards,
+                       "--steps", "5", "--report-every", "1"]),
+            ("train", ["--ckpt-dir", ck, "--config", cfg_path, "--data", shards,
+                       "--steps", "8", "--resume", "--report-every", "1"]),
+            ("evaluate", ["--ckpt", ck, "--simulate", "2", "--read-bases", "1000",
+                          "--json"])]
+    walls = []
+    for cli, args in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"nanodecoder_tpu_torch.cli.{cli}",
+                              *args], cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        walls.append(time.perf_counter() - t0)
+        check(res.returncode == 0, f"cli.{cli} exit {res.returncode}: {res.stderr[-2000:]}")
+    steps = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"CLIs: preprocess (320 examples, 2 shards), train 5 steps, resume to 8, evaluate "
+          f"the checkpoint directory (2 reads, identity {summary['mean_identity']:.4f} after "
+          f"8 steps from init): exit 0, checkpoints {steps}; process walls "
+          + ", ".join(f"{w:.1f} s" for w in walls))
+    check(steps == [5, 8], f"train CLI: checkpoint steps {steps}, expected [5, 8]")
+    check(summary["n_reads"] == 2, f"evaluate CLI on the checkpoint: {summary}")
+
+
+def phase_train(dev, reset, counts, phase4: dict, root: str) -> tuple[dict, dict, dict]:
+    """Phase 13: training at the flagship's full width (a)-(e).  Returns
+    (the training path's launches (a)-(c), the serving launches of (d),
+    the numbers)."""
+    print("train: flagship width, committed train section, overrides "
+          + ", ".join(f"{k} {v}" for k, v in TRAIN_OVERRIDES.items())
+          + f"; use_pallas true; parity batch {PARITY_BATCH} dropout 0 adam constant lr "
+          f"{PARITY_LR:.0e}; learning batch "
+          f"32 {LEARN_STEPS} f32 steps + {BF16_STEPS} bf16 steps")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        reset()
+        card, batches = train_parity(dev)
+        numbers = train_learning(dev)
+        stepped = counts()  # the training steps launch no kernel
+        check(all(n == 0 for n in stepped.values()), f"training steps launched {stepped}")
+        numbers.update(train_validation(card.params, dev, reset, counts))
+        launches = {k: n + stepped[k] for k, n in numbers.pop("launches").items()}
+        reset()
+        numbers["served_identity"] = train_checkpoint_serve(card, batches, dev, tmp,
+                                                            phase4)
+        serving = counts()
+        check(serving["K1"] > 0 and serving["K2"] > 0 and serving["K5"] == 0,
+              f"served from the checkpoint: launches {serving}")
+        train_clis(tmp, root)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, serving, numbers
+
+
 def kernel_times(names: list[str]) -> int:
     """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
     three dtypes, K3, K2 at four widths, K7); one JSON line of their
@@ -1592,6 +2044,10 @@ def main(argv: list[str] | None = None) -> int:
         elapsed("phase 11")
         paths["engine"] = phase_engine(params, reset, counts, phase4, root)  # phase 12
         elapsed("phase 12")
+        paths["train"], paths["train_serve"], train_numbers = phase_train(
+            dev, reset, counts, phase4, root)  # phase 13
+        print("train numbers: " + json.dumps(train_numbers))
+        elapsed("phase 13")
         check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
               "K6 or K7 launched on a serving path")
         for path, c in paths.items():
@@ -1637,7 +2093,9 @@ def main(argv: list[str] | None = None) -> int:
               stats["K4b"], "B 256, G 5; 3 launches per MHA beam step"),
         entry("K5 flash_encoder_attention_nld", enc,
               "nanodecoder_tpu/ops/encoder_attention.py:85", stats["K5"],
-              "one launch per encoder layer of the unfolded path"),
+              "one launch per encoder layer of the unfolded path; on the train path "
+              "(phase 13) only in validation, one per encoder layer and batch "
+              "(launches_by_path.train)"),
         entry("K6 flash_encoder_attention", enc,
               "nanodecoder_tpu/ops/encoder_attention.py:28", stats["K6"],
               "on no serving path (its only JAX caller is a test); launched only "

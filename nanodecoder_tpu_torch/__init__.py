@@ -1,8 +1,8 @@
 """nanodecoder_tpu_torch: the PyTorch + CUDA port of nanodecoder_tpu.
 
 Greedy and beam-search basecalling of transformer models (lean or
-unfolded, MQA/GQA or MHA decoders, exact or int8 cross caches) on one
-NVIDIA H100:
+unfolded, MQA/GQA or MHA decoders, exact or int8 cross caches), and their
+training, on one NVIDIA H100:
 
     import dataclasses
     from nanodecoder_tpu_torch.config import Config
@@ -24,10 +24,16 @@ and writes FASTQ as reads complete:
     with open("out.fastq", "w") as out:
         StreamingBasecaller(params, cfg).run(files, out)   # device="cuda"
 
+Training: `train.trainer.Trainer` over `models.model.init_model` params
+(or an npz export), with `train.checkpoint.CheckpointManager` for the
+port's checkpoint directories.
+
 The CLIs:
-`python -m nanodecoder_tpu_torch.cli.basecall --input reads/ --output out.fastq --ckpt x.npz`
-and
-`python -m nanodecoder_tpu_torch.cli.evaluate --ckpt x.npz --simulate N --beam 5`.
+`python -m nanodecoder_tpu_torch.cli.basecall --input reads/ --output out.fastq --ckpt x.npz`,
+`python -m nanodecoder_tpu_torch.cli.evaluate --ckpt x.npz --simulate N --beam 5`,
+`python -m nanodecoder_tpu_torch.cli.preprocess --out shards/ --synthetic N` and
+`python -m nanodecoder_tpu_torch.cli.train --ckpt-dir ck/ --data shards/`
+(--ckpt takes an .npz export or such a checkpoint directory).
 
 Entry points run on the card unless the caller passes device="cpu"
 (--cpu for the CLIs).  The package imports torch, numpy and the standard

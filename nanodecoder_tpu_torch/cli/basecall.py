@@ -4,7 +4,8 @@ counterpart of `nanodecoder_tpu.cli.basecall`).
     python -m nanodecoder_tpu_torch.cli.basecall \
         --input reads_dir/ --output out.fastq --ckpt params.npz [--beam 5]
 
-The checkpoint is a params `.npz` export with its `config.json` beside it.
+The checkpoint is a params `.npz` export with its `config.json` beside it,
+or a checkpoint directory of the port's trainer (its latest step).
 It runs on the CUDA card unless given --cpu (and raises without a card);
 --pallas / --no-pallas set model.use_pallas and decode.use_pallas (the
 kernel route or the plain PyTorch one), by default the kernel route on
@@ -25,7 +26,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Nanopore basecaller on a CUDA card")
     ap.add_argument("--input", required=True, help="fast5/pod5 file or directory")
     ap.add_argument("--output", required=True, help="output FASTQ/FASTA path")
-    ap.add_argument("--ckpt", required=True, help=".npz params (config.json beside it)")
+    ap.add_argument("--ckpt", required=True, help=".npz params (config.json beside it) or a "
+                    "checkpoint directory of cli.train")
     ap.add_argument("--format", choices=["fastq", "fasta"], default="fastq")
     ap.add_argument("--beam", type=int, default=0, help="beam size (0 = greedy)")
     ap.add_argument("--length-penalty", choices=["none", "wu", "avg"], default="avg",

@@ -1,0 +1,122 @@
+"""Training CLI (the port's counterpart of `nanodecoder_tpu.cli.train`).
+
+    python -m nanodecoder_tpu_torch.cli.train --ckpt-dir ckpts --steps 5000 \
+        [--config config.json] [--data shards/] [--resume] [--cpu]
+
+Trains on the CUDA card; --cpu is the only way onto the CPU, and without
+a card and without --cpu the command fails.  Params start from
+`init_model` with `train.seed` (drawn on the CPU, so the card and the CPU
+start alike) or from --init-npz.  Batches come from preprocessed shards
+(--data) or from the simulator, one producer thread behind a queue or
+--data-workers seeded streams interleaved; with the simulator, the run
+validates every `valid_every` steps on 4 simulated batches (the encoder
+through kernel K5 when `use_pallas` is set).  Checkpoints go to
+--ckpt-dir every `save_every` steps and at the end, also on SIGTERM or
+Ctrl-C; --resume continues from the latest one.  One process on one
+device: the JAX CLI's --tensorboard and multi-device mesh are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import signal
+import sys
+
+import torch
+
+from nanodecoder_tpu_torch.config import Config
+from nanodecoder_tpu_torch.device import resolve_device
+from nanodecoder_tpu_torch.models.model import init_model, param_count, params_to
+from nanodecoder_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
+from nanodecoder_tpu_torch.train.data import (interleave_batches, prefetch_batches,
+                                              synthetic_batches, synthetic_valid_batches)
+from nanodecoder_tpu_torch.train.shards import shard_batches
+from nanodecoder_tpu_torch.train.trainer import Trainer
+from nanodecoder_tpu_torch.utils.logging import get_logger
+from nanodecoder_tpu_torch.utils.report import ReportManager
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="Train the basecaller on a CUDA card")
+    ap.add_argument("--ckpt-dir", required=True)
+    ap.add_argument("--config", default="", help="JSON config (default: flagship)")
+    ap.add_argument("--steps", type=int, default=0, help="override train_steps")
+    ap.add_argument("--data", default="", help="preprocessed .npz shard dir "
+                    "(default: synthetic simulator)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--init-npz", default="",
+                    help="initialize params from a save_params_npz export "
+                         "(shapes must match --config)")
+    ap.add_argument("--cpu", action="store_true", help="train on the CPU")
+    ap.add_argument("--metrics", default="", help="JSONL metrics path")
+    ap.add_argument("--report-every", type=int, default=50)
+    ap.add_argument("--data-workers", type=int, default=1,
+                    help="simulator threads (1 = one deterministic producer "
+                         "behind a queue; >1 interleaves per-seed streams)")
+    return ap
+
+
+def _interrupt(*_):
+    raise KeyboardInterrupt
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    log = get_logger("train-cli")
+    config = Config()
+    if args.config:
+        with open(args.config) as f:
+            config = Config.from_json(f.read())
+    if args.steps:
+        config = dataclasses.replace(
+            config, train=dataclasses.replace(config.train, train_steps=args.steps))
+    if args.init_npz:
+        params = load_params_npz(args.init_npz, config.model, device)
+        log.info("initialized params from %s", args.init_npz)
+    else:
+        params = params_to(init_model(torch.Generator().manual_seed(config.train.seed),
+                                      config.model), device)
+    log.info("model: %.2fM params on %s", param_count(params) / 1e6, device)
+
+    report = ReportManager(report_every=args.report_every,
+                           metrics_path=args.metrics or None)
+    ckpt = CheckpointManager(args.ckpt_dir, config,
+                             max_to_keep=config.train.keep_checkpoints)
+    trainer = Trainer(config, params, report=report, checkpointer=ckpt)
+    if args.resume and ckpt.latest_step() is not None:
+        trainer.state = ckpt.restore(device=device)
+        log.info("resumed at step %d", trainer.step)
+
+    if args.data:
+        if args.data_workers > 1:
+            log.warning("--data-workers=%d is ignored with --data (shards are read "
+                        "by one producer behind a queue)", args.data_workers)
+        train_iter = prefetch_batches(shard_batches(args.data, config))
+        valid_fn = None
+    else:
+        if args.data_workers > 1:
+            seeds = tuple(config.train.seed + i for i in range(args.data_workers))
+            train_iter = interleave_batches(config, seeds)
+        else:
+            train_iter = prefetch_batches(synthetic_batches(config,
+                                                            seed=config.train.seed))
+        valid = synthetic_valid_batches(config)
+        valid_fn = lambda: iter(valid)  # noqa: E731
+
+    # SIGTERM -> KeyboardInterrupt, so a terminated run still writes its
+    # final checkpoint.
+    signal.signal(signal.SIGTERM, _interrupt)
+    try:
+        trainer.train(train_iter, valid_iter_fn=valid_fn)
+    except KeyboardInterrupt:
+        log.info("interrupted: saving the checkpoint of step %d", trainer.step)
+    if ckpt.latest_step() != trainer.step:
+        ckpt.save(trainer.step, trainer.state)
+    report.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,7 +29,7 @@ from nanodecoder_tpu_torch.device import resolve_device
 from nanodecoder_tpu_torch.io.fast5 import RawRead
 from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
                                              normalize_signal, wire_to_f32)
-from nanodecoder_tpu_torch.models.model import encode, prepare_serving_params
+from nanodecoder_tpu_torch.models.model import encode, params_to, prepare_serving_params
 from nanodecoder_tpu_torch.vocab import make_vocab
 
 
@@ -44,14 +44,6 @@ class Basecall:
     n_samples: int
     # Per-base Phred scores, positionally aligned with `sequence`.
     qualities: np.ndarray | None = None
-
-
-def _to_device(node: Any, dev: torch.device) -> Any:
-    if isinstance(node, dict):
-        return {k: _to_device(v, dev) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_to_device(v, dev) for v in node]
-    return node.to(dev)
 
 
 class Translator:
@@ -79,7 +71,7 @@ class Translator:
         torch.backends.cudnn.allow_tf32 = False
         with torch.inference_mode():
             self.params = prepare_serving_params(
-                _to_device(params, self.device), config.model)
+                params_to(params, self.device), config.model)
         self.config = config
         self.vocab = make_vocab(config.model.kmer_k)
         self._h2d = config.decode.resolve_h2d(config.model.compute_dtype)

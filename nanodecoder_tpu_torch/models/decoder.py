@@ -1,10 +1,11 @@
-"""Transformer decoder steps: lean (one combined self cache) and unfolded
-(per-layer self caches).
+"""Transformer decoder: the teacher-forced training pass, and decode
+steps lean (one combined self cache) and unfolded (per-layer self caches).
 
-The port's counterpart of the serving path in
-`nanodecoder_tpu.models.decoder`: `init_transformer_cache`, `_attn_step`,
-`_ln_normalize`, `_fold_ln_dense`, `fold_lean_params`,
-`_transformer_decoder_step_lean` and `transformer_decoder_step`.
+The port's counterpart of `nanodecoder_tpu.models.decoder` for transformer
+decoders: `init_transformer_decoder`, `transformer_decoder_forced`,
+`init_transformer_cache`, `_attn_step`, `_ln_normalize`, `_fold_ln_dense`,
+`fold_lean_params`, `_transformer_decoder_step_lean` and
+`transformer_decoder_step`.
 
 Decode state (a dict, like the JAX package's), for B chunks decoded in
 R = B * beam_k rows (row b * beam_k + j is beam j of chunk b):
@@ -46,6 +47,48 @@ from nanodecoder_tpu_torch.ops.attention import (decode_attention,
                                                  dequantize_cache_int8,
                                                  quantize_cache_int8)
 from nanodecoder_tpu_torch.ops.cache_update import BLOCK, write_cache_block
+
+
+def init_transformer_decoder(gen: torch.Generator, cfg: ModelConfig):
+    d, dev = cfg.d_model, gen.device
+    layers = [{"ln1": nn.init_layer_norm(d, dev),
+               "self_attn": nn.init_mha(gen, d, cfg.dec_heads, kv_heads=cfg.dec_kv),
+               "ln2": nn.init_layer_norm(d, dev),
+               "cross_attn": nn.init_mha(gen, d, cfg.dec_heads, kv_heads=cfg.dec_kv),
+               "ln3": nn.init_layer_norm(d, dev),
+               "ffn": nn.init_ffn(gen, d, cfg.dec_ffn_dim)}
+              for _ in range(cfg.dec_layers)]
+    return {"layers": layers, "ln_out": nn.init_layer_norm(d, dev)}
+
+
+def transformer_decoder_forced(p, cfg: ModelConfig, y: torch.Tensor,
+                               memory: torch.Tensor, mem_lengths: torch.Tensor,
+                               gen: torch.Generator | None = None,
+                               train: bool = False):
+    """Teacher-forced full-sequence pass; differentiable, no kernel.
+    y: (B, T, D) embedded target inputs; memory: (B, S, D).  Causal self
+    attention, cross attention under the memory's length mask, each with
+    `dec_kv` KV heads; training drops out each residual branch and the
+    FFN's hidden layer (not the attention outputs, as in the JAX package).
+    Returns (hidden (B, T, D), the last layer's cross-attention probs
+    (B, H, T, S) f32, still on the graph)."""
+    t, s = y.shape[1], memory.shape[1]
+    self_mask = nn.causal_mask(t, y.device)
+    cross_mask = nn.length_mask(mem_lengths, s)[:, None, None, :]
+    rate = cfg.dropout
+    probs = None
+    for layer in p["layers"]:
+        h = nn.layer_norm(layer["ln1"], y)
+        a, _ = nn.mha(layer["self_attn"], cfg.dec_heads, h, h, self_mask,
+                      kv_heads=cfg.dec_kv)
+        y = y + nn.dropout(a, rate, gen, train)
+        h = nn.layer_norm(layer["ln2"], y)
+        a, probs = nn.mha(layer["cross_attn"], cfg.dec_heads, h, memory, cross_mask,
+                          kv_heads=cfg.dec_kv)
+        y = y + nn.dropout(a, rate, gen, train)
+        f = nn.ffn(layer["ffn"], nn.layer_norm(layer["ln3"], y), rate, gen, train)
+        y = y + nn.dropout(f, rate, gen, train)
+    return nn.layer_norm(p["ln_out"], y), probs
 
 
 def init_transformer_cache(p, cfg: ModelConfig, memory: torch.Tensor,

@@ -1,9 +1,12 @@
-"""Signal encoder for serving: conv front-end + transformer body.
+"""Signal encoder: conv front-end + transformer body.
 
-The port's counterpart of the serving path in
-`nanodecoder_tpu.models.encoder`: `conv_frontend`, `transformer_encoder`
-and `encoder_apply` (the unfolded body, which projects q, k and v apart
-and calls kernel K5 for the attention), and `fold_encoder_lean`,
+The port's counterpart of `nanodecoder_tpu.models.encoder` for
+transformer bodies: `init_encoder`, `conv_frontend`, `transformer_encoder`
+and `encoder_apply` (the unfolded body, which projects q, k and v apart;
+for inference with `use_pallas` it calls kernel K5 for the attention,
+while a training pass (`train=True`) always takes the differentiable
+`mha`, as the JAX package's does, since the kernels have no backward),
+and `fold_encoder_lean`,
 `transformer_encoder_lean` and `encoder_apply_lean` (the lean body, which
 folds each layer norm's affine into the matmul after it, runs one fused
 QKV projection per layer, and calls kernel K1).  With `use_pallas` false
@@ -25,6 +28,37 @@ from nanodecoder_tpu_torch.ops.encoder_attention import (flash_encoder_attention
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
+
+
+def init_conv_frontend(gen: torch.Generator, cfg: ModelConfig):
+    """Conv weights drawn over the JAX package's (W, I, O) shape (its fan
+    rule) and stored as torch's (O, I, W)."""
+    layers = []
+    in_ch = 1
+    for ch, ker in zip(cfg.conv_channels, cfg.conv_kernels):
+        w = nn.glorot(gen, (ker, in_ch, ch)).permute(2, 1, 0).contiguous()
+        layers.append({"w": w, "b": torch.zeros((ch,), dtype=torch.float32,
+                                                device=gen.device)})
+        in_ch = ch
+    return {"convs": layers, "proj": nn.init_dense(gen, in_ch, cfg.d_model),
+            "ln": nn.init_layer_norm(cfg.d_model, gen.device)}
+
+
+def init_transformer_encoder(gen: torch.Generator, cfg: ModelConfig):
+    d, dev = cfg.d_model, gen.device
+    layers = [{"ln1": nn.init_layer_norm(d, dev),
+               "attn": nn.init_mha(gen, d, cfg.enc_heads),
+               "ln2": nn.init_layer_norm(d, dev),
+               "ffn": nn.init_ffn(gen, d, cfg.enc_ffn_dim)}
+              for _ in range(cfg.enc_layers)]
+    return {"layers": layers, "ln_out": nn.init_layer_norm(d, dev)}
+
+
+def init_encoder(gen: torch.Generator, cfg: ModelConfig):
+    if cfg.encoder_type != "transformer":
+        raise ValueError(f"encoder_type {cfg.encoder_type!r} is not ported")
+    return {"frontend": init_conv_frontend(gen, cfg),
+            "body": init_transformer_encoder(gen, cfg)}
 
 
 def conv_frontend(p, cfg: ModelConfig, signal: torch.Tensor,
@@ -49,25 +83,31 @@ def conv_frontend(p, cfg: ModelConfig, signal: torch.Tensor,
 
 
 def transformer_encoder(p, cfg: ModelConfig, x: torch.Tensor,
-                        enc_lengths: torch.Tensor) -> torch.Tensor:
-    """Pre-norm transformer over the master weights, inference only.
+                        enc_lengths: torch.Tensor, gen: torch.Generator | None = None,
+                        train: bool = False) -> torch.Tensor:
+    """Pre-norm transformer over the master weights.
     x: (B, T, D) in the compute dtype; returns the memory bank (B, T, D),
-    zero at padded positions."""
+    zero at padded positions.  Training (`train` with a generator) drops
+    out the attention output, each residual branch and the FFN's hidden
+    layer, drawing each layer's masks from `gen` in that order.  K5 runs
+    only for inference with `use_pallas`."""
     valid = nn.length_mask(enc_lengths, x.shape[1])
     attn_mask = valid[:, None, None, :]
     lengths32 = enc_lengths.to(torch.int32).contiguous()
+    rate = cfg.dropout
     for layer in p["layers"]:
         h = nn.layer_norm(layer["ln1"], x)
         ap = layer["attn"]
-        if cfg.use_pallas:
+        if cfg.use_pallas and not train:
             ctx = flash_encoder_attention_nld(nn.dense(ap["q"], h), nn.dense(ap["k"], h),
                                               nn.dense(ap["v"], h), lengths32,
                                               cfg.enc_heads)
             a = nn.dense(ap["o"], ctx)
         else:
-            a, _ = nn.mha(ap, cfg.enc_heads, h, h, attn_mask)
-        x = x + a
-        x = x + nn.ffn(layer["ffn"], nn.layer_norm(layer["ln2"], x))
+            a, _ = nn.mha(ap, cfg.enc_heads, h, h, attn_mask, rate, gen, train)
+        x = x + nn.dropout(a, rate, gen, train)
+        f = nn.ffn(layer["ffn"], nn.layer_norm(layer["ln2"], x), rate, gen, train)
+        x = x + nn.dropout(f, rate, gen, train)
     x = nn.layer_norm(p["ln_out"], x)
     return x * valid[:, :, None].to(x.dtype)
 
@@ -77,14 +117,15 @@ def _add_positions(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + pe[None, :, :]
 
 
-def encoder_apply(p, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor):
-    """Unfolded serving encoder: conv front-end + transformer body.
+def encoder_apply(p, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor,
+                  gen: torch.Generator | None = None, train: bool = False):
+    """Unfolded encoder: conv front-end + transformer body.
     Returns (memory (B, T, D), enc_lengths (B,))."""
     if cfg.encoder_type != "transformer":
         raise ValueError(f"encoder_type {cfg.encoder_type!r} is not ported")
     x, enc_lengths = conv_frontend(p["frontend"], cfg, signal, lengths)
     return transformer_encoder(p["body"], cfg, _add_positions(x, cfg),
-                               enc_lengths), enc_lengths
+                               enc_lengths, gen, train), enc_lengths
 
 
 def fold_encoder_lean(p_enc, cfg: ModelConfig, dtype: torch.dtype):

@@ -1,8 +1,9 @@
-"""Seq2seq serving model: encode, prepare serving params, decode step.
+"""Seq2seq model: init, encode, teacher-forced decode, prepare serving
+params, decode step.
 
-The port's counterpart of the serving path in
-`nanodecoder_tpu.models.model`.  Params are the nested dict that
-`train.checkpoint.params_from_numpy` builds.  For lean models
+The port's counterpart of `nanodecoder_tpu.models.model` for transformer
+models.  Params are the nested dict of float32 tensors that `init_model`
+or `train.checkpoint.params_from_numpy` builds.  For lean models
 (`lean_step`) `prepare_serving_params` adds the folded encoder
 (`_enc_lean`) and decoder (`_lean`) weights in the compute dtype once per
 run; unfolded models serve from the master weights, as the JAX package's
@@ -21,7 +22,8 @@ from nanodecoder_tpu_torch.models import decoder as dec
 from nanodecoder_tpu_torch.models import modules as nn
 from nanodecoder_tpu_torch.models.encoder import (compute_dtype, encoder_apply,
                                                   encoder_apply_lean,
-                                                  fold_encoder_lean)
+                                                  fold_encoder_lean, init_encoder)
+from nanodecoder_tpu_torch.vocab import vocab_size_for
 
 _NOT_FOLDED = "params lack the serving fold; call prepare_serving_params first"
 
@@ -30,6 +32,49 @@ def _check_transformer(cfg: ModelConfig) -> None:
     if cfg.encoder_type != "transformer" or cfg.decoder_type != "transformer":
         raise ValueError("the port serves transformer models only "
                          "(encoder_type = decoder_type = 'transformer')")
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
+    """Random float32 params on `gen`'s device: glorot-uniform weights,
+    zero biases, unit layer-norm scales, N(0, 1/d) embeddings, drawn from
+    `gen` (encoder, decoder, embedding, generator in that order)."""
+    expected = vocab_size_for(cfg.kmer_k)
+    if cfg.vocab_size != expected:
+        raise ValueError(
+            f"ModelConfig.vocab_size={cfg.vocab_size} does not match "
+            f"kmer_k={cfg.kmer_k} (expected vocab_size_for({cfg.kmer_k})="
+            f"{expected}); set both consistently")
+    _check_transformer(cfg)
+    return {"encoder": init_encoder(gen, cfg),
+            "decoder": dec.init_transformer_decoder(gen, cfg),
+            "tgt_embed": nn.init_embedding(gen, cfg.vocab_size, cfg.d_model),
+            "generator": nn.init_dense(gen, cfg.d_model, cfg.vocab_size)}
+
+
+def named_leaves(params, prefix: str = "") -> dict[str, torch.Tensor]:
+    """Every tensor of a params tree under its `/`-joined path (the keys
+    of the JAX package's `save_params_npz`), in nesting order."""
+    if isinstance(params, (dict, list)):
+        items = params.items() if isinstance(params, dict) else enumerate(params)
+        out: dict[str, torch.Tensor] = {}
+        for k, v in items:
+            out.update(named_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: params}
+
+
+def params_to(params, device: torch.device | str):
+    """The params tree with every tensor on `device` (those already there
+    as they are)."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, device) for v in params]
+    return params.to(device)
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in named_leaves(params).values())
 
 
 def prepare_serving_params(params: dict[str, Any], cfg: ModelConfig):
@@ -45,14 +90,15 @@ def prepare_serving_params(params: dict[str, Any], cfg: ModelConfig):
     return out
 
 
-def encode(params, cfg: ModelConfig, signal: torch.Tensor,
-           lengths: torch.Tensor):
-    """Raw signal chunk batch (B, S) -> (memory (B, T, D), enc_lengths)."""
-    if not cfg.lean_step:
-        return encoder_apply(params["encoder"], cfg, signal, lengths)
-    if "_enc_lean" not in params:
-        raise ValueError(_NOT_FOLDED)
-    return encoder_apply_lean(params["_enc_lean"], cfg, signal, lengths)
+def encode(params, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor,
+           gen: torch.Generator | None = None, train: bool = False):
+    """Raw signal chunk batch (B, S) -> (memory (B, T, D), enc_lengths).
+    The folded lean encoder runs when the params carry it (`_enc_lean`,
+    from prepare_serving_params) and this is not a training pass; else
+    the unfolded encoder over the master weights."""
+    if not train and "_enc_lean" in params:
+        return encoder_apply_lean(params["_enc_lean"], cfg, signal, lengths)
+    return encoder_apply(params["encoder"], cfg, signal, lengths, gen, train)
 
 
 def init_decode_state(params, cfg: ModelConfig, memory: torch.Tensor,
@@ -85,15 +131,37 @@ def reorder_decode_state_beam(state: dict[str, Any],
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
-                  position: int) -> torch.Tensor:
-    """tokens (B, 1) -> (B, 1, D): embedding * sqrt(d) + PE row `position`."""
+                  position: int | None = None) -> torch.Tensor:
+    """tokens (B, T) -> (B, T, D): embedding * sqrt(d) + positional
+    encoding, rows 0..T-1, or row `position` for a one-token step."""
     dtype = compute_dtype(cfg)
     y = nn.embed(params["tgt_embed"], tokens, dtype)
     y = y * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=dtype,
                          device=y.device)
     pe = nn.sinusoidal_positions(cfg.max_decode_len + 1, cfg.d_model,
                                  y.device).to(dtype)
+    if position is None:
+        return y + pe[None, :tokens.shape[1], :]
     return y + pe[position][None, None, :]
+
+
+def generator_log_probs(params, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden (..., D) -> vocab log-probs, f32."""
+    gen = params["generator"]
+    return torch.log_softmax(hidden.to(torch.float32) @ gen["w"] + gen["b"], dim=-1)
+
+
+def decode_teacher_forced(params, cfg: ModelConfig, tgt_in: torch.Tensor,
+                          memory: torch.Tensor, mem_lengths: torch.Tensor,
+                          gen: torch.Generator | None = None, train: bool = False):
+    """Full teacher-forced decode: tgt_in (B, T) int (BOS-prefixed) ->
+    (log-probs (B, T, V) f32, the last layer's cross-attention probs
+    (B, H, T, S) f32)."""
+    _check_transformer(cfg)
+    y = _embed_tokens(params, cfg, tgt_in)
+    hidden, attn = dec.transformer_decoder_forced(params["decoder"], cfg, y, memory,
+                                                  mem_lengths, gen, train)
+    return generator_log_probs(params, hidden), attn
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -113,6 +181,4 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     hidden, (probs, amax), new_state = dec.transformer_decoder_step(
         params["decoder"], cfg, y1, state)
     attn_pos = amax if probs is None else dec._head_mean_argmax(probs)
-    gen = params["generator"]
-    logits = hidden[:, 0, :].to(torch.float32) @ gen["w"] + gen["b"]
-    return torch.log_softmax(logits, dim=-1), attn_pos, new_state
+    return generator_log_probs(params, hidden[:, 0, :]), attn_pos, new_state

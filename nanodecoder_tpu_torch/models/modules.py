@@ -2,7 +2,12 @@
 
 The port's counterpart of `nanodecoder_tpu.models.modules`, with the
 same semantics:
-  * params are nested dicts of tensors; a dense `w` is (in, out);
+  * params are nested dicts of float32 tensors; a dense `w` is (in, out);
+  * initializers draw from an explicit `torch.Generator` and make their
+    tensors on its device; dropout draws its masks from the caller's
+    generator (the port cannot reproduce `jax.random`'s streams, so
+    values and masks differ from the JAX package's by design, their
+    distributions do not);
   * activations run in the compute dtype, with layer-norm statistics
     and softmax in float32;
   * masks fill with -1e9, never -inf, so a row with no valid key gives
@@ -17,6 +22,56 @@ import math
 import torch
 
 NEG_INF = -1e9  # additive mask value; avoids NaN-producing -inf in softmax
+
+
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return u * (hi - lo) + lo
+
+
+def glorot(gen: torch.Generator, shape) -> torch.Tensor:
+    """Glorot-uniform over `shape` with the JAX package's fan rule:
+    fan_in, fan_out = shape[-2], shape[-1] (a (W, I, O) conv weight leaves
+    the kernel width out)."""
+    fan_in, fan_out = shape[-2], shape[-1]
+    scale = math.sqrt(6.0 / (fan_in + fan_out))
+    return _uniform(gen, shape, -scale, scale)
+
+
+def normal_init(gen: torch.Generator, shape, stddev: float) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32) * stddev
+
+
+def init_dense(gen: torch.Generator, in_dim: int, out_dim: int,
+               use_bias: bool = True):
+    p = {"w": glorot(gen, (in_dim, out_dim))}
+    if use_bias:
+        p["b"] = torch.zeros((out_dim,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def init_layer_norm(dim: int, device: torch.device | str = "cpu"):
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def init_embedding(gen: torch.Generator, vocab: int, dim: int):
+    return {"table": normal_init(gen, (vocab, dim), 1.0 / math.sqrt(dim))}
+
+
+def init_mha(gen: torch.Generator, d_model: int, n_heads: int,
+             kv_heads: int | None = None):
+    """q and o are (D, D); k and v project to kv_heads * head_dim (GQA/MQA
+    when kv_heads < n_heads)."""
+    dk = d_model // n_heads * (kv_heads or n_heads)
+    return {"q": init_dense(gen, d_model, d_model), "k": init_dense(gen, d_model, dk),
+            "v": init_dense(gen, d_model, dk), "o": init_dense(gen, d_model, d_model)}
+
+
+def init_ffn(gen: torch.Generator, d_model: int, ffn_dim: int):
+    return {"in": init_dense(gen, d_model, ffn_dim),
+            "out": init_dense(gen, ffn_dim, d_model)}
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
@@ -52,6 +107,19 @@ def sinusoidal_positions(max_len: int, dim: int,
     pe[:, 0::2] = torch.sin(ang)
     pe[:, 1::2] = torch.cos(ang)
     return pe
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: x / keep where a uniform draw from `gen` falls
+    below keep = 1 - rate, else 0.  The identity unless training with a
+    positive rate and a generator (which must lie on x's device)."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)).to(x.dtype)
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -101,14 +169,18 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mha(p, n_heads: int, query: torch.Tensor, key_value: torch.Tensor,
-        mask: torch.Tensor | None = None, kv_heads: int | None = None):
-    """Full (non-incremental) multi-head attention, inference only.
-    query: (B, Tq, D); key_value: (B, Tk, D).  Returns (out (B, Tq, D),
-    probs (B, H, Tq, Tk) f32)."""
+        mask: torch.Tensor | None = None, dropout_rate: float = 0.0,
+        gen: torch.Generator | None = None, train: bool = False,
+        kv_heads: int | None = None):
+    """Full (non-incremental) multi-head attention; differentiable.
+    query: (B, Tq, D); key_value: (B, Tk, D).  Dropout (when training)
+    falls on the attention output before the o projection, not on the
+    probabilities.  Returns (out (B, Tq, D), probs (B, H, Tq, Tk) f32)."""
     q = _split_heads(dense(p["q"], query), n_heads)
     k = _split_heads(dense(p["k"], key_value), kv_heads or n_heads)
     v = _split_heads(dense(p["v"], key_value), kv_heads or n_heads)
     out, probs = attention_core(q, k, v, mask)
+    out = dropout(out, dropout_rate, gen, train)
     return dense(p["o"], _merge_heads(out)), probs
 
 
@@ -130,12 +202,20 @@ def mha_step(p, n_heads: int, query_1: torch.Tensor, k: torch.Tensor,
     return dense(p["o"], _merge_heads(out)), probs
 
 
-def ffn(p, x: torch.Tensor) -> torch.Tensor:
-    """Position-wise feed-forward, inference only: dense, ReLU, dense."""
-    return dense(p["out"], torch.relu(dense(p["in"], x)))
+def ffn(p, x: torch.Tensor, dropout_rate: float = 0.0,
+        gen: torch.Generator | None = None, train: bool = False) -> torch.Tensor:
+    """Position-wise feed-forward: dense, ReLU, dropout (when training),
+    dense."""
+    h = dropout(torch.relu(dense(p["in"], x)), dropout_rate, gen, train)
+    return dense(p["out"], h)
 
 
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """(B,) lengths -> (B, max_len) bool validity mask."""
     pos = torch.arange(max_len, device=lengths.device)[None, :]
     return pos < lengths[:, None]
+
+
+def causal_mask(t: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """(1, 1, t, t) lower-triangular bool mask, True = keep."""
+    return torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))[None, None]

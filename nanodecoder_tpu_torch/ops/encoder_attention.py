@@ -28,6 +28,12 @@ run a scalar kernel of the same math and rounding points, which loops
 over Dh in slices; each wrapper counts those launches apart in
 `.scalar_launches`.  Any B and any number of heads run (the kernels
 loop over grid y and z past 65535).
+
+The kernels have no backward: each wrapper raises when grad mode is on
+and an input requires grad, on every device, rather than return an
+output that autograd would treat as a constant.  Training takes the
+differentiable `attention_core` instead (`models.encoder` with
+`train=True`).
 """
 
 from __future__ import annotations
@@ -74,6 +80,15 @@ def encoder_attention_nld_plain(q, k, v, lengths, heads: int) -> torch.Tensor:
     """K5's plain PyTorch version."""
     return nn._merge_heads(encoder_attention_heads_plain(
         *(nn._split_heads(x, heads) for x in (q, k, v)), lengths))
+
+
+def _refuse_autograd(name: str, *xs: torch.Tensor) -> None:
+    """Raise when autograd would need a gradient through the kernel."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on inputs "
+            f"that do not require grad (a training pass takes the differentiable "
+            f"attention_core route, models.encoder with train=True)")
 
 
 def _check(x: torch.Tensor, lengths: torch.Tensor, b: int, dh: int) -> bool:
@@ -139,6 +154,7 @@ def flash_encoder_attention_qkv(qkv: torch.Tensor, lengths: torch.Tensor,
     if qkv.dim() != 3 or qkv.shape[2] % 3 or (qkv.shape[2] // 3) % heads:
         raise ValueError(f"qkv must be (B, S, 3*heads*Dh), got {tuple(qkv.shape)}"
                          f" with heads={heads}")
+    _refuse_autograd("flash_encoder_attention_qkv (K1)", qkv)
     b, s, d3 = qkv.shape
     d = d3 // 3
     dh = d // heads
@@ -162,6 +178,7 @@ def flash_encoder_attention_nld(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share a dtype")
+    _refuse_autograd("flash_encoder_attention_nld (K5)", q, k, v)
     b, s, d = q.shape
     if _check(q, lengths, b, d // heads):
         return encoder_attention_nld_plain(q, k, v, lengths, heads)
@@ -184,6 +201,7 @@ def flash_encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share a dtype")
+    _refuse_autograd("flash_encoder_attention (K6)", q, k, v)
     b, s, h, dh = q.shape
     if _check(q, lengths, b, dh):
         return encoder_attention_heads_plain(q, k, v, lengths)

@@ -1,1 +1,2 @@
-"""Weights interchange and the signal simulator."""
+"""Training: data and shards, losses, the optimizer, the trainer, early
+stopping, and weights and checkpoints."""

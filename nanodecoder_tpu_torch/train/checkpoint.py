@@ -1,25 +1,45 @@
-"""Weights interchange with the JAX package's flat `.npz` export.
+"""Weights interchange with the JAX package's flat `.npz` export, and the
+port's training checkpoints.
 
 `nanodecoder_tpu.train.checkpoint.save_params_npz` writes one array per
 parameter under its `/`-joined pytree path, e.g.
 `encoder/body/layers/0/attn/q/w`.  The port keeps the same nesting as
 plain dicts and lists of tensors, so every parameter is found under the
-same path in both packages.
+same path in both packages, and the port's `save_params_npz` writes a
+file that the JAX package's `load_params_npz` reads.
 
 Layouts: a dense `w` stays (in, out) (the port multiplies `x @ w` as the
 JAX package does); a conv `w` is stored (W, I, O) and becomes torch's
 (O, I, W) for `conv1d`.  `params_to_numpy` is the exact inverse.
+
+`CheckpointManager` keeps training checkpoints in the port's own format:
+
+    <directory>/config.json            Config.to_json()
+    <directory>/<step>/params.npz      save_params_npz keys and layouts
+    <directory>/<step>/opt_state.npz   count, step, mu/<key>, nu/<key>
+
+A save writes a temporary directory and renames it into place, so an
+interrupted save leaves the earlier steps readable; the newest
+`max_to_keep` steps are kept.  The JAX package's orbax checkpoint
+directories are not read (reading them needs orbax, which imports JAX).
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 from typing import Any
 
 import numpy as np
 import torch
 
-from nanodecoder_tpu_torch.config import ModelConfig
+from nanodecoder_tpu_torch.config import Config, ModelConfig
 from nanodecoder_tpu_torch.device import resolve_device
+from nanodecoder_tpu_torch.models.model import named_leaves
+from nanodecoder_tpu_torch.train.trainer import TrainState
+from nanodecoder_tpu_torch.utils.logging import get_logger
+
+log = get_logger("checkpoint")
 
 
 def _ln(prefix: str, d: int) -> dict[str, tuple[int, ...]]:
@@ -99,22 +119,16 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig,
 def params_to_numpy(params: dict[str, Any]) -> dict[str, np.ndarray]:
     """Nested tensors -> flat `save_params_npz` arrays (inverse of
     params_from_numpy)."""
-    flat: dict[str, np.ndarray] = {}
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, path + [str(k)])
-        elif isinstance(node, list):
-            for i, v in enumerate(node):
-                walk(v, path + [str(i)])
-        else:
-            key = "/".join(path)
-            arr = node.detach().cpu().numpy()
-            flat[key] = arr.transpose(2, 1, 0) if _is_conv_weight(key) else arr
-
-    walk(params, [])
+    flat = {}
+    for key, t in named_leaves(params).items():
+        arr = t.detach().cpu().numpy()
+        flat[key] = arr.transpose(2, 1, 0) if _is_conv_weight(key) else arr
     return flat
+
+
+def save_params_npz(path: str, params: dict[str, Any]) -> None:
+    """Write params as the JAX package's flat `.npz` export."""
+    np.savez(path, **params_to_numpy(params))
 
 
 def load_params_npz(path: str, cfg: ModelConfig,
@@ -147,3 +161,81 @@ def _insert(root: dict[str, Any], parts: list[str], value) -> None:
         node.append(value)
     else:
         node[last] = value
+
+
+def load_config(directory: str) -> Config:
+    with open(os.path.join(directory, "config.json")) as f:
+        return Config.from_json(f.read())
+
+
+class CheckpointManager:
+    """Training checkpoints of one run (format in the module docstring)."""
+
+    PARAMS, OPT = "params.npz", "opt_state.npz"
+
+    def __init__(self, directory: str, config: Config, max_to_keep: int = 5):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.config = config
+        self.max_to_keep = max_to_keep
+        cfg_path = os.path.join(self.directory, "config.json")
+        if not os.path.exists(cfg_path):
+            tmp = cfg_path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(config.to_json())
+            os.replace(tmp, cfg_path)
+
+    def all_steps(self) -> list[int]:
+        """The saved steps, oldest first (only completed saves)."""
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.isfile(
+                          os.path.join(self.directory, n, self.OPT)))
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state) -> None:
+        """Write a TrainState (params, opt_state, step) as `step`."""
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        save_params_npz(os.path.join(tmp, self.PARAMS), state.params)
+        opt = {"count": np.asarray(int(state.opt_state["count"]), np.int64),
+               "step": np.asarray(int(state.step), np.int64)}
+        for name in ("mu", "nu"):
+            for key, arr in params_to_numpy(state.opt_state.get(name, {})).items():
+                opt[f"{name}/{key}"] = arr
+        np.savez(os.path.join(tmp, self.OPT), **opt)
+        final = os.path.join(self.directory, str(step))
+        old = None
+        if os.path.exists(final):  # a re-save of one step replaces it
+            old = os.path.join(self.directory, f".old-{step}-{os.getpid()}")
+            os.rename(final, old)
+        os.rename(tmp, final)
+        if old is not None:
+            shutil.rmtree(old)
+        for s in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(s)))
+        log.info("saved checkpoint @ step %d -> %s", step, self.directory)
+
+    def restore(self, step: int | None = None, device: str | torch.device = "cuda"):
+        """The TrainState saved at `step` (default: the latest) on `device`;
+        opt_state's mu and nu are keyed by param path."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        root = os.path.join(self.directory, str(step))
+        mcfg = self.config.model
+        params = load_params_npz(os.path.join(root, self.PARAMS), mcfg, device)
+        with np.load(os.path.join(root, self.OPT)) as data:
+            flat = {k: data[k] for k in data.files}
+        opt: dict[str, Any] = {"count": torch.tensor(int(flat["count"]),
+                                                     dtype=torch.int64)}
+        for name in ("mu", "nu"):
+            part = {k[len(name) + 1:]: v for k, v in flat.items()
+                    if k.startswith(name + "/")}
+            if part:
+                opt[name] = named_leaves(params_from_numpy(part, mcfg, device))
+        log.info("restored checkpoint @ step %d from %s", step, self.directory)
+        return TrainState(params, opt, int(flat["step"]))
