@@ -102,12 +102,37 @@ Phases, in order; any failure exits non-zero before the last line:
      --synthetic, cli.train --data 5 steps, --resume to 8, cli.evaluate
      on the checkpoint directory, as subprocesses (exit 0, checkpoints 5
      and 8, 2 reads evaluated);
- 14. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+ 14. rnn: the recurrent family at the RNN flagship's widths (the
+     committed config with encoder_type lstm and decoder_type rnn,
+     "general" Luong attention), random params from seed 14 (generator
+     and the RNN decoder's LSTM weights scaled 3x), each card result
+     against the port's own CPU run on the same params and inputs:
+     (a) f32, float32 wire: greedy on the 3 golden reads' signals
+     (identity >= 0.99 on each, the share of chunks with equal tokens
+     printed, some bases called), beam 5 on golden read 101 (0.99, K3),
+     greedy on read 101 with dot and mlp attention (0.99); (b) bf16,
+     int6 wire, batch 640: greedy on the first 20 reads of phase 4
+     (every read a finite score; ksamples/s), one full batch timed apart
+     (encode ms with its sequential LSTM cell steps, decode ms and steps),
+     one full beam batch of 256 chunks x 5; (c) the hybrids, f32, greedy
+     on the golden reads and beam 5 on read 101 (0.99): transformer
+     encoder + RNN decoder (lean, K1) and biLSTM encoder + MQA
+     transformer decoder (lean, K2); (d) training (lstm, rnn): phase 13
+     (a)'s parity and gates from the random params, then 20 steps at batch
+     32 from init_model (finite losses, median step ms, peak memory),
+     launching no kernel; (e) the importer: a synthetic OpenNMT
+     state_dict (biLSTM encoder + MQA transformer decoder) saved as a .pt
+     and loaded by load_torch_checkpoint onto the card and the CPU,
+     greedy on the golden reads (0.99); (f) the streaming engine with
+     (b)'s params at 256-chunk batches on (b)'s 20 reads (every read back
+     once, mean identity to (b)'s Translator calls 0.99); its wall time;
+ 15. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
      beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11; engine,
-     12; train, 13 (a)-(c); train_serve, 13 (d)), K4a's and K4b's
-     launches of the scalar decode-attention kernel apart (none on
-     phases 3-9), errors, times;
- 15. the last line: {"ok": true, "device": {...}}.
+     12; train, 13 (a)-(c); train_serve, 13 (d); rnn, 14 (a)-(b);
+     rnn_hybrid, 14 (c); rnn_train, 14 (d); rnn_import, 14 (e);
+     rnn_engine, 14 (f)), K4a's and K4b's launches of the scalar
+     decode-attention kernel apart (none on phases 3-9), errors, times;
+ 16. the last line: {"ok": true, "device": {...}}.
 
 `--kernels` runs phase 1 and the named kernels' phase 2 only and prints
 their numbers as one JSON line; with `--root` it imports (and builds) the
@@ -790,25 +815,30 @@ def phase_beam_parity(params, cfg, ref=None, label=None):
     return tr.batches, tr.decode_steps, got.sequence
 
 
-def phase_beam_serving(params, cfg, greedy_idents=None, n_reads=20, label="beam"):
-    """One full beam batch, then (with greedy_idents) the first n_reads
-    reads of phase 4."""
-    from nanodecoder_tpu_torch.decode.translator import Translator
+def batch_of_chunks(scfg, bsz: int, n_reads: int):
+    """The first bsz chunks (and their lengths) of the first n_reads reads
+    of seed 1: one full batch."""
     from nanodecoder_tpu_torch.io.signal import chunk_signal, normalize_signal
 
-    tr = Translator(params, cfg)
-    bsz = cfg.decode.effective_batch_chunks()
-    scfg = cfg.signal
     chunks, lengths = [], []
-    reads = iter(simulated_reads(40))
+    reads = iter(simulated_reads(n_reads))
     while sum(c.shape[0] for c in chunks) < bsz:
         cb = chunk_signal(normalize_signal(next(reads)[1], scfg.normalization,
                                            scfg.mad_scale, scfg.clip_sigma),
                           scfg.chunk_len, scfg.chunk_overlap, scfg.min_chunk_fill)
         chunks.append(cb.chunks)
         lengths.append(cb.lengths)
-    chunks = np.concatenate(chunks)[:bsz]
-    lengths = np.concatenate(lengths)[:bsz]
+    return np.concatenate(chunks)[:bsz], np.concatenate(lengths)[:bsz]
+
+
+def phase_beam_serving(params, cfg, greedy_idents=None, n_reads=20, label="beam"):
+    """One full beam batch, then (with greedy_idents) the first n_reads
+    reads of phase 4."""
+    from nanodecoder_tpu_torch.decode.translator import Translator
+
+    tr = Translator(params, cfg)
+    bsz = cfg.decode.effective_batch_chunks()
+    chunks, lengths = batch_of_chunks(cfg.signal, bsz, 40)
     tr.decode_chunk_batch(chunks, lengths)  # warm-up
     steps0 = tr.decode_steps
     torch.cuda.synchronize()
@@ -1033,12 +1063,15 @@ def phase_repaired(dev, rng) -> dict:
     return out
 
 
-def random_params(cfg, seed: int, generator_scale: float = 3.0) -> dict:
+def random_params(cfg, seed: int, generator_scale: float = 3.0,
+                  rnn_cell_scale: float = 1.0) -> dict:
     """Flat params at cfg's shapes from a numpy seed (the port has no
     init_model): glorot-scaled dense and conv weights, embeddings of std
     1/sqrt(D), unit LN scales, zero biases, the generator scaled up so
     that with this seed some chunks end early (EOS, then PAD) and some
-    run to max_decode_len."""
+    run to max_decode_len; an RNN decoder's LSTM weights scaled by
+    rnn_cell_scale (at the init's scale a random recurrence settles on
+    one token a chunk)."""
     from nanodecoder_tpu_torch.train.checkpoint import expected_param_shapes
 
     rng = np.random.default_rng(seed)
@@ -1055,6 +1088,10 @@ def random_params(cfg, seed: int, generator_scale: float = 3.0) -> dict:
             a = rng.standard_normal(shape) * np.sqrt(2.0 / (fan_in + shape[-1]))
         flat[key] = a.astype(np.float32)
     flat["generator/w"] = flat["generator/w"] * generator_scale
+    if cfg.decoder_type == "rnn":
+        for key in flat:
+            if key.startswith("decoder/layers/") and key[-3:] in ("/wx", "/wh"):
+                flat[key] = flat[key] * rnn_cell_scale
     return flat
 
 
@@ -1422,10 +1459,11 @@ PARITY_STEPS, PARITY_LR, ADAM_STEP = 2, 4e-5, 1.01
 
 
 def train_config(batch: int, dtype: str = "float32", dropout: float | None = None,
-                 pallas: bool = True):
-    """The flagship config for training: f32 (or `dtype`) compute, the
-    kernel route for validation, TRAIN_OVERRIDES and this batch."""
-    cfg = load_config(dtype, "float32", 640, pallas=pallas)
+                 pallas: bool = True, model=None):
+    """The flagship config (with `model`'s ModelConfig overrides) for
+    training: f32 (or `dtype`) compute, the kernel route for validation,
+    TRAIN_OVERRIDES and this batch."""
+    cfg = load_config(dtype, "float32", 640, model=model, pallas=pallas)
     model = cfg.model if dropout is None else dataclasses.replace(cfg.model,
                                                                   dropout=dropout)
     return dataclasses.replace(cfg, model=model, train=dataclasses.replace(
@@ -1474,7 +1512,7 @@ def relu_inputs(store: list):
         modules.ffn = real
 
 
-def parity_gradients(step: int, gg: dict, gc: dict) -> None:
+def parity_gradients(step: int, gg: dict, gc: dict, label: str = "train parity") -> None:
     """A step's gradients, card (gg) against CPU (gc): within rtol 1e-4 /
     atol 1e-6 in all but 0.1% of the elements, and each tensor within
     1e-3 of its norm (+ 1e-6 sqrt(n)).  The elementwise tolerance cannot
@@ -1490,17 +1528,18 @@ def parity_gradients(step: int, gg: dict, gc: dict) -> None:
         worst = max(worst, (float(ratio.max()), k))
         rel = float(d.norm() / (1e-3 * c.norm() + 1e-6 * c.numel() ** 0.5))
         tensor = max(tensor, (rel, k))
-    print(f"train parity step {step}: gradients, {over} of {total} elements "
+    print(f"{label} step {step}: gradients, {over} of {total} elements "
           f"({over / total:.4%}) outside rtol 1e-4 / atol 1e-6 (the worst at "
           f"{worst[0]:.2f} of its allowance, in {worst[1]}); the worst tensor's |card - CPU| "
           f"at {tensor[0]:.3f} of 1e-3 of its norm + 1e-6 sqrt(n), {tensor[1]}")
-    check(over <= 1e-3 * total, f"train parity: {over} gradient elements differ")
-    check(tensor[0] <= 1.0, f"train parity: the gradient of {tensor[1]} differs")
+    check(over <= 1e-3 * total, f"{label}: {over} gradient elements differ")
+    check(tensor[0] <= 1.0, f"{label}: the gradient of {tensor[1]} differs")
 
 
-def train_parity(dev):
+def train_parity(dev, model=None, flat=None, label="train parity"):
     """(a) PARITY_STEPS Adam steps at a constant lr PARITY_LR from the
-    flagship params, dropout 0, batch 8, f32 without TF32, on the card
+    flagship params (or the flat params `flat` of the flagship with
+    `model`'s overrides), dropout 0, batch 8, f32 without TF32, on the card
     and on the CPU, each step from the card's state (params and
     optimizer; from one state to the next the card's and the CPU's
     would part wherever Adam's first steps, about lr whatever a
@@ -1518,13 +1557,19 @@ def train_parity(dev):
     from nanodecoder_tpu_torch.train.data import synthetic_batches
     from nanodecoder_tpu_torch.train.optim import Optimizer
 
-    cfg = train_config(PARITY_BATCH, dropout=0.0)
+    from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy
+
+    cfg = train_config(PARITY_BATCH, dropout=0.0, model=model)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, optimizer="adam", lr_schedule="constant", learning_rate=PARITY_LR))
     it = synthetic_batches(cfg, seed=0)
     batches = [next(it) for _ in range(PARITY_STEPS + 1)]
-    card = quiet_trainer(cfg, load_params_npz(NPZ, cfg.model, device=dev))
-    cpu = quiet_trainer(cfg, load_params_npz(NPZ, cfg.model, device="cpu"))
+
+    def start(device):
+        return load_params_npz(NPZ, cfg.model, device=device) if flat is None \
+            else params_from_numpy(flat, cfg.model, device)
+
+    card, cpu = quiet_trainer(cfg, start(dev)), quiet_trainer(cfg, start("cpu"))
     replay = {k: v.requires_grad_(True) for k, v in host_leaves(card.params).items()}
     replay_opt = Optimizer(replay, cfg.train, cfg.model.d_model)
     t0 = time.perf_counter()
@@ -1551,21 +1596,22 @@ def train_parity(dev):
             exempt = ((lo < 1e-6) & (hi > 0)) | (d > 1e-6 + 1e-4 * c.abs())
             held = max(held, float((pg[k] - pc[k]).abs().masked_fill(exempt, 0).max()))
             n_ex, n_all = n_ex + int(exempt.sum()), n_all + c.numel()
-        print(f"train parity step {i + 1}: loss_sum card {lg:.6f} CPU {lc:.6f} "
+        print(f"{label} step {i + 1}: loss_sum card {lg:.6f} CPU {lc:.6f} "
               f"(rel {abs(lg - lc) / abs(lc):.2e}), tokens {int(mg['n_tokens'])} / "
               f"{int(mc['n_tokens'])}; params (lr {PARITY_LR:.0e}): max |card - host's "
               f"update on the card's gradients| {update:.3e}, max |card - CPU| {every:.3e}, "
               f"{held:.3e} over the elements held ({n_ex} exempt, {n_ex / n_all:.4%}); "
               f"ReLU inputs on the other side of 0 on the card, by FFN: {sides} (largest "
-              f"|card - CPU| input {max(float((a - b).abs().max()) for a, b in zip(zg, zc)):.1e})")
-        check(int(mg["n_tokens"]) == int(mc["n_tokens"]), "train parity: token counts")
-        check(abs(lg - lc) <= 1e-4 * abs(lc), f"train parity: loss {lg} vs {lc}")
-        check(update <= 1e-6, f"train parity: the card's update differs by {update}")
-        check(every <= 1e-4 and held <= 1e-5, f"train parity: params differ by {every}, "
+              f"|card - CPU| input "
+              f"{max((float((a - b).abs().max()) for a, b in zip(zg, zc)), default=0.0):.1e})")
+        check(int(mg["n_tokens"]) == int(mc["n_tokens"]), f"{label}: token counts")
+        check(abs(lg - lc) <= 1e-4 * abs(lc), f"{label}: loss {lg} vs {lc}")
+        check(update <= 1e-6, f"{label}: the card's update differs by {update}")
+        check(every <= 1e-4 and held <= 1e-5, f"{label}: params differ by {every}, "
               f"{held} over the elements held")
-        check(n_ex < 0.1 * n_all, f"train parity: {n_ex} of {n_all} elements exempt")
-        parity_gradients(i + 1, gg, gc)
-    print(f"train parity: {PARITY_STEPS} steps, {time.perf_counter() - t0:.1f} s with the "
+        check(n_ex < 0.1 * n_all, f"{label}: {n_ex} of {n_all} elements exempt")
+        parity_gradients(i + 1, gg, gc, label)
+    print(f"{label}: {PARITY_STEPS} steps, {time.perf_counter() - t0:.1f} s with the "
           f"CPU's steps")
     return card, batches
 
@@ -1826,6 +1872,373 @@ def phase_train(dev, reset, counts, phase4: dict, root: str) -> tuple[dict, dict
     return launches, serving, numbers
 
 
+# Phase 14: the recurrent family at the RNN flagship's widths (the
+# committed config with a biLSTM encoder and the input-feed RNN decoder,
+# "general" Luong attention) and the two hybrids, with random params.
+RNN_MODEL = {"encoder_type": "lstm", "decoder_type": "rnn"}
+RNN_SEED, RNN_TRAIN_STEPS, RNN_CELL_SCALE = 14, 20, 3.0
+
+
+def rnn_config(compute_dtype: str, h2d: str, model=None, batch: int = 640, **decode):
+    """The RNN flagship (or a hybrid, with `model`'s overrides) with these
+    serving settings, kernel route.  The card-vs-CPU runs take batches of
+    32 chunks (a golden read has at most 25): the CPU would otherwise run
+    the biLSTM over 640 rows a read, mostly padding."""
+    return load_config(compute_dtype, h2d, batch, model={**RNN_MODEL, **(model or {})},
+                       **decode)
+
+
+def rnn_flat(cfg) -> dict:
+    """Phase 14's random flat params at cfg's shapes."""
+    return random_params(cfg.model, RNN_SEED, rnn_cell_scale=RNN_CELL_SCALE)
+
+
+def golden_signals():
+    """[(read id, signal)] of the three golden reads' simulated signals."""
+    from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
+
+    spec = SimSpec()
+    levels = spec.level_table()
+    return [(f"golden_{seed}", simulate_read(np.random.default_rng(seed), n, spec, levels)[1])
+            for seed, n in GOLDEN_READS]
+
+
+def call_read_chunks(tr, sig):
+    """Basecall one read as Translator.basecall_read does (trim stitch),
+    keeping the chunks' tokens: (sequence, qualities, tokens (N, T),
+    token lengths (N,))."""
+    from nanodecoder_tpu_torch.decode.finish import stitch_read
+    from nanodecoder_tpu_torch.io.signal import chunk_signal, normalize_signal
+
+    sc = tr.config.signal
+    cb = chunk_signal(normalize_signal(sig, sc.normalization, sc.mad_scale, sc.clip_sigma),
+                      sc.chunk_len, sc.chunk_overlap, sc.min_chunk_fill)
+    tokens, lengths, lps, _scores, pos = tr.decode_chunk_batch(cb.chunks, cb.lengths)
+    parts = [(tokens[i], int(lengths[i]), lps[i], pos[i]) for i in range(cb.n_chunks)]
+    seq, qual = stitch_read(parts, cb.starts, cb.lengths, sc.chunk_len, sc.chunk_overlap,
+                            "trim", tr.vocab)
+    return seq, qual, tokens, lengths
+
+
+def rnn_greedy_parity(params, cfg, label: str, reads) -> None:
+    """Greedy basecalls of `reads` on the card and on the CPU from the same
+    params: identity of the two at least 0.99 on each read; the share of
+    chunks with equal tokens and the chunks ended by EOS printed."""
+    from nanodecoder_tpu_torch.decode.translator import Translator
+    from nanodecoder_tpu_torch.identity import read_identity
+
+    card, cpu = Translator(params, cfg), Translator(params, cfg, device="cpu")
+    tmax = cfg.model.max_decode_len
+    bases = 0
+    for rid, sig in reads:
+        seq, qual, tok, lens = call_read_chunks(card, sig)
+        ref, _q, rtok, rlens = call_read_chunks(cpu, sig)
+        ident = read_identity(seq, ref)
+        same = [bool(a == b and (t[:a] == r[:b]).all())
+                for t, a, r, b in zip(tok, lens, rtok, rlens)]
+        print(f"{label}: {rid} card vs CPU identity {ident:.4f} ({len(seq)} / {len(ref)} "
+              f"bases), chunks with equal tokens {sum(same)}/{len(same)}, ended by EOS "
+              f"{int((lens < tmax).sum())}/{len(lens)}")
+        check(bool(np.isfinite(qual).all()) and len(qual) == len(seq),
+              f"{label}: {rid} bad qualities")
+        check(ident >= 0.99, f"{label}: {rid} identity {ident} below 0.99")
+        bases += len(seq)
+    # Two empty calls would agree vacuously.
+    check(bases > 0, f"{label}: no read called a base")
+
+
+def rnn_serving(params, cfg, record: dict) -> dict:
+    """(b) bf16, int6 wire, batch 640, greedy: the first 20 reads of phase 4
+    through Translator (every read a finite score; ksamples/s), then one
+    full 640-chunk batch timed apart, encode and decode (CUDA-synchronized
+    host clock, after one warm-up batch).  Fills `record` with the reads'
+    sequences; returns the numbers."""
+    from nanodecoder_tpu_torch.decode.greedy import greedy_decode
+    from nanodecoder_tpu_torch.decode.translator import Translator
+    from nanodecoder_tpu_torch.io.fast5 import RawRead
+    from nanodecoder_tpu_torch.io.signal import convert_h2d
+
+    tr = Translator(params, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls = [tr.basecall_read(RawRead(f"sim{i}", sig, "sim"), stitch_method="attn")
+             for i, (_truth, sig) in enumerate(simulated_reads(20))]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    samples = sum(bc.n_samples for bc in calls)
+    check(all(math.isfinite(bc.mean_qscore) and bool(np.isfinite(bc.qualities).all())
+              for bc in calls), "rnn serving: a read without a finite score")
+    record["seqs"] = [bc.sequence for bc in calls]
+    sc, bsz = cfg.signal, cfg.decode.effective_batch_chunks()
+    chunks, lengths = batch_of_chunks(sc, bsz, 60)
+    wire = convert_h2d(chunks.astype(np.float32), tr._h2d, sc.clip_sigma)
+    times = []
+    with torch.inference_mode():
+        for _ in range(2):  # a warm-up batch, then the timed one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mem, mlen = tr._encode(wire, lengths)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = greedy_decode(tr.params, cfg.model, mem, mlen)
+            torch.cuda.synchronize()
+            times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3, res.steps))
+    enc_ms, dec_ms, steps = times[-1]
+    m = cfg.model
+    t_enc = -(-sc.chunk_len // m.time_downsample)
+    cell_steps = t_enc * m.enc_layers * 2
+    print(f"rnn serving bf16/int6/b{bsz}: 20 reads, {tr.batches} batches, "
+          f"{samples / wall / 1e3:.1f} ksamples/s wall ({wall:.2f} s); one full batch of "
+          f"{bsz} chunks: encode {enc_ms:.1f} ms ({cell_steps} sequential LSTM cell steps, "
+          f"{t_enc} x {m.enc_layers} layers x 2 directions, run as {t_enc * m.enc_layers} "
+          f"steps of both directions; {enc_ms / (t_enc * m.enc_layers) * 1e3:.0f} us a "
+          f"step), decode {dec_ms:.1f} ms for {steps} steps "
+          f"({dec_ms / max(steps, 1):.3f} ms a step), chunks ended by EOS "
+          f"{int((res.lengths < m.max_decode_len).sum())}/{bsz}")
+    check(bool(torch.isfinite(res.scores).all()), "rnn serving: a non-finite chunk score")
+    return {"rnn_serve_ksamples_per_s": samples / wall / 1e3, "rnn_encode_ms": enc_ms,
+            "rnn_decode_ms": dec_ms, "rnn_decode_steps": steps,
+            "rnn_encoder_cell_steps": cell_steps}
+
+
+def rnn_train(dev) -> dict:
+    """(d) phase 13 (a)'s parity on (lstm, rnn) from random params (two Adam
+    steps, constant lr 4e-5, batch 8, dropout 0, f32 without TF32, each
+    step from the card's state, the same gates), then RNN_TRAIN_STEPS
+    steps from init_model at batch 32 with the committed train section
+    (losses finite; median step ms by CUDA events, peak memory)."""
+    from nanodecoder_tpu_torch.models.model import init_model, params_to
+    from nanodecoder_tpu_torch.train.data import synthetic_batches
+
+    cfg = train_config(PARITY_BATCH, dropout=0.0, model=RNN_MODEL)
+    train_parity(dev, RNN_MODEL, rnn_flat(cfg), "rnn train parity")
+    cfg = train_config(32, model=RNN_MODEL)
+    trainer = quiet_trainer(cfg, params_to(init_model(torch.Generator().manual_seed(0),
+                                                      cfg.model), dev))
+    it = synthetic_batches(cfg, seed=cfg.train.seed)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RNN_TRAIN_STEPS):
+        batch = next(it)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        start.record()
+        m = trainer.train_step(batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss_sum"]) / int(m["n_tokens"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = statistics.median(step_ms[2:])
+    b, s = cfg.train.batch_size, cfg.signal.chunk_len
+    print(f"rnn train f32 b{b}: {RNN_TRAIN_STEPS} steps from init_model, loss per token "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; median step {ms:.2f} ms (CUDA events, "
+          f"steps 3-{RNN_TRAIN_STEPS}), {b * s / ms:.1f} ksamples/s; peak memory "
+          f"{peak:.0f} MiB")
+    check(all(math.isfinite(x) for x in losses), f"rnn train: non-finite loss in {losses}")
+    return {"rnn_train_step_ms": ms, "rnn_train_peak_mib": peak}
+
+
+def opennmt_state_dict(cfg, seed: int) -> dict:
+    """A synthetic OpenNMT-py state_dict in the reference's names and torch
+    layouts for cfg (transformer or biLSTM encoder, transformer decoder
+    with dec_kv K/V heads) from a numpy seed: weights N(0, 2 / (fan_in +
+    fan_out)), biases N(0, 0.02^2), LN scales 1 + N(0, 0.02^2), the
+    generator's weights scaled 3x as random_params does."""
+    rng = np.random.default_rng(seed)
+    d, dk = cfg.d_model, cfg.d_model // cfg.dec_heads * cfg.dec_kv
+    sd = {}
+
+    def put(name, arr):
+        sd[name] = torch.from_numpy(np.asarray(arr, np.float32))
+
+    def linear(prefix, n_out, n_in, scale=1.0):
+        put(f"{prefix}.weight", rng.standard_normal((n_out, n_in))
+            * np.sqrt(2.0 / (n_in + n_out)) * scale)
+        put(f"{prefix}.bias", rng.standard_normal(n_out) * 0.02)
+
+    def ln(prefix):
+        put(f"{prefix}.weight", 1.0 + rng.standard_normal(d) * 0.02)
+        put(f"{prefix}.bias", rng.standard_normal(d) * 0.02)
+
+    def mha(prefix, kv):
+        for part, n_out in (("linear_query", d), ("linear_keys", kv),
+                            ("linear_values", kv), ("final_linear", d)):
+            linear(f"{prefix}.{part}", n_out, d)
+
+    def ffn(prefix, width):
+        linear(f"{prefix}.w_1", width, d)
+        linear(f"{prefix}.w_2", d, width)
+        ln(f"{prefix}.layer_norm")
+
+    in_ch = 1
+    for i, (ch, k) in enumerate(zip(cfg.conv_channels, cfg.conv_kernels)):
+        put(f"encoder.frontend.convs.{i}.weight", rng.standard_normal((ch, in_ch, k))
+            * np.sqrt(2.0 / (in_ch * k + ch)))
+        put(f"encoder.frontend.convs.{i}.bias", np.zeros(ch))
+        in_ch = ch
+    linear("encoder.frontend.proj", d, in_ch)
+    ln("encoder.frontend.ln")
+    for i in range(cfg.enc_layers):
+        if cfg.encoder_type == "lstm":
+            h = cfg.lstm_hidden
+            for direction in ("fwd", "bwd"):
+                p = f"encoder.rnn.{i}.{direction}"
+                put(f"{p}.weight_ih_l0", rng.standard_normal((4 * h, d))
+                    * np.sqrt(2.0 / (d + 4 * h)))
+                put(f"{p}.weight_hh_l0", rng.standard_normal((4 * h, h))
+                    * np.sqrt(2.0 / (h + 4 * h)))
+                put(f"{p}.bias_ih_l0", rng.standard_normal(4 * h) * 0.02)
+                put(f"{p}.bias_hh_l0", rng.standard_normal(4 * h) * 0.02)
+            linear(f"encoder.rnn.{i}.proj", d, 2 * h)
+        else:
+            mha(f"encoder.transformer.{i}.self_attn", d)
+            ln(f"encoder.transformer.{i}.layer_norm")
+            ffn(f"encoder.transformer.{i}.feed_forward", cfg.enc_ffn_dim)
+    ln("encoder.layer_norm")
+    for i in range(cfg.dec_layers):
+        p = f"decoder.transformer_layers.{i}"
+        mha(f"{p}.self_attn", dk)
+        mha(f"{p}.context_attn", dk)
+        ln(f"{p}.layer_norm_1")
+        ln(f"{p}.layer_norm_2")
+        ffn(f"{p}.feed_forward", cfg.dec_ffn_dim)
+    ln("decoder.layer_norm")
+    put("decoder.embeddings.weight", rng.standard_normal((cfg.vocab_size, d)) / np.sqrt(d))
+    linear("generator", cfg.vocab_size, d, scale=3.0)
+    return sd
+
+
+def rnn_import(dev, reads) -> None:
+    """(e) A synthetic OpenNMT state_dict for the biLSTM encoder + the
+    flagship's transformer decoder (MQA) saved as a reference-shaped .pt
+    ({'model', 'generator' as 0.weight / 0.bias}), loaded by
+    load_torch_checkpoint onto the card and onto the CPU: greedy on the
+    golden reads, card vs CPU (0.99)."""
+    from nanodecoder_tpu_torch.models.importer import load_torch_checkpoint
+
+    cfg = rnn_config("float32", "float32", model={"decoder_type": "transformer"}, batch=32)
+    sd = opennmt_state_dict(cfg.model, RNN_SEED)
+    gen = {"0.weight": sd.pop("generator.weight"), "0.bias": sd.pop("generator.bias")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_import_")
+    try:
+        path = os.path.join(tmp, "reference.pt")
+        torch.save({"model": sd, "generator": gen, "opt": None}, path)
+        params = load_torch_checkpoint(path, cfg.model, device=dev)
+        cpu = load_torch_checkpoint(path, cfg.model, device="cpu")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(max_param_diff(params, cpu) == 0.0, "rnn import: card and CPU imports differ")
+    check(next(iter(params["generator"].values())).device.type == "cuda",
+          "rnn import: params not on the card")
+    rnn_greedy_parity(params, cfg, "rnn import (lstm, transformer) f32", reads)
+
+
+def rnn_engine(params, cfg, record: dict) -> None:
+    """(f) The streaming engine with (b)'s params and config at 256-chunk
+    batches, greedy, on the first 20 reads of phase 4 written as signal
+    files: every read back once, mean identity to (b)'s Translator calls
+    (attn stitch) at least 0.99."""
+    from nanodecoder_tpu_torch.identity import read_identity
+    from nanodecoder_tpu_torch.io.pipeline import stop_ingest_processes
+
+    cfg = dataclasses.replace(cfg, decode=dataclasses.replace(cfg.decode,
+                                                              batch_chunks_engine=256))
+    fmt, _found = signal_file_format()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rnn_engine_")
+    try:
+        reads = simulated_reads(20)
+        files = write_signal_files(tmp, [(f"sim{i}", sig) for i, (_t, sig) in
+                                         enumerate(reads)], fmt)
+        with (npz_ingest() if fmt == "npz" else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            seqs, meter, timer, _engine = engine_call(params, cfg, files, "rnn engine")
+            wall = time.perf_counter() - t0
+    finally:
+        stop_ingest_processes()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(sorted(seqs) == sorted(f"sim{i}" for i in range(20)),
+          f"rnn engine: {len(seqs)} reads back of 20")
+    idents = [read_identity(seqs[f"sim{i}"], ref) for i, ref in enumerate(record["seqs"])]
+    print(f"rnn engine bf16/int6/b256 greedy ({fmt}): 20 reads back once, identity to "
+          f"(b)'s Translator calls mean {np.mean(idents):.4f} (min {min(idents):.4f}), "
+          f"{meter.n_samples / wall / 1e3:.1f} ksamples/s ({wall:.2f} s with the ingest "
+          f"pool's start); {stage_line(timer)}")
+    check(float(np.mean(idents)) >= 0.99, f"rnn engine: identity {np.mean(idents)} < 0.99")
+
+
+def phase_rnn(dev, reset, counts, expect) -> tuple[dict, dict]:
+    """Phase 14 (a)-(f): the recurrent family on the card against the
+    port's own CPU run, with random params (RNN_SEED) at the RNN
+    flagship's widths.  Returns (launches by path, numbers)."""
+    from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy
+
+    t0 = time.perf_counter()
+    reads = golden_signals()
+    paths, numbers = {}, {}
+    beam = {"mode": "beam", "beam_size": 5, "batch_chunks_beam": 8}
+    cfg = rnn_config("float32", "float32", batch=32)
+    params = params_from_numpy(rnn_flat(cfg), cfg.model, dev)
+    print(f"rnn: (lstm, rnn) at the flagship's widths (d {cfg.model.d_model}, lstm_hidden "
+          f"{cfg.model.lstm_hidden}, {cfg.model.enc_layers} + {cfg.model.dec_layers} "
+          f"layers, {cfg.model.rnn_attention} attention), random params seed {RNN_SEED}")
+    reset()  # (a) and (b): the rnn path
+    rnn_greedy_parity(params, cfg, "rnn f32 greedy", reads)
+    _pb, psteps, _ = phase_beam_parity(params, rnn_config("float32", "float32", **beam),
+                                       label="rnn beam f32/K5")
+    for score in ("dot", "mlp"):
+        scfg = rnn_config("float32", "float32", model={"rnn_attention": score}, batch=32)
+        rnn_greedy_parity(params_from_numpy(rnn_flat(scfg), scfg.model, dev), scfg,
+                          f"rnn {score} attention f32 greedy", reads[:1])
+    serve = rnn_config("bfloat16", "int6")
+    served = {}
+    numbers.update(rnn_serving(params, serve, served))
+    _bb, bsteps = phase_beam_serving(params, rnn_config(
+        "bfloat16", "int6", **{**beam, "batch_chunks_beam": 256}), label="rnn beam")
+    paths["rnn"] = counts()
+    expect("rnn", paths["rnn"], K1=0, K2=0, K3=psteps + bsteps, K4a=0, K4b=0, K5=0)
+    check(psteps + bsteps > 0, "rnn: no beam step ran")
+    print(f"[phase 14] (a)-(b) {time.perf_counter() - t0:.1f} s")
+
+    reset()  # (c): the hybrids
+    for model, label in (({"encoder_type": "transformer"}, "transformer + rnn lean"),
+                         ({"decoder_type": "transformer"}, "lstm + transformer lean MQA")):
+        hcfg = rnn_config("float32", "float32", model=model, batch=32)
+        hp = params_from_numpy(rnn_flat(hcfg), hcfg.model, dev)
+        rnn_greedy_parity(hp, hcfg, f"rnn hybrid {label} f32 greedy", reads)
+        phase_beam_parity(hp, rnn_config("float32", "float32", model=model, **beam),
+                          label=f"rnn hybrid {label} beam f32/K5")
+    paths["rnn_hybrid"] = counts()
+    expect("rnn_hybrid", paths["rnn_hybrid"], K4a=0, K4b=0, K5=0)
+    check(all(paths["rnn_hybrid"][k] > 0 for k in ("K1", "K2", "K3")),
+          f"rnn_hybrid path: launches {paths['rnn_hybrid']}")
+    print(f"[phase 14] (c) {time.perf_counter() - t0:.1f} s")
+
+    reset()  # (d): training launches no kernel
+    numbers.update(rnn_train(dev))
+    paths["rnn_train"] = counts()
+    check(all(n == 0 for n in paths["rnn_train"].values()),
+          f"rnn training launched {paths['rnn_train']}")
+    print(f"[phase 14] (d) {time.perf_counter() - t0:.1f} s")
+
+    reset()  # (e): the importer
+    rnn_import(dev, reads)
+    paths["rnn_import"] = counts()
+    expect("rnn_import", paths["rnn_import"], K1=0, K3=0, K4a=0, K4b=0, K5=0)
+    check(paths["rnn_import"]["K2"] > 0, "rnn_import path: K2 not launched")
+    print(f"[phase 14] (e) {time.perf_counter() - t0:.1f} s")
+
+    reset()  # (f): the engine
+    rnn_engine(params, serve, served)
+    paths["rnn_engine"] = counts()
+    check(all(n == 0 for n in paths["rnn_engine"].values()),
+          f"rnn engine launched {paths['rnn_engine']}")
+    numbers["rnn_phase_s"] = time.perf_counter() - t0
+    print(f"[phase 14] rnn: {numbers['rnn_phase_s']:.1f} s")
+    return paths, numbers
+
+
 def kernel_times(names: list[str]) -> int:
     """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
     three dtypes, K3, K2 at four widths, K7); one JSON line of their
@@ -2048,6 +2461,10 @@ def main(argv: list[str] | None = None) -> int:
             dev, reset, counts, phase4, root)  # phase 13
         print("train numbers: " + json.dumps(train_numbers))
         elapsed("phase 13")
+        rnn_paths, rnn_numbers = phase_rnn(dev, reset, counts, expect)  # phase 14
+        paths.update(rnn_paths)
+        print("rnn numbers: " + json.dumps(rnn_numbers))
+        elapsed("phase 14")
         check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
               "K6 or K7 launched on a serving path")
         for path, c in paths.items():

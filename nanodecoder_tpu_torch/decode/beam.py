@@ -14,9 +14,12 @@ selections (which do not repeat an index where K3's extraction does).
 The loop runs on the host, one step per iteration, as in
 `decode.greedy`; before each step one host read checks the admissible
 early stop (the best score an alive beam can still reach against the
-worst kept finished score).  On the lean path with `staged_decode` the
-self cache grows through the stages of `decode_stage_lengths` between
-steps.
+worst kept finished score).  On the lean transformer path with
+`staged_decode` the self cache grows through the stages of
+`decode_stage_lengths` between steps.  A transformer decoder's beams
+share their chunk's cross K/V; the RNN decoder decodes over the memory
+bank tiled K times (row b * K + j), as the JAX package does, and its
+beam reorder gathers the hidden, cell and input-feed state.
 
 Sequences are kept as backpointers: every step writes the alive beams'
 (token, origin, log-prob, attention position) into one (B, K, T, 4) f32
@@ -37,7 +40,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from nanodecoder_tpu_torch.config import DecodeConfig, ModelConfig
-from nanodecoder_tpu_torch.decode.greedy import decode_stage_lengths, grow_self_cache
+from nanodecoder_tpu_torch.decode.greedy import grow_self_cache, staged_lengths
 from nanodecoder_tpu_torch.decode.penalties import length_penalty
 from nanodecoder_tpu_torch.models.model import (decode_step, init_decode_state,
                                                 reorder_decode_state_beam)
@@ -142,12 +145,14 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
     v = cfg.vocab_size
     tmax = cfg.max_decode_len
     dev = memory.device
-    # Staged growth needs the lean step's combined cache.
-    stages = (decode_stage_lengths(tmax, cfg.stage_schedule)
-              if cfg.staged_decode and cfg.lean_step else [tmax])
-    state = init_decode_state(
-        params, dataclasses.replace(cfg, max_decode_len=stages[0]), memory,
-        mem_lengths, beam_k=k)
+    stages = staged_lengths(cfg)
+    if cfg.decoder_type == "rnn":  # memory bank tiled beam-wise
+        state = init_decode_state(params, cfg, memory.repeat_interleave(k, dim=0),
+                                  mem_lengths.repeat_interleave(k, dim=0))
+    else:
+        state = init_decode_state(
+            params, dataclasses.replace(cfg, max_decode_len=stages[0]), memory,
+            mem_lengths, beam_k=k)
 
     cur = torch.full((b * k,), BOS_ID, dtype=torch.int64, device=dev)
     # Beam 0 starts at 0, the others at -1e9, so step 0 expands beam 0.

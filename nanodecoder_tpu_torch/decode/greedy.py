@@ -2,9 +2,11 @@
 
 The port's counterpart of `nanodecoder_tpu.decode.greedy`.  The loop
 runs on the host, one decode step per iteration, and stops early once
-every row has emitted EOS.  On the lean path with `staged_decode` the
-self cache grows through the stages of `decode_stage_lengths` (for a max
-length of 96: 24, 48, 96 rows), so each step reads only the live prefix.
+every row has emitted EOS.  On the lean transformer path with
+`staged_decode` the self cache grows through the stages of
+`decode_stage_lengths` (for a max length of 96: 24, 48, 96 rows), so
+each step reads only the live prefix.  The RNN decoder has no cache to
+grow and runs one stage.
 
 Tie-breaking: torch.argmax returns the lowest index on ties, like
 jnp.argmax.
@@ -38,6 +40,15 @@ def decode_stage_lengths(tmax: int, schedule: tuple[int, ...] = ()) -> list[int]
     return [q for q in qs if q <= tmax]
 
 
+def staged_lengths(cfg: ModelConfig) -> list[int]:
+    """The stages a decode runs: `decode_stage_lengths` where the self
+    cache can grow (a lean transformer decoder's combined cache, with
+    `staged_decode`), else one stage of max_decode_len."""
+    if cfg.staged_decode and cfg.lean_step and cfg.decoder_type == "transformer":
+        return decode_stage_lengths(cfg.max_decode_len, cfg.stage_schedule)
+    return [cfg.max_decode_len]
+
+
 def grow_self_cache(state, new_t: int):
     """Pad the combined self cache's T dim with zeros up to new_t (the
     padded rows stay masked until written)."""
@@ -64,9 +75,7 @@ def greedy_decode(params, cfg: ModelConfig, memory: torch.Tensor,
     b = memory.shape[0]
     dev = memory.device
     tmax = cfg.max_decode_len
-    # Staged growth needs the lean step's combined cache.
-    stages = (decode_stage_lengths(tmax, cfg.stage_schedule)
-              if cfg.staged_decode and cfg.lean_step else [tmax])
+    stages = staged_lengths(cfg)
     state = init_decode_state(
         params, dataclasses.replace(cfg, max_decode_len=stages[0]), memory,
         mem_lengths)

@@ -1,11 +1,16 @@
-"""Transformer decoder: the teacher-forced training pass, and decode
-steps lean (one combined self cache) and unfolded (per-layer self caches).
+"""Decoders: the transformer decoder (the teacher-forced training pass,
+and decode steps lean (one combined self cache) and unfolded (per-layer
+self caches)) and the input-feed RNN decoder with Luong attention.
 
-The port's counterpart of `nanodecoder_tpu.models.decoder` for transformer
-decoders: `init_transformer_decoder`, `transformer_decoder_forced`,
+The port's counterpart of `nanodecoder_tpu.models.decoder`:
+`init_transformer_decoder`, `transformer_decoder_forced`,
 `init_transformer_cache`, `_attn_step`, `_ln_normalize`, `_fold_ln_dense`,
 `fold_lean_params`, `_transformer_decoder_step_lean` and
-`transformer_decoder_step`.
+`transformer_decoder_step` for transformers; `init_global_attention`,
+`global_attention`, `init_rnn_decoder`, `init_rnn_state`,
+`rnn_decoder_step` and `rnn_decoder_forced` for the RNN decoder
+(`decoder_type` "rnn"), which is plain PyTorch on every device, never
+folded, and applies no dropout, as in the JAX package.
 
 Decode state (a dict, like the JAX package's), for B chunks decoded in
 R = B * beam_k rows (row b * beam_k + j is beam j of chunk b):
@@ -31,6 +36,13 @@ PyTorch, over dequantized caches when they are int8.
 
 The steps update their self caches (on the card) in place and return the
 new state dict.
+
+RNN decode state, for R rows (beam search tiles the memory bank K times,
+row b * K + j):
+  hidden:      per layer {h, c} (R, D)
+  input_feed:  (R, D), the previous step's attention output
+  memory:      (R, S, D); mem_mask (R, S) bool
+  step:        host int
 """
 
 from __future__ import annotations
@@ -336,3 +348,113 @@ def transformer_decoder_step(p, cfg: ModelConfig, y1: torch.Tensor,
         y1 = y1 + nn.ffn(layer["ffn"], h)
     out = nn.layer_norm(p["ln_out"], y1)
     return out, (probs, amax), {**state, "step": step + 1}
+
+
+# ---------------------------------------------------------------------------
+# input-feed RNN decoder with Luong attention
+
+LUONG_SCORES = ("dot", "general", "mlp")
+
+
+def init_global_attention(gen: torch.Generator, d_model: int, score: str):
+    """Luong attention params: `general` has wa (D, D), `mlp` has wq (no
+    bias), wk (with bias) and va (D, 1, no bias), `dot` none of them; all
+    have wo (2D, D), with a bias only under `mlp`."""
+    if score not in LUONG_SCORES:
+        raise ValueError(f"unknown attention score {score!r}")
+    d = d_model
+    p: dict[str, Any] = {}
+    if score == "general":
+        p["wa"] = nn.init_dense(gen, d, d, use_bias=False)
+    elif score == "mlp":
+        p["wq"] = nn.init_dense(gen, d, d, use_bias=False)
+        p["wk"] = nn.init_dense(gen, d, d)
+        p["va"] = nn.init_dense(gen, d, 1, use_bias=False)
+    p["wo"] = nn.init_dense(gen, 2 * d, d, use_bias=score == "mlp")
+    return p
+
+
+def global_attention(p, query: torch.Tensor, memory: torch.Tensor,
+                     mem_mask: torch.Tensor, score: str = "general"):
+    """query (B, D), memory (B, S, D), mem_mask (B, S) bool.  Scores in f32
+    (dot and general from f32 operands; mlp computed in the compute dtype,
+    then cast), masked to NEG_INF, softmax in f32; the probabilities cast
+    to the memory's dtype for the context.  Returns (tanh(wo [ctx ;
+    query]) (B, D), probs (B, S) f32)."""
+    if score == "dot" or score == "general":
+        q = query if score == "dot" else nn.dense(p["wa"], query)
+        scores = torch.bmm(memory.to(torch.float32), q.to(torch.float32)[:, :, None])[..., 0]
+    elif score == "mlp":
+        k = nn.dense(p["wk"], memory)
+        scores = nn.dense(p["va"], torch.tanh(nn.dense(p["wq"], query)[:, None, :] + k)
+                          )[..., 0].to(torch.float32)
+    else:
+        raise ValueError(f"unknown attention score {score!r}")
+    scores = torch.where(mem_mask, scores, torch.tensor(nn.NEG_INF, dtype=scores.dtype,
+                                                        device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.bmm(probs.to(memory.dtype)[:, None, :], memory)[:, 0]
+    return torch.tanh(nn.dense(p["wo"], torch.cat([ctx, query], dim=-1))), probs
+
+
+def init_rnn_decoder(gen: torch.Generator, cfg: ModelConfig):
+    """dec_layers LSTM cells of width D (the first takes [embedding ;
+    input feed], 2D wide) and the Luong attention of `rnn_attention`."""
+    d = cfg.d_model
+    layers = [nn.init_lstm_cell(gen, 2 * d if i == 0 else d, d)
+              for i in range(cfg.dec_layers)]
+    return {"layers": layers, "attn": init_global_attention(gen, d, cfg.rnn_attention)}
+
+
+def init_rnn_state(cfg: ModelConfig, memory: torch.Tensor, mem_lengths: torch.Tensor,
+                   batch: int, dtype: torch.dtype) -> dict[str, Any]:
+    """Zero hidden, cell and input-feed state for `batch` rows over the
+    memory bank (batch, S, D)."""
+    dev = memory.device
+
+    def zeros():
+        return torch.zeros((batch, cfg.d_model), dtype=dtype, device=dev)
+
+    return {"hidden": [{"h": zeros(), "c": zeros()} for _ in range(cfg.dec_layers)],
+            "input_feed": zeros(), "memory": memory,
+            "mem_mask": nn.length_mask(mem_lengths, memory.shape[1]), "step": 0}
+
+
+def _rnn_cells(p, x: torch.Tensor, hidden):
+    """Run the stacked cells on x (B, 2D); returns (top h, [(h, c)])."""
+    out = []
+    for cell, (h, c) in zip(p["layers"], hidden):
+        h, c = nn.lstm_cell(cell, x, h, c)
+        out.append((h, c))
+        x = h
+    return x, out
+
+
+def rnn_decoder_step(p, cfg: ModelConfig, y1: torch.Tensor, state: dict[str, Any]):
+    """One input-feed step.  y1: (B, 1, D) embedded token.  Returns
+    (attention output (B, 1, D), probs (B, 1, 1, S) f32, new state)."""
+    x = torch.cat([y1[:, 0, :], state["input_feed"]], dim=-1)
+    top, hidden = _rnn_cells(p, x, [(hc["h"], hc["c"]) for hc in state["hidden"]])
+    out, probs = global_attention(p["attn"], top, state["memory"], state["mem_mask"],
+                                  cfg.rnn_attention)
+    new_state = {**state, "hidden": [{"h": h, "c": c} for h, c in hidden],
+                 "input_feed": out, "step": state["step"] + 1}
+    return out[:, None, :], probs[:, None, None, :], new_state
+
+
+def rnn_decoder_forced(p, cfg: ModelConfig, y: torch.Tensor, memory: torch.Tensor,
+                       mem_lengths: torch.Tensor):
+    """Teacher-forced pass, a loop over time; differentiable, no kernel.
+    y: (B, T, D) embedded target inputs.  Returns (hidden (B, T, D), attn
+    (B, 1, T, S) f32)."""
+    b = y.shape[0]
+    state = init_rnn_state(cfg, memory, mem_lengths, b, y.dtype)
+    hidden = [(hc["h"], hc["c"]) for hc in state["hidden"]]
+    feed, mask = state["input_feed"], state["mem_mask"]
+    outs, probs = [], []
+    for t in range(y.shape[1]):
+        top, hidden = _rnn_cells(p, torch.cat([y[:, t], feed], dim=-1), hidden)
+        feed, pr = global_attention(p["attn"], top, memory, mask, cfg.rnn_attention)
+        outs.append(feed)
+        probs.append(pr)
+    return torch.stack(outs, dim=1), torch.stack(probs, dim=1)[:, None]

@@ -1,8 +1,8 @@
-"""Signal encoder: conv front-end + transformer body.
+"""Signal encoder: conv front-end + transformer or biLSTM body.
 
-The port's counterpart of `nanodecoder_tpu.models.encoder` for
-transformer bodies: `init_encoder`, `conv_frontend`, `transformer_encoder`
-and `encoder_apply` (the unfolded body, which projects q, k and v apart;
+The port's counterpart of `nanodecoder_tpu.models.encoder`:
+`init_encoder`, `conv_frontend`, `transformer_encoder` and
+`encoder_apply` (the unfolded transformer body, which projects q, k and v apart;
 for inference with `use_pallas` it calls kernel K5 for the attention,
 while a training pass (`train=True`) always takes the differentiable
 `mha`, as the JAX package's does, since the kernels have no backward),
@@ -12,6 +12,13 @@ folds each layer norm's affine into the matmul after it, runs one fused
 QKV projection per layer, and calls kernel K1).  With `use_pallas` false
 both bodies take `attention_core` with the length mask instead, as the
 JAX package's XLA path does.
+
+The biLSTM body (`encoder_type` "lstm": `init_lstm_encoder`,
+`lstm_encoder`) is plain PyTorch on every device and never folded, as in
+the JAX package; it applies no dropout.  Each layer hoists the input
+projection of both directions out of the time loop (one GEMM per
+direction, bias included) and runs the two directions together, one
+batched matmul a step.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from nanodecoder_tpu_torch.config import ModelConfig
 from nanodecoder_tpu_torch.models import modules as nn
 from nanodecoder_tpu_torch.models.decoder import _fold_ln_dense, _ln_normalize
+from nanodecoder_tpu_torch.models.modules import init_lstm_cell, lstm_gates
 from nanodecoder_tpu_torch.ops.encoder_attention import (flash_encoder_attention_nld,
                                                          flash_encoder_attention_qkv)
 
@@ -54,11 +62,22 @@ def init_transformer_encoder(gen: torch.Generator, cfg: ModelConfig):
     return {"layers": layers, "ln_out": nn.init_layer_norm(d, dev)}
 
 
+def init_lstm_encoder(gen: torch.Generator, cfg: ModelConfig):
+    """Stacked biLSTM: per layer a fwd and a bwd cell over d_model inputs
+    and a (2H, D) projection of their concatenated outputs."""
+    d, hdim = cfg.d_model, cfg.lstm_hidden
+    layers = [{"fwd": init_lstm_cell(gen, d, hdim), "bwd": init_lstm_cell(gen, d, hdim),
+               "proj": nn.init_dense(gen, 2 * hdim, d)}
+              for _ in range(cfg.enc_layers)]
+    return {"layers": layers, "ln_out": nn.init_layer_norm(d, gen.device)}
+
+
 def init_encoder(gen: torch.Generator, cfg: ModelConfig):
-    if cfg.encoder_type != "transformer":
-        raise ValueError(f"encoder_type {cfg.encoder_type!r} is not ported")
+    bodies = {"transformer": init_transformer_encoder, "lstm": init_lstm_encoder}
+    if cfg.encoder_type not in bodies:
+        raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
     return {"frontend": init_conv_frontend(gen, cfg),
-            "body": init_transformer_encoder(gen, cfg)}
+            "body": bodies[cfg.encoder_type](gen, cfg)}
 
 
 def conv_frontend(p, cfg: ModelConfig, signal: torch.Tensor,
@@ -117,13 +136,53 @@ def _add_positions(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + pe[None, :, :]
 
 
+def _bilstm_layer(layer, xs: torch.Tensor) -> torch.Tensor:
+    """Both directions of one layer over xs (T, B, D): the forward cell
+    from t = 0, the backward cell from t = T - 1 over the whole buffer
+    (padding included), each from zero state.  Returns (T, B, 2H), the
+    forward then the backward output at each t."""
+    t, b, _ = xs.shape
+    dt = xs.dtype
+    fwd, bwd = layer["fwd"], layer["bwd"]
+    # The input projections of all steps in one GEMM per direction (the
+    # bias added here, once), the backward one in its scan order.
+    xw = torch.stack([(xs @ fwd["wx"].to(dt) + fwd["b"].to(dt)),
+                      (xs @ bwd["wx"].to(dt) + bwd["b"].to(dt)).flip(0)])
+    wh = torch.stack([fwd["wh"].to(dt), bwd["wh"].to(dt)])       # (2, H, 4H)
+    h = xs.new_zeros((2, b, wh.shape[1]))
+    c = torch.zeros_like(h)
+    hs = []
+    for s in range(t):
+        h, c = lstm_gates(torch.baddbmm(xw[:, s], h, wh), c)
+        hs.append(h)
+    ys = torch.stack(hs)                                           # (T, 2, B, H)
+    return torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1)
+
+
+def lstm_encoder(p, x: torch.Tensor, enc_lengths: torch.Tensor) -> torch.Tensor:
+    """biLSTM body: x (B, T, D) in the compute dtype -> memory bank
+    (B, T, D).  Padded positions are zeroed on the input of every layer;
+    each layer's two directions are concatenated and projected back to
+    D; the output goes through ln_out and is zeroed at padded positions.
+    (pack_padded_sequence would start each row's backward pass at its own
+    last valid step: a different function.)"""
+    valid = nn.length_mask(enc_lengths, x.shape[1])
+    vmask = valid.T[:, :, None].to(x.dtype)                        # (T, B, 1)
+    xs = x.transpose(0, 1)
+    for layer in p["layers"]:
+        xs = nn.dense(layer["proj"], _bilstm_layer(layer, xs * vmask))
+    out = nn.layer_norm(p["ln_out"], xs.transpose(0, 1))
+    return out * valid[:, :, None].to(out.dtype)
+
+
 def encoder_apply(p, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor,
                   gen: torch.Generator | None = None, train: bool = False):
-    """Unfolded encoder: conv front-end + transformer body.
+    """Unfolded encoder: conv front-end + transformer body (positional
+    encoding added first) or biLSTM body (none, and no dropout).
     Returns (memory (B, T, D), enc_lengths (B,))."""
-    if cfg.encoder_type != "transformer":
-        raise ValueError(f"encoder_type {cfg.encoder_type!r} is not ported")
     x, enc_lengths = conv_frontend(p["frontend"], cfg, signal, lengths)
+    if cfg.encoder_type == "lstm":
+        return lstm_encoder(p["body"], x, enc_lengths), enc_lengths
     return transformer_encoder(p["body"], cfg, _add_positions(x, cfg),
                                enc_lengths, gen, train), enc_lengths
 

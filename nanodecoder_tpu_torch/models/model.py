@@ -1,13 +1,15 @@
 """Seq2seq model: init, encode, teacher-forced decode, prepare serving
 params, decode step.
 
-The port's counterpart of `nanodecoder_tpu.models.model` for transformer
-models.  Params are the nested dict of float32 tensors that `init_model`
-or `train.checkpoint.params_from_numpy` builds.  For lean models
-(`lean_step`) `prepare_serving_params` adds the folded encoder
-(`_enc_lean`) and decoder (`_lean`) weights in the compute dtype once per
-run; unfolded models serve from the master weights, as the JAX package's
-do.
+The port's counterpart of `nanodecoder_tpu.models.model`, for the four
+encoder (transformer, lstm) x decoder (transformer, rnn) combinations.
+Params are the nested dict of float32 tensors that `init_model` or
+`train.checkpoint.params_from_numpy` builds.  For lean models
+(`lean_step`) `prepare_serving_params` adds the folded weights in the
+compute dtype once per run, of each side that is a transformer: the
+encoder's (`_enc_lean`) and the decoder's (`_lean`).  Unfolded models,
+the biLSTM encoder and the RNN decoder serve from the master weights, as
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -28,12 +30,6 @@ from nanodecoder_tpu_torch.vocab import vocab_size_for
 _NOT_FOLDED = "params lack the serving fold; call prepare_serving_params first"
 
 
-def _check_transformer(cfg: ModelConfig) -> None:
-    if cfg.encoder_type != "transformer" or cfg.decoder_type != "transformer":
-        raise ValueError("the port serves transformer models only "
-                         "(encoder_type = decoder_type = 'transformer')")
-
-
 def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
     """Random float32 params on `gen`'s device: glorot-uniform weights,
     zero biases, unit layer-norm scales, N(0, 1/d) embeddings, drawn from
@@ -44,9 +40,11 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
             f"ModelConfig.vocab_size={cfg.vocab_size} does not match "
             f"kmer_k={cfg.kmer_k} (expected vocab_size_for({cfg.kmer_k})="
             f"{expected}); set both consistently")
-    _check_transformer(cfg)
+    decoders = {"transformer": dec.init_transformer_decoder, "rnn": dec.init_rnn_decoder}
+    if cfg.decoder_type not in decoders:
+        raise ValueError(f"unknown decoder_type {cfg.decoder_type!r}")
     return {"encoder": init_encoder(gen, cfg),
-            "decoder": dec.init_transformer_decoder(gen, cfg),
+            "decoder": decoders[cfg.decoder_type](gen, cfg),
             "tgt_embed": nn.init_embedding(gen, cfg.vocab_size, cfg.d_model),
             "generator": nn.init_dense(gen, cfg.d_model, cfg.vocab_size)}
 
@@ -79,13 +77,14 @@ def param_count(params) -> int:
 
 def prepare_serving_params(params: dict[str, Any], cfg: ModelConfig):
     """A copy of `params`; for a lean model with the folded, pre-cast
-    serving weights of the encoder and the decoder (compute dtype)."""
-    _check_transformer(cfg)
+    serving weights (compute dtype) of a transformer decoder (`_lean`)
+    and of a transformer encoder (`_enc_lean`)."""
     out = dict(params)
-    if cfg.lean_step:
-        dtype = compute_dtype(cfg)
+    dtype = compute_dtype(cfg)
+    if cfg.lean_step and cfg.decoder_type == "transformer":
         out["_lean"] = dec.fold_lean_params(params["decoder"], params["generator"],
                                             cfg, dtype)
+    if cfg.lean_step and cfg.encoder_type == "transformer":
         out["_enc_lean"] = fold_encoder_lean(params["encoder"], cfg, dtype)
     return out
 
@@ -103,8 +102,13 @@ def encode(params, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor
 
 def init_decode_state(params, cfg: ModelConfig, memory: torch.Tensor,
                       mem_lengths: torch.Tensor, beam_k: int = 1) -> dict[str, Any]:
-    """Decode state for the (B, S, D) memory bank.  beam_k > 1: B * beam_k
-    chunk-major decode rows sharing each chunk's cross K/V."""
+    """Decode state for the (B, S, D) memory bank.  beam_k > 1 (transformer
+    only): B * beam_k chunk-major decode rows sharing each chunk's cross
+    K/V; the RNN decoder's beam search tiles the memory bank instead."""
+    if cfg.decoder_type == "rnn":
+        if beam_k != 1:
+            raise ValueError("beam-grouped decode state is transformer-only")
+        return dec.init_rnn_state(cfg, memory, mem_lengths, memory.shape[0], memory.dtype)
     return dec.init_transformer_cache(params["decoder"], cfg, memory,
                                       mem_lengths, memory.shape[0], memory.dtype,
                                       beam_k=beam_k)
@@ -112,15 +116,21 @@ def init_decode_state(params, cfg: ModelConfig, memory: torch.Tensor,
 
 def reorder_decode_state_beam(state: dict[str, Any],
                               beam_origin: torch.Tensor) -> dict[str, Any]:
-    """Gather the path-dependent self caches by beam origin.
-    beam_origin: (B, K) int, the within-chunk origin beam of each new
-    beam.  Cross K/V and masks are beam-invariant and stay as they are.
-    The gathers make fresh tensors, so the decode steps' in-place writes
-    (K2 into self_kv, the staged block, the per-layer caches) never reach
-    an earlier alias."""
+    """Gather the path-dependent state by beam origin: the self caches of a
+    transformer decoder, the hidden, cell and input-feed state of an RNN
+    decoder.  beam_origin: (B, K) int, the within-chunk origin beam of
+    each new beam.  Cross K/V, the (tiled) memory bank and masks are
+    beam-invariant and stay as they are.  The gathers make fresh tensors,
+    so the decode steps' in-place writes (K2 into self_kv, the staged
+    block, the per-layer caches) never reach an earlier alias."""
     bsz, k = beam_origin.shape
     flat = (torch.arange(bsz, device=beam_origin.device)[:, None] * k
             + beam_origin.long()).reshape(-1)
+    if "hidden" in state:
+        return {**state, "input_feed": state["input_feed"].index_select(0, flat),
+                "hidden": [{"h": hc["h"].index_select(0, flat),
+                            "c": hc["c"].index_select(0, flat)}
+                           for hc in state["hidden"]]}
     if "self_kv" in state:
         return {**state, "self_kv": state["self_kv"].index_select(0, flat),
                 "self_kv_stage": state["self_kv_stage"].index_select(0, flat)}
@@ -132,12 +142,15 @@ def reorder_decode_state_beam(state: dict[str, Any],
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
                   position: int | None = None) -> torch.Tensor:
-    """tokens (B, T) -> (B, T, D): embedding * sqrt(d) + positional
-    encoding, rows 0..T-1, or row `position` for a one-token step."""
+    """tokens (B, T) -> (B, T, D): embedding * sqrt(d), plus for a
+    transformer decoder the positional encoding, rows 0..T-1, or row
+    `position` for a one-token step (the RNN decoder gets none)."""
     dtype = compute_dtype(cfg)
     y = nn.embed(params["tgt_embed"], tokens, dtype)
     y = y * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=dtype,
                          device=y.device)
+    if cfg.decoder_type == "rnn":
+        return y
     pe = nn.sinusoidal_positions(cfg.max_decode_len + 1, cfg.d_model,
                                  y.device).to(dtype)
     if position is None:
@@ -156,9 +169,12 @@ def decode_teacher_forced(params, cfg: ModelConfig, tgt_in: torch.Tensor,
                           gen: torch.Generator | None = None, train: bool = False):
     """Full teacher-forced decode: tgt_in (B, T) int (BOS-prefixed) ->
     (log-probs (B, T, V) f32, the last layer's cross-attention probs
-    (B, H, T, S) f32)."""
-    _check_transformer(cfg)
+    (B, H, T, S) f32; H = 1 for the RNN decoder's Luong attention)."""
     y = _embed_tokens(params, cfg, tgt_in)
+    if cfg.decoder_type == "rnn":
+        hidden, attn = dec.rnn_decoder_forced(params["decoder"], cfg, y, memory,
+                                              mem_lengths)
+        return generator_log_probs(params, hidden), attn
     hidden, attn = dec.transformer_decoder_forced(params["decoder"], cfg, y, memory,
                                                   mem_lengths, gen, train)
     return generator_log_probs(params, hidden), attn
@@ -168,8 +184,14 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 state: dict[str, Any]):
     """One decode step.  tokens: (B,) int current input tokens.
     Returns (log_probs (B, V) f32, attn_pos (B,) int32 — the last layer's
-    cross-attention argmax over encoder positions — and the new state)."""
+    cross-attention argmax over encoder positions (the RNN decoder's:
+    of its f32 Luong probabilities, ties to the lowest position) — and
+    the new state)."""
     y1 = _embed_tokens(params, cfg, tokens[:, None], state["step"])
+    if cfg.decoder_type == "rnn":
+        hidden, probs, new_state = dec.rnn_decoder_step(params["decoder"], cfg, y1, state)
+        attn_pos = probs[:, 0, 0, :].argmax(dim=-1).to(torch.int32)
+        return generator_log_probs(params, hidden[:, 0, :]), attn_pos, new_state
     if cfg.lean_step:
         if "_lean" not in params:
             raise ValueError(_NOT_FOLDED)

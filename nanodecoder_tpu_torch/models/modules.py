@@ -74,6 +74,31 @@ def init_ffn(gen: torch.Generator, d_model: int, ffn_dim: int):
             "out": init_dense(gen, ffn_dim, d_model)}
 
 
+def init_lstm_cell(gen: torch.Generator, in_dim: int, hidden: int):
+    """One LSTM cell: wx (in, 4H), wh (H, 4H) glorot, one zero bias (4H,);
+    gate order i, f, g, o.  (Here rather than in `encoder`, since both the
+    biLSTM encoder and the RNN decoder use it.)"""
+    return {"wx": glorot(gen, (in_dim, 4 * hidden)),
+            "wh": glorot(gen, (hidden, 4 * hidden)),
+            "b": torch.zeros((4 * hidden,), dtype=torch.float32, device=gen.device)}
+
+
+def lstm_gates(gates: torch.Tensor, c: torch.Tensor):
+    """The LSTM update from the pre-activation gates (..., 4H), order
+    i, f, g, o: returns (h, c), both in the gates' dtype."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def lstm_cell(p, x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """Standard LSTM cell, the weights cast to x_t's dtype: gates =
+    x_t @ wx + h @ wh + b, then `lstm_gates`.  Returns (h, c)."""
+    dt = x_t.dtype
+    gates = x_t @ p["wx"].to(dt) + h @ p["wh"].to(dt) + p["b"].to(dt)
+    return lstm_gates(gates, c)
+
+
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"].to(x.dtype)
     if "b" in p:

@@ -50,22 +50,21 @@ def _dense(prefix: str, n_in: int, n_out: int) -> dict[str, tuple[int, ...]]:
     return {f"{prefix}/w": (n_in, n_out), f"{prefix}/b": (n_out,)}
 
 
-def expected_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """Flat key -> stored shape for a transformer/transformer model."""
-    if cfg.encoder_type != "transformer" or cfg.decoder_type != "transformer":
-        raise ValueError("the port runs transformer encoders and decoders only")
-    d, v = cfg.d_model, cfg.vocab_size
-    dk = d // cfg.dec_heads * cfg.dec_kv
+def _lstm_cell(prefix: str, n_in: int, hidden: int) -> dict[str, tuple[int, ...]]:
+    return {f"{prefix}/wx": (n_in, 4 * hidden), f"{prefix}/wh": (hidden, 4 * hidden),
+            f"{prefix}/b": (4 * hidden,)}
+
+
+def _encoder_body_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    d = cfg.d_model
     shapes: dict[str, tuple[int, ...]] = {}
-    in_ch = 1
-    for i, (ch, ker) in enumerate(zip(cfg.conv_channels, cfg.conv_kernels)):
-        shapes[f"encoder/frontend/convs/{i}/w"] = (ker, in_ch, ch)
-        shapes[f"encoder/frontend/convs/{i}/b"] = (ch,)
-        in_ch = ch
-    shapes.update(_dense("encoder/frontend/proj", in_ch, d))
-    shapes.update(_ln("encoder/frontend/ln", d))
     for i in range(cfg.enc_layers):
         p = f"encoder/body/layers/{i}"
+        if cfg.encoder_type == "lstm":
+            for direction in ("fwd", "bwd"):
+                shapes.update(_lstm_cell(f"{p}/{direction}", d, cfg.lstm_hidden))
+            shapes.update(_dense(f"{p}/proj", 2 * cfg.lstm_hidden, d))
+            continue
         shapes.update(_ln(f"{p}/ln1", d))
         shapes.update(_ln(f"{p}/ln2", d))
         for name in "qkvo":
@@ -73,6 +72,33 @@ def expected_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         shapes.update(_dense(f"{p}/ffn/in", d, cfg.enc_ffn_dim))
         shapes.update(_dense(f"{p}/ffn/out", cfg.enc_ffn_dim, d))
     shapes.update(_ln("encoder/body/ln_out", d))
+    return shapes
+
+
+def _rnn_decoder_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    d = cfg.d_model
+    shapes: dict[str, tuple[int, ...]] = {}
+    for i in range(cfg.dec_layers):
+        shapes.update(_lstm_cell(f"decoder/layers/{i}", 2 * d if i == 0 else d, d))
+    score = cfg.rnn_attention
+    if score == "general":
+        shapes["decoder/attn/wa/w"] = (d, d)
+    elif score == "mlp":
+        shapes["decoder/attn/wq/w"] = (d, d)
+        shapes.update(_dense("decoder/attn/wk", d, d))
+        shapes["decoder/attn/va/w"] = (d, 1)
+    elif score != "dot":
+        raise ValueError(f"unknown attention score {score!r}")
+    shapes["decoder/attn/wo/w"] = (2 * d, d)
+    if score == "mlp":
+        shapes["decoder/attn/wo/b"] = (d,)
+    return shapes
+
+
+def _transformer_decoder_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    d = cfg.d_model
+    dk = d // cfg.dec_heads * cfg.dec_kv
+    shapes: dict[str, tuple[int, ...]] = {}
     for i in range(cfg.dec_layers):
         p = f"decoder/layers/{i}"
         for ln in ("ln1", "ln2", "ln3"):
@@ -85,6 +111,27 @@ def expected_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         shapes.update(_dense(f"{p}/ffn/in", d, cfg.dec_ffn_dim))
         shapes.update(_dense(f"{p}/ffn/out", cfg.dec_ffn_dim, d))
     shapes.update(_ln("decoder/ln_out", d))
+    return shapes
+
+
+def expected_param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """Flat key -> stored shape for cfg's encoder and decoder types."""
+    if cfg.encoder_type not in ("transformer", "lstm"):
+        raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
+    decoders = {"transformer": _transformer_decoder_shapes, "rnn": _rnn_decoder_shapes}
+    if cfg.decoder_type not in decoders:
+        raise ValueError(f"unknown decoder_type {cfg.decoder_type!r}")
+    d, v = cfg.d_model, cfg.vocab_size
+    shapes: dict[str, tuple[int, ...]] = {}
+    in_ch = 1
+    for i, (ch, ker) in enumerate(zip(cfg.conv_channels, cfg.conv_kernels)):
+        shapes[f"encoder/frontend/convs/{i}/w"] = (ker, in_ch, ch)
+        shapes[f"encoder/frontend/convs/{i}/b"] = (ch,)
+        in_ch = ch
+    shapes.update(_dense("encoder/frontend/proj", in_ch, d))
+    shapes.update(_ln("encoder/frontend/ln", d))
+    shapes.update(_encoder_body_shapes(cfg))
+    shapes.update(decoders[cfg.decoder_type](cfg))
     shapes["tgt_embed/table"] = (v, d)
     shapes.update(_dense("generator", d, v))
     return shapes

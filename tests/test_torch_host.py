@@ -215,6 +215,7 @@ def test_port_imports_no_jax_ast():
                     offenders.append(f"{os.path.relpath(path, REPO)}: {name}")
     assert len(_port_files()) > 20
     assert os.path.join(PORT, "ops", "attention.py") in _port_files()
+    assert os.path.join(PORT, "models", "importer.py") in _port_files()
     assert not offenders, offenders
 
 
