@@ -118,7 +118,7 @@ Phases, in order; any failure exits non-zero before the last line:
      on the golden reads and beam 5 on read 101 (0.99): transformer
      encoder + RNN decoder (lean, K1) and biLSTM encoder + MQA
      transformer decoder (lean, K2); (d) training (lstm, rnn): phase 13
-     (a)'s parity and gates from the random params, then 20 steps at batch
+     (a)'s parity and gates from the random params, then 10 steps at batch
      32 from init_model (finite losses, median step ms, peak memory),
      launching no kernel; (e) the importer: a synthetic OpenNMT
      state_dict (biLSTM encoder + MQA transformer decoder) saved as a .pt
@@ -126,13 +126,38 @@ Phases, in order; any failure exits non-zero before the last line:
      greedy on the golden reads (0.99); (f) the streaming engine with
      (b)'s params at 256-chunk batches on (b)'s 20 reads (every read back
      once, mean identity to (b)'s Translator calls 0.99); its wall time;
- 15. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+ 15. decode modes on the MQA flagship, kernel route: (a) sample mode at
+     topk 1, f32, on the 3 golden reads: tokens equal to the card's
+     greedy call; (b) sample at temperature 1.0, topk 5, topp 0.9, f32,
+     32-chunk batches, with the same host-made Gumbel noise on the card
+     and on the CPU (sample_decode's gumbel argument): identity >= 0.99
+     on each golden read; (c) served sample mode (bf16, int6 wire, batch
+     640) at temperature 0.3 on phase 4's first 20 reads: mean identity
+     no more than 0.02 under greedy's on the same reads, the seed again
+     gives the same calls (5 reads), another seed other calls;
+     temperature 1.0 printed on 10 of the reads, not gated; greedy and
+     sample ms per decode step on one 640-chunk batch, in turns; (d) the
+     engine in sample mode at topk 1 on those 20 reads: mean identity
+     >= 0.99 to its greedy calls; (e) the path-indirection beam reorder
+     flag (which the port runs as the physical reorder), beam 5, on
+     read 101 (f32, 8-chunk batches) and on a 256 x 5 bf16/int6 batch: tokens and
+     lengths equal to the physical reorder, ms per step of both ways in
+     turns; (f) the coverage penalty ("wu" and "summary", beta 0.2), beam
+     5: card vs CPU identity >= 0.99 on read 101 (f32), (e)'s batch with
+     ms per step and at least one best score that differs from beta 0,
+     and 20 served reads at mean identity >= 0.90 ("summary") and >= 0.85
+     ("wu", which pays hypotheses for length; COVERAGE_MIN_IDENTITY);
+     (g) launches of each mode's own runs (ModeRuns): sample K1 and K2,
+     path_reorder K1, K2 and K3 (one a step), coverage K1 only (0 of K2
+     and K3);
+ 16. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
      beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11; engine,
      12; train, 13 (a)-(c); train_serve, 13 (d); rnn, 14 (a)-(b);
      rnn_hybrid, 14 (c); rnn_train, 14 (d); rnn_import, 14 (e);
-     rnn_engine, 14 (f)), K4a's and K4b's launches of the scalar
-     decode-attention kernel apart (none on phases 3-9), errors, times;
- 16. the last line: {"ok": true, "device": {...}}.
+     rnn_engine, 14 (f); sample, path_reorder and coverage, 15), K4a's
+     and K4b's launches of the scalar decode-attention kernel apart
+     (none on phases 3-9), errors, times;
+ 17. the last line: {"ok": true, "device": {...}}.
 
 `--kernels` runs phase 1 and the named kernels' phase 2 only and prints
 their numbers as one JSON line; with `--root` it imports (and builds) the
@@ -1876,7 +1901,7 @@ def phase_train(dev, reset, counts, phase4: dict, root: str) -> tuple[dict, dict
 # committed config with a biLSTM encoder and the input-feed RNN decoder,
 # "general" Luong attention) and the two hybrids, with random params.
 RNN_MODEL = {"encoder_type": "lstm", "decoder_type": "rnn"}
-RNN_SEED, RNN_TRAIN_STEPS, RNN_CELL_SCALE = 14, 20, 3.0
+RNN_SEED, RNN_TRAIN_STEPS, RNN_CELL_SCALE = 14, 10, 3.0
 
 
 def rnn_config(compute_dtype: str, h2d: str, model=None, batch: int = 640, **decode):
@@ -2239,6 +2264,312 @@ def phase_rnn(dev, reset, counts, expect) -> tuple[dict, dict]:
     return paths, numbers
 
 
+# Phase 15: the decode modes on the MQA flagship (kernel route).
+SAMPLE_SEEDS = (15, 16)
+COVERAGE_BETA = 0.2
+# Served identity floors under the coverage penalty.  "wu" at beta 0.2
+# counts -log of every encoder frame's attention mass under 1, and a
+# 2048-sample chunk has 256 frames against about 60 tokens: it pays
+# hypotheses for length, and its calls read about 0.025 under greedy's
+# (0.8953 on these 20 reads on an H100, against 0.9200).  The JAX package
+# calls these reads so too: scripts/coverage_witness.py holds the port to
+# it on them at f32 (its readings are in PERF.md section 2).
+COVERAGE_MIN_IDENTITY = {"wu": 0.85, "summary": 0.90}
+
+
+def host_gumbel(seed: int):
+    """gumbel(t, shape) for sample_decode: Gumbel noise made on the host
+    from numpy (float64, then f32; finite), the same for every device."""
+    def noise(t: int, shape) -> torch.Tensor:
+        u = np.random.default_rng([seed, t]).uniform(np.finfo(np.float64).tiny, 1.0, shape)
+        return torch.from_numpy((-np.log(-np.log(u))).astype(np.float32))
+    return noise
+
+
+@contextlib.contextmanager
+def fed_noise(noise):
+    """Translator's sample mode with `noise` in place of its generators'
+    draws (sample_decode's gumbel argument), for this block."""
+    from nanodecoder_tpu_torch.decode import translator
+
+    saved = translator.sample_decode
+    translator.sample_decode = lambda *a, **k: saved(*a, gumbel=noise, **k)
+    try:
+        yield
+    finally:
+        translator.sample_decode = saved
+
+
+class ModeRuns:
+    """The launches of one decode mode's runs: each run starts from counts
+    of 0 and adds what it launched, so the references run between them
+    (greedy, the physical reorder, the CPU) count nowhere.  A run is
+    fn(made): it appends what it ran on the card (a Translator, or any
+    object with `batches` and `decode_steps`) to `made`."""
+
+    def __init__(self, reset, counts):
+        self.reset, self.counts = reset, counts
+        self.launches = {name: 0 for name in counts()}
+        self.batches = self.steps = 0
+
+    def __call__(self, fn):
+        self.reset()
+        made = []
+        out = fn(made)
+        for name, n in self.counts().items():
+            self.launches[name] += n
+        self.batches += sum(x.batches for x in made)
+        self.steps += sum(x.decode_steps for x in made)
+        return out
+
+
+def card_translator(made, params, cfg):
+    from nanodecoder_tpu_torch.decode.translator import Translator
+
+    tr = Translator(params, cfg)
+    made.append(tr)
+    return tr
+
+
+def timed_batch(tr, chunks, lengths):
+    """One decode_chunk_batch after a warm-up one: (outputs, ms per decode
+    step, decode steps), on a CUDA-synchronized host clock."""
+    tr.decode_chunk_batch(chunks, lengths)
+    steps0 = tr.decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.decode_chunk_batch(chunks, lengths)
+    torch.cuda.synchronize()
+    steps = tr.decode_steps - steps0
+    return out, (time.perf_counter() - t0) * 1e3 / max(steps, 1), steps
+
+
+def same_calls(a, b) -> bool:
+    """Equal tokens and token lengths of two decode_chunk_batch outputs."""
+    return bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+
+
+def modes_sample(params, run, phase4: dict, numbers: dict) -> None:
+    """Phase 15 (a)-(d): sample mode."""
+    from nanodecoder_tpu_torch.decode.translator import Translator
+    from nanodecoder_tpu_torch.identity import read_identity
+    from nanodecoder_tpu_torch.io.pipeline import stop_ingest_processes
+
+    reads = golden_signals()
+
+    def golden_calls(made, cfg):
+        tr = card_translator(made, params, cfg)
+        return [call_read_chunks(tr, sig) for _rid, sig in reads]
+
+    # (a) topk 1 keeps the argmax alone: the card's greedy call.
+    want = golden_calls([], load_config("float32", "float32", 640))
+    got = run(lambda made: golden_calls(made, load_config(
+        "float32", "float32", 640, mode="sample", sampling_topk=1,
+        sampling_seed=SAMPLE_SEEDS[0])))
+    for (rid, _s), w, g in zip(reads, want, got):
+        check(np.array_equal(w[2], g[2]) and np.array_equal(w[3], g[3]),
+              f"sample topk 1: {rid} tokens differ from the greedy call")
+    print("sample f32 topk 1: the 3 golden reads' tokens equal the card's greedy call")
+
+    # (b) The same host-made noise on the card and on the CPU.
+    rich = load_config("float32", "float32", 32, mode="sample", temperature=1.0,
+                       sampling_topk=5, sampling_topp=0.9)
+    with fed_noise(host_gumbel(SAMPLE_SEEDS[0])):
+        card = run(lambda made: golden_calls(made, rich))
+        cpu = Translator(params, rich, device="cpu")
+        ref = [call_read_chunks(cpu, sig)[0] for _rid, sig in reads]
+    idents = [read_identity(c[0], r) for c, r in zip(card, ref)]
+    print("sample f32 T 1.0 topk 5 topp 0.9, host noise: card vs CPU identity "
+          + ", ".join(f"{x:.4f}" for x in idents)
+          + f" ({sum(c[0] == r for c, r in zip(card, ref))}/3 exact)")
+    check(min(idents) >= 0.99, f"sample card vs CPU: identity {min(idents)} below 0.99")
+
+    # (c) Served sample mode on phase 4's first 20 reads.
+    sim = simulated_reads(20)
+
+    def served(seed, temperature, n):
+        cfg = load_config("bfloat16", "int6", 640, mode="sample", temperature=temperature,
+                          sampling_seed=seed)
+        return run(lambda made: call_reads(card_translator(made, params, cfg), sim[:n]))
+    ids, samples, wall, seqs = served(SAMPLE_SEEDS[0], 0.3, 20)
+    g_mean, s_mean = float(np.mean(phase4["idents"][:20])), float(np.mean(ids))
+    again = served(SAMPLE_SEEDS[0], 0.3, 5)[3]
+    other = served(SAMPLE_SEEDS[1], 0.3, 5)[3]
+    hot = float(np.mean(served(SAMPLE_SEEDS[0], 1.0, 10)[0]))
+    print(f"served sample bf16/int6/b640 T 0.3: 20 reads, mean identity {s_mean:.4f} "
+          f"(min {min(ids):.4f}), greedy on the same reads {g_mean:.4f} (difference "
+          f"{s_mean - g_mean:+.4f}), {samples / wall / 1e3:.1f} ksamples/s wall; seed "
+          f"{SAMPLE_SEEDS[0]} again: {sum(a == b for a, b in zip(again, seqs))}/5 reads "
+          f"equal, seed {SAMPLE_SEEDS[1]}: {sum(a == b for a, b in zip(other, seqs))}/5; "
+          f"T 1.0: mean identity {hot:.4f} on the first 10 (not gated)")
+    check(s_mean >= g_mean - 0.02, f"served sample: identity {s_mean} more than 0.02 "
+          f"under greedy's {g_mean}")
+    check(again == seqs[:5], "served sample: the same seed gave other calls")
+    check(other != seqs[:5], "served sample: another seed gave the same calls")
+    numbers.update(sample_t03_mean_identity=s_mean, sample_t10_mean_identity=hot,
+                   greedy_mean_identity_20=g_mean)
+
+    # Decode ms per step on one full 640-chunk batch: greedy, sample, in turns.
+    serve = load_config("bfloat16", "int6", 640)
+    scfg = load_config("bfloat16", "int6", 640, mode="sample", temperature=1.0,
+                       sampling_topk=5, sampling_topp=0.9)
+    chunks, lengths = batch_of_chunks(serve.signal, 640, 80)
+    times = {"greedy": [], "sample": []}
+    for mode in ("greedy", "sample", "sample", "greedy"):
+        if mode == "greedy":
+            times[mode].append(timed_batch(Translator(params, serve), chunks, lengths)[1:])
+        else:
+            times[mode].append(run(lambda made: timed_batch(
+                card_translator(made, params, scfg), chunks, lengths))[1:])
+    print("decode batch bf16/int6, 640 chunks, ms/step (steps): " + "; ".join(
+        f"{mode} " + ", ".join(f"{ms:.3f} ({n})" for ms, n in t) for mode, t in times.items()))
+    numbers.update(greedy_ms_per_step=float(np.mean([ms for ms, _ in times["greedy"]])),
+                   sample_ms_per_step=float(np.mean([ms for ms, _ in times["sample"]])))
+
+    # (d) The engine in sample mode at topk 1 against its greedy calls.
+    fmt, _found = signal_file_format()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_modes_engine_")
+
+    def engine_sample(made):
+        out = engine_call(params, load_config("bfloat16", "int6", 640, mode="sample",
+                                              sampling_topk=1), files, "engine sample")
+        made.append(out[3])
+        return out
+    try:
+        files = write_signal_files(tmp, [(f"sim{i}", sig) for i, (_t, sig) in
+                                         enumerate(sim)], fmt)
+        with (npz_ingest() if fmt == "npz" else contextlib.nullcontext()):
+            gcalls = engine_call(params, serve, files, "engine greedy")[0]
+            scalls, _m, _t, engine = run(engine_sample)
+    finally:
+        stop_ingest_processes()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(sorted(scalls) == sorted(gcalls) and len(gcalls) == len(sim),
+          f"engine sample: {len(scalls)} reads back, greedy {len(gcalls)}")
+    e_ids = [read_identity(scalls[r], gcalls[r]) for r in sorted(gcalls)]
+    print(f"engine sample topk 1 bf16/int6 ({fmt}): {len(scalls)} reads in "
+          f"{engine.batches} batches, identity to the engine's greedy calls mean "
+          f"{np.mean(e_ids):.4f} ({sum(x == 1.0 for x in e_ids)} identical)")
+    check(float(np.mean(e_ids)) >= 0.99, f"engine sample: identity {np.mean(e_ids)}")
+
+
+def modes_path(params, run, numbers: dict):
+    """Phase 15 (e): beam with the path-indirection reorder flag (run as
+    the physical reorder) against beam without it.  Returns the 256 x 5 batch (chunks, lengths) and its
+    physical-reorder outputs."""
+    from nanodecoder_tpu_torch.decode.translator import Translator
+
+    def cfg(dtype, wire, batch, **kw):
+        return load_config(dtype, wire, 640, mode="beam", beam_size=5,
+                           batch_chunks_beam=batch, **kw)
+    sig = golden_signals()[0][1]
+    phys = call_read_chunks(Translator(params, cfg("float32", "float32", 8)), sig)
+    path = run(lambda made: call_read_chunks(card_translator(
+        made, params, cfg("float32", "float32", 8, path_reorder=True)), sig))
+    check(np.array_equal(phys[2], path[2]) and np.array_equal(phys[3], path[3]),
+          "path reorder f32: read 101's tokens differ from the physical reorder")
+    chunks, lengths = batch_of_chunks(cfg("bfloat16", "int6", 256).signal, 256, 40)
+    times = {"physical": [], "path": []}
+    outs = {}
+    for way in ("physical", "path", "path", "physical"):  # in turns
+        if way == "path":
+            out, ms, steps = run(lambda made: timed_batch(card_translator(
+                made, params, cfg("bfloat16", "int6", 256, path_reorder=True)), chunks,
+                lengths))
+        else:
+            out, ms, steps = timed_batch(Translator(params, cfg("bfloat16", "int6", 256)),
+                                         chunks, lengths)
+        times[way].append(ms)
+        outs[way] = out
+    check(same_calls(outs["path"], outs["physical"]),
+          "path reorder bf16 batch: tokens differ from the physical reorder")
+    print(f"path reorder beam 5: read 101 f32 ({len(path[0])} bases) and a 256 x 5 "
+          f"bf16/int6 batch ({steps} steps): tokens and lengths equal to the physical "
+          f"reorder; ms/step physical " + ", ".join(f"{x:.3f}" for x in times["physical"])
+          + ", path " + ", ".join(f"{x:.3f}" for x in times["path"]))
+    numbers.update(physical_ms_per_step=float(np.mean(times["physical"])),
+                   path_ms_per_step=float(np.mean(times["path"])))
+    return chunks, lengths, outs["physical"]
+
+
+def modes_coverage(params, run, phase4: dict, numbers: dict, batch) -> None:
+    """Phase 15 (f): the coverage penalty, "wu" and "summary", beam 5."""
+    from types import SimpleNamespace
+
+    chunks, lengths, plain = batch
+
+    def cfg(dtype, wire, batch, kind):
+        return load_config(dtype, wire, 640, mode="beam", beam_size=5,
+                           batch_chunks_beam=batch, coverage_penalty=kind,
+                           beta=COVERAGE_BETA)
+
+    def parity(made, kind):
+        b, steps, _seq = phase_beam_parity(
+            params, cfg("float32", "float32", 8, kind),
+            label=f"coverage {kind} beta {COVERAGE_BETA} beam f32/K5")
+        made.append(SimpleNamespace(batches=b, decode_steps=steps))
+    for kind in ("wu", "summary"):
+        run(lambda made: parity(made, kind))
+        out, ms, steps = run(lambda made: timed_batch(card_translator(
+            made, params, cfg("bfloat16", "int6", 256, kind)), chunks, lengths))
+        check(out[0].shape[0] == 256 and bool((out[1] > 0).all()),
+              f"coverage {kind} batch: missing or empty hypotheses")
+        n_diff = int((out[3] != plain[3]).sum())
+        print(f"coverage {kind} beta {COVERAGE_BETA} batch bf16/int6: 256 chunks x K5, "
+              f"{steps} steps, {ms:.3f} ms/step (the kernel route at beta 0: "
+              f"{numbers['physical_ms_per_step']:.3f}); best scores that differ from "
+              f"beta 0: {n_diff}/256, chunks whose tokens differ: "
+              f"{int((out[0] != plain[0]).any(axis=1).sum())}/256, mean best length "
+              f"{out[1].mean():.2f} tokens (beta 0: {plain[1].mean():.2f})")
+        check(n_diff > 0, f"coverage {kind}: no score differs from beta 0")
+        numbers[f"coverage_{kind}_ms_per_step"] = ms
+        ids = run(lambda made: call_reads(card_translator(
+            made, params, cfg("bfloat16", "int6", 256, kind)), simulated_reads(20)))[0]
+        mean_id = float(np.mean(ids))
+        print(f"coverage {kind} served bf16/int6/b256/K5: 20 reads, mean identity "
+              f"{mean_id:.4f} (min {min(ids):.4f}), greedy on the same reads "
+              f"{np.mean(phase4['idents'][:20]):.4f}")
+        check(mean_id >= COVERAGE_MIN_IDENTITY[kind],
+              f"coverage {kind} served: mean identity {mean_id} below "
+              f"{COVERAGE_MIN_IDENTITY[kind]}")
+        numbers[f"coverage_{kind}_mean_identity"] = mean_id
+
+
+def phase_modes(params, reset, counts, expect, phase4: dict) -> tuple[dict, dict]:
+    """Phase 15: sample mode, the path-indirection reorder and the coverage
+    penalty on the MQA flagship (ModeRuns counts each mode's launches).
+    Returns (launches by path, numbers)."""
+    t0 = time.perf_counter()
+    enc_layers = load_config("float32", "float32", 640).model.enc_layers
+    numbers = {}
+    sample = ModeRuns(reset, counts)
+    modes_sample(params, sample, phase4, numbers)
+    expect("sample", sample.launches, K1=enc_layers * sample.batches, K3=0, K4a=0, K4b=0,
+           K5=0)
+    check(sample.launches["K2"] >= sample.steps > 0,
+          f"sample path: K2 launched {sample.launches['K2']} times for {sample.steps} "
+          f"decode steps")
+    print(f"[phase 15] (a)-(d) {time.perf_counter() - t0:.1f} s")
+
+    path = ModeRuns(reset, counts)
+    batch = modes_path(params, path, numbers)
+    expect("path_reorder", path.launches, K1=enc_layers * path.batches, K3=path.steps,
+           K4a=0, K4b=0, K5=0)
+    check(path.launches["K2"] >= path.steps > 0,
+          f"path_reorder path: K2 launched {path.launches['K2']} times")
+    print(f"[phase 15] (e) {time.perf_counter() - t0:.1f} s")
+
+    cov = ModeRuns(reset, counts)
+    modes_coverage(params, cov, phase4, numbers, batch)
+    expect("coverage", cov.launches, K1=enc_layers * cov.batches, K2=0, K3=0, K4a=0,
+           K4b=0, K5=0)
+    check(cov.steps > 0, "coverage path: no decode step ran")
+    numbers["modes_phase_s"] = time.perf_counter() - t0
+    print(f"[phase 15] modes: {numbers['modes_phase_s']:.1f} s")
+    return {"sample": sample.launches, "path_reorder": path.launches,
+            "coverage": cov.launches}, numbers
+
+
 def kernel_times(names: list[str]) -> int:
     """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
     three dtypes, K3, K2 at four widths, K7); one JSON line of their
@@ -2465,6 +2796,11 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(rnn_paths)
         print("rnn numbers: " + json.dumps(rnn_numbers))
         elapsed("phase 14")
+        mode_paths, mode_numbers = phase_modes(params, reset, counts, expect,
+                                               phase4)  # phase 15
+        paths.update(mode_paths)
+        print("decode mode numbers: " + json.dumps(mode_numbers))
+        elapsed("phase 15")
         check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
               "K6 or K7 launched on a serving path")
         for path, c in paths.items():

@@ -9,9 +9,10 @@ or a checkpoint directory of the port's trainer (its latest step).
 It runs on the CUDA card unless given --cpu (and raises without a card);
 --pallas / --no-pallas set model.use_pallas and decode.use_pallas (the
 kernel route or the plain PyTorch one), by default the kernel route on
-the card and the plain one with --cpu.  One process: the JAX CLI's
-multi-host file sharding and shard merge are not ported, nor are
---sample and a coverage penalty with a non-zero --beta (both exit 2).
+the card and the plain one with --cpu.  Greedy, --beam (with a
+--coverage-penalty) and --sample decoding; --beam with --sample exits 2.
+One process: the JAX CLI's multi-host file sharding and shard merge are
+not ported.
 """
 
 from __future__ import annotations
@@ -36,13 +37,14 @@ def build_argparser() -> argparse.ArgumentParser:
                          "under label smoothing)")
     ap.add_argument("--alpha", type=float, default=0.6)
     ap.add_argument("--coverage-penalty", choices=["none", "wu", "summary"],
-                    default="none", help="beam coverage penalty (not ported: "
-                    "exits 2 with a non-zero --beta)")
+                    default="none", help="beam coverage penalty (the reference's "
+                    "PenaltyBuilder)")
     ap.add_argument("--beta", type=float, default=0.0, help="coverage weight")
     ap.add_argument("--min-len", type=int, default=0,
                     help="mask EOS before this many tokens")
     ap.add_argument("--sample", action="store_true",
-                    help="random-sampling decode (not ported: exits 2)")
+                    help="random-sampling decode (the reference's "
+                         "-random_sampling_topk/-random_sampling_temp)")
     ap.add_argument("--temperature", type=float, default=1.0,
                     help="sampling softmax temperature")
     ap.add_argument("--sampling-topk", type=int, default=0,
@@ -89,12 +91,6 @@ def main(argv=None) -> int:
     if args.beam > 0 and args.sample:
         log.error("--beam and --sample are mutually exclusive")
         return 2
-    if args.sample:
-        log.error("--sample: sample mode is not ported")
-        return 2
-    if args.beam > 0 and args.coverage_penalty != "none" and args.beta != 0.0:
-        log.error("--coverage-penalty with a non-zero --beta is not ported")
-        return 2
 
     from nanodecoder_tpu_torch.cli.common import load_params_and_config
     from nanodecoder_tpu_torch.decode.engine import StreamingBasecaller
@@ -111,6 +107,11 @@ def main(argv=None) -> int:
         overrides.update(mode="beam", beam_size=args.beam,
                          length_penalty=args.length_penalty, alpha=args.alpha,
                          coverage_penalty=args.coverage_penalty, beta=args.beta)
+    if args.sample:
+        overrides.update(mode="sample", temperature=args.temperature,
+                         sampling_topk=args.sampling_topk,
+                         sampling_topp=args.sampling_topp,
+                         sampling_seed=args.sampling_seed)
     if args.min_len > 0:
         overrides.update(min_len=args.min_len)
     if args.h2d:

@@ -182,21 +182,11 @@ class DecodeConfig:
     # while raw greedy preferred 640).  0 = use the mode default.
     batch_chunks_engine: int = 0
     use_pallas: bool = True       # pallas attention kernels on TPU hot path
-    # Beam reorder strategy (lean transformer path only).  True = the
-    # self cache is NEVER physically permuted: rows stay in write-time
-    # frame and a composed ancestry map (B, K, T) int32 — updated per
-    # step by a gather 32x smaller than the cache — indirects the
-    # masked self-attention read (token-exact vs the physical permute;
-    # tests/test_decode.py).  Chip A/B (round 5, b256 beam5): the
-    # indirection measured 5,299 ks/s vs 11,574 for the physical
-    # permute — 2.2x SLOWER.  The ancestry map itself is tiny, but the
-    # self-attention read must gather T cache rows per (batch, beam)
-    # every step; XLA materializes that gathered prefix as a fresh
-    # (B*K, T, Dh) copy per step — the same bytes the permute moves,
-    # now strided instead of contiguous, plus the compose ops.  The
-    # round-4 roofline bounded the permute's bytes, not the count of
-    # programs that touch them.  Physical reorder is the default;
-    # the indirection stays as an A/B lever (docs/PERF.md round 5).
+    # Beam reorder strategy.  The JAX package's path mode (lean
+    # transformer path only) leaves the self cache in write-time frame
+    # and reads it through a composed (B, K, T) ancestry map; the port
+    # accepts the flag and runs the physical reorder, which it equals
+    # token for token (decode/beam.py).
     path_reorder: bool = False
     # Signal host->device dtype.  The engine's H2D transfer is its
     # single largest link cost (2 MB f32 per 512-chunk batch; the

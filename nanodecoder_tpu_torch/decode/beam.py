@@ -28,8 +28,22 @@ flag, EOS log-prob, EOS position) as (B, K, 5) f32 channels (integer
 channels are exact in f32).  `_backtrack` rebuilds the sequences after
 the loop.
 
-The coverage penalty and the path-indirection reorder
-(`DecodeConfig.path_reorder`) are not ported.
+The coverage penalty (`coverage_penalty` "wu" or "summary" with a
+non-zero `beta`) changes the loop, as in the JAX package.  It needs each
+step's cross-attention probabilities, which the kernels never
+materialise.  The whole decode (init, steps, reorder) then runs on the
+unfolded step over per-layer self caches with use_pallas false
+(`decode_step(return_attn=True)`), and the advance takes the top-k
+route, never K3.  A (B, K, S) f32 carry accumulates each hypothesis's
+attention mass; a finished candidate scores its penalized score minus
+the coverage penalty of its mass.
+
+The path-indirection reorder (`DecodeConfig.path_reorder`) is accepted
+and runs the physical reorder, which it equals token for token.  The
+JAX package's path mode keeps the self cache in write-time frame and
+reads it through a (B, K, T) ancestry map; a port of that read gathers
+the whole self cache every step, the bytes the physical reorder moves,
+so the port keeps one reorder.
 """
 
 from __future__ import annotations
@@ -41,7 +55,7 @@ import torch
 
 from nanodecoder_tpu_torch.config import DecodeConfig, ModelConfig
 from nanodecoder_tpu_torch.decode.greedy import grow_self_cache, staged_lengths
-from nanodecoder_tpu_torch.decode.penalties import length_penalty
+from nanodecoder_tpu_torch.decode.penalties import coverage_penalty, length_penalty
 from nanodecoder_tpu_torch.models.model import (decode_step, init_decode_state,
                                                 reorder_decode_state_beam)
 from nanodecoder_tpu_torch.ops.beam_step import NEG_INF, beam_advance
@@ -58,13 +72,10 @@ class BeamResult(NamedTuple):
     steps: int                     # decode steps run
 
 
-def check_ported(dcfg: DecodeConfig) -> None:
-    """Raise for the beam options the port does not have yet."""
-    if dcfg.coverage_penalty != "none" and dcfg.beta != 0.0:
-        raise ValueError(f"coverage_penalty {dcfg.coverage_penalty!r} is not ported")
-    if dcfg.path_reorder:
-        raise ValueError("path_reorder is not ported; the port reorders the "
-                         "self cache physically")
+def needs_coverage(dcfg: DecodeConfig) -> bool:
+    """Whether the decode carries the coverage penalty (and so leaves the
+    kernels: see the module docstring)."""
+    return dcfg.coverage_penalty != "none" and dcfg.beta != 0.0
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -80,13 +91,15 @@ def _top_k(x: torch.Tensor, n: int):
 
 
 def advance_top_k(alive: torch.Tensor, log_probs: torch.Tensor, fin: torch.Tensor,
-                  pen: float, k: int, v: int, eos_id: int):
+                  pen: float, k: int, v: int, eos_id: int,
+                  fin_penalty: Callable[[torch.Tensor], torch.Tensor] | None = None):
     """The advance without kernel K3, as the JAX package runs it when
-    use_pallas is false: the top 2K candidates of alive + log_probs over
-    K * V, the best K of them that are not EOS, and the best K of the old
-    finished scores and the EOS candidates divided by pen (an IEEE f32
-    division).  Returns K3's (top_ids, alive_s, alive_sel, fin_s,
-    fin_sel), indices int64."""
+    use_pallas is false or under the coverage penalty: the top 2K
+    candidates of alive + log_probs over K * V, the best K of them that
+    are not EOS, and the best K of the old finished scores and the EOS
+    candidates divided by pen (an IEEE f32 division), less
+    fin_penalty(top_ids) (B, 2K) where given.  Returns K3's (top_ids,
+    alive_s, alive_sel, fin_s, fin_sel), indices int64."""
     b = log_probs.shape[0]
     flat = (alive[:, :, None] + log_probs).reshape(b, k * v)
     tops, top_ids = _top_k(flat, 2 * k)
@@ -94,7 +107,10 @@ def advance_top_k(alive: torch.Tensor, log_probs: torch.Tensor, fin: torch.Tenso
     alive_s, alive_sel = _top_k(torch.where(is_eos, NEG_INF, tops), k)
     # A device tensor divisor: a host scalar may become a reciprocal multiply.
     pen_t = torch.tensor(pen, dtype=torch.float32, device=tops.device)
-    fin_cand = torch.where(is_eos, tops / pen_t, NEG_INF)
+    fin_sc = tops / pen_t
+    if fin_penalty is not None:
+        fin_sc = fin_sc - fin_penalty(top_ids)
+    fin_cand = torch.where(is_eos, fin_sc, NEG_INF)
     fin_s, fin_sel = _top_k(torch.cat([fin, fin_cand], dim=1), k)
     return top_ids, alive_s, alive_sel, fin_s, fin_sel
 
@@ -138,13 +154,15 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
     carry the serving fold (models.model.prepare_serving_params).
     `mark`, if given, is called with the name of each phase as it starts
     ("decode step", "advance + reorder", "backtrack"), for a profiler."""
-    check_ported(dcfg)
     mark = mark or (lambda _name: None)
     b = memory.shape[0]
     k = dcfg.beam_size
     v = cfg.vocab_size
     tmax = cfg.max_decode_len
     dev = memory.device
+    need_cov = needs_coverage(dcfg)
+    if need_cov and cfg.lean_step:  # the unfolded step over the master weights
+        cfg = dataclasses.replace(cfg, lean_step=False)
     stages = staged_lengths(cfg)
     if cfg.decoder_type == "rnn":  # memory bank tiled beam-wise
         state = init_decode_state(params, cfg, memory.repeat_interleave(k, dim=0),
@@ -162,6 +180,9 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
     fin_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
     fin_meta = torch.zeros((b, k, 5), dtype=torch.float32, device=dev)
     fin_meta[..., 0] = -1.0                                  # eos step
+    # Accumulated cross-attention mass of each alive hypothesis.
+    cov = torch.zeros((b, k, memory.shape[1] if need_cov else 1),
+                      dtype=torch.float32, device=dev)
     # Scores at tmax are multiplied by the f32 reciprocal of the penalty,
     # as XLA compiles the JAX package's division by this constant.
     inv_max_pen = (1.0 / length_penalty(tmax, dcfg.length_penalty,
@@ -181,14 +202,27 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
         scfg = dataclasses.replace(cfg, max_decode_len=st)
         while t < st and not done():
             mark("decode step")
-            log_probs, step_attn, state = decode_step(params, scfg, cur, state)
+            if need_cov:
+                log_probs, step_attn, attn_mean, state = decode_step(
+                    params, scfg, cur, state, return_attn=True)
+            else:
+                log_probs, step_attn, state = decode_step(params, scfg, cur, state)
             mark("advance + reorder")
             if t < dcfg.min_len:  # EOS is no legal continuation yet
                 log_probs[:, EOS_ID] = NEG_INF
             lp = log_probs.reshape(b, k, v)
             pen = float(length_penalty(t + 1, dcfg.length_penalty, dcfg.alpha))
-            top_ids, alive, alive_idx, fin_scores, fin_idx = advance(
-                alive, lp, fin_scores, pen, k, v, EOS_ID)
+            if need_cov:
+                # A candidate's mass: its origin beam's, plus the origin's
+                # attention row of this step.
+                cov_step = cov + attn_mean.reshape(b, k, -1)
+                top_ids, alive, alive_idx, fin_scores, fin_idx = advance_top_k(
+                    alive, lp, fin_scores, pen, k, v, EOS_ID,
+                    lambda ids: coverage_penalty(_gather(cov_step, ids // v),
+                                                 dcfg.coverage_penalty, dcfg.beta))
+            else:
+                top_ids, alive, alive_idx, fin_scores, fin_idx = advance(
+                    alive, lp, fin_scores, pen, k, v, EOS_ID)
             top_ids = top_ids.long()
             tok = top_ids % v
             origin = top_ids // v
@@ -202,7 +236,10 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
             alive_pack = _gather(cand_pack, alive_idx)                # (B, K, 4)
             hist[:, :, t, :] = alive_pack
             cur = alive_pack[..., 0].long().reshape(-1)
-            state = reorder_decode_state_beam(state, alive_pack[..., 1].long())
+            alive_origin = alive_pack[..., 1].long()
+            if need_cov:
+                cov = _gather(cov_step, alive_origin)
+            state = reorder_decode_state_beam(state, alive_origin)
             cand_meta = torch.stack([
                 torch.full((b, 2 * k), float(t), device=dev), origin.to(torch.float32),
                 is_eos.to(torch.float32), cand_lp, cand_pos], dim=2)  # (B, 2K, 5)
@@ -216,8 +253,12 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
     m_origin = fin_meta[..., 1].to(torch.int32)
     m_flags = fin_meta[..., 2] > 0.5
     # Rows with no finished hypothesis fall back to their best alive
-    # beams, penalized at tmax.
+    # beams, penalized at tmax (and by their coverage).
     sel = ~m_flags.any(dim=1, keepdim=True)                    # (B, 1)
+    alive_final = alive * inv_max_pen
+    if need_cov:
+        alive_final = alive_final - coverage_penalty(cov, dcfg.coverage_penalty,
+                                                     dcfg.beta)
     beam_ids = torch.arange(k, dtype=torch.int32, device=dev).expand(b, k)
     eos_at = torch.where(sel, t, torch.where(m_flags, m_step, -1))
     start_beam = torch.where(sel, beam_ids, m_origin)
@@ -229,7 +270,7 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
     return BeamResult(
         tokens=tokens,
         lengths=torch.where(sel, tmax, torch.where(m_flags, m_step + 1, 0)).to(torch.int32),
-        scores=torch.where(sel, alive * inv_max_pen, fin_scores),
+        scores=torch.where(sel, alive_final, fin_scores),
         finished=~sel & m_flags,
         token_log_probs=token_lps,
         attn_pos=attn_pos,

@@ -16,9 +16,12 @@ port's counterpart of `nanodecoder_tpu.decode.engine`).
     (bounded memory over any number of reads), in the process pool;
   * resumable: completed read ids can be skipped on restart.
 
-The JAX engine's `mesh_plan` (data-parallel decode over a device mesh)
-and sample mode are not ported.  Its warning about beam state spilling a
-TPU core's VMEM is not carried over: this card has no such wall.
+Greedy, beam and sample mode, as `Translator` serves them; in sample
+mode the batches are numbered for their generators in dispatch order
+(one dispatching thread), whatever the depth.  The JAX engine's
+`mesh_plan` (data-parallel decode over a device mesh) is not ported.
+Its warning about beam state spilling a TPU core's VMEM is not carried
+over: this card has no such wall.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ class StreamingBasecaller:
         """params: the nested parameter dict of
         train.checkpoint.load_params_npz; the serving fold runs once here,
         on `device` (the card unless the caller asks for the CPU).
-        config.decode.mode: greedy or beam ("sample" raises, not ported).
+        config.decode.mode: greedy, beam or sample.
 
         attn_pos=False drops the per-token attention positions from the
         device->host copy: only the "attn" stitcher reads them."""

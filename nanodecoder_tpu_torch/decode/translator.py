@@ -1,13 +1,13 @@
 """Batch basecalling: host orchestration around encode + decode.
 
 The port's counterpart of `nanodecoder_tpu.decode.translator`, in
-greedy and beam mode:
+greedy, beam and sample mode:
   * normalize and chunk each read (io.signal) and pack the chunks into
     fixed-size batches (`DecodeConfig.effective_batch_chunks`), padding
     the last with length-0 rows;
   * per batch: convert to the H2D wire on the host, unpack it on the
-    device, encode, decode (greedy, or beam search keeping the best
-    hypothesis), and bring back a compact result (int16 ids and
+    device, encode, decode (greedy, beam search keeping the best
+    hypothesis, or sampling), and bring back a compact result (int16 ids and
     positions, f16 log-probs);
   * expand tokens to bases with per-base Phred qualities and stitch the
     chunks back into reads.
@@ -22,14 +22,16 @@ import numpy as np
 import torch
 
 from nanodecoder_tpu_torch.config import Config
-from nanodecoder_tpu_torch.decode.beam import beam_decode, check_ported
+from nanodecoder_tpu_torch.decode.beam import beam_decode, needs_coverage
 from nanodecoder_tpu_torch.decode.finish import stitch_read
 from nanodecoder_tpu_torch.decode.greedy import greedy_decode
+from nanodecoder_tpu_torch.decode.sampling import batch_generator, sample_decode
 from nanodecoder_tpu_torch.device import resolve_device
 from nanodecoder_tpu_torch.io.fast5 import RawRead
 from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
                                              normalize_signal, wire_to_f32)
 from nanodecoder_tpu_torch.models.model import encode, params_to, prepare_serving_params
+from nanodecoder_tpu_torch.utils.logging import get_logger
 from nanodecoder_tpu_torch.vocab import make_vocab
 
 
@@ -47,23 +49,35 @@ class Basecall:
 
 
 class Translator:
-    """Basecaller over one model on one device, greedy or beam search
-    (`config.decode.mode`).
+    """Basecaller over one model on one device, greedy, beam search or
+    sampling (`config.decode.mode`).
 
     params: the nested parameter dict of train.checkpoint.load_params_npz.
     The serving fold runs once here, on the device.  Counters for the
     record: `batches` (device batches run) and `decode_steps` (decode
-    steps run over all batches)."""
+    steps run over all batches).
+
+    Sample mode needs temperature > 0.  Each dispatched batch draws from
+    its own generator on the device, `sampling.batch_generator(
+    sampling_seed, batch_no)` with batch_no counting the batches that
+    `decode_program` ran, from 0: a fixed seed and batch order reproduce
+    a run.  The sampled tokens differ from the JAX package's by design
+    (torch's generators cannot reproduce jax.random), and for one seed
+    the CPU's draws differ from the card's."""
 
     def __init__(self, params: dict[str, Any], config: Config,
                  device: str | torch.device = "cuda"):
         mode = config.decode.mode
-        if mode == "sample":
-            raise ValueError("decode mode 'sample' is not ported")
-        if mode not in ("greedy", "beam"):
+        if mode not in ("greedy", "beam", "sample"):
             raise ValueError(f"unknown decode mode {mode!r}")
-        if mode == "beam":
-            check_ported(config.decode)
+        if mode == "sample" and config.decode.temperature <= 0.0:
+            raise ValueError("sample mode needs temperature > 0")
+        if mode == "beam" and needs_coverage(config.decode) and config.decode.use_pallas:
+            get_logger("beam").warning(
+                "coverage_penalty=%r turns off the beam advance kernel (K3) and the "
+                "decode kernels: it needs the attention probabilities, which they "
+                "never materialise; expect a slower decode",
+                config.decode.coverage_penalty)
         self.device = resolve_device(device)
         # Full-precision f32 products: a float32 conv would otherwise run
         # in TF32 through cuDNN, which the f32 goldens do not tolerate.
@@ -77,6 +91,7 @@ class Translator:
         self._h2d = config.decode.resolve_h2d(config.model.compute_dtype)
         self.batches = 0
         self.decode_steps = 0
+        self.sample_batches = 0
 
     @staticmethod
     def _compact_d2h(tokens, lengths, lps, scores, sample_pos):
@@ -103,7 +118,7 @@ class Translator:
     def decode_program(self, wire: np.ndarray, lengths: np.ndarray):
         """Encode and decode one batch of wire rows on the device; the best
         hypothesis of each chunk in beam mode, with its per-token log-probs
-        and positions.  Returns the compact device tensors of
+        and positions; in sample mode from the next batch's generator.  Returns the compact device tensors of
         `_compact_d2h`: (tokens int16, lengths, log-probs f16, scores,
         sample positions int16).  The streaming engine runs it too."""
         cfg = self.config.model
@@ -113,8 +128,15 @@ class Translator:
                 res.tokens[:, 0], res.lengths[:, 0], res.token_log_probs[:, 0],
                 res.scores[:, 0], res.attn_pos[:, 0])
         else:
-            res = greedy_decode(self.params, cfg, *self._encode(wire, lengths),
-                                min_len=self.config.decode.min_len)
+            if self.config.decode.mode == "sample":
+                gen = batch_generator(self.config.decode.sampling_seed,
+                                      self.sample_batches, self.device)
+                self.sample_batches += 1
+                res = sample_decode(self.params, cfg, self.config.decode,
+                                    *self._encode(wire, lengths), gen)
+            else:
+                res = greedy_decode(self.params, cfg, *self._encode(wire, lengths),
+                                    min_len=self.config.decode.min_len)
             self.decode_steps += res.steps
             tokens, tok_lengths, lps, scores, attn_pos = (
                 res.tokens, res.lengths, res.token_log_probs, res.scores,

@@ -249,10 +249,14 @@ def _attn_step(p, n_heads: int, h: torch.Tensor, k_cache: torch.Tensor,
     return out, probs.reshape(b * group, n_heads, 1, t), None
 
 
+def _head_mean(probs: torch.Tensor) -> torch.Tensor:
+    """probs (R, H, 1, T) -> (R, T) f32 head mean, taken after the upcast."""
+    return probs[:, :, 0, :].to(torch.float32).mean(dim=1)
+
+
 def _head_mean_argmax(probs: torch.Tensor) -> torch.Tensor:
     """probs (R, H, 1, T) -> (R,) int32 argmax of the head mean."""
-    return probs[:, :, 0, :].to(torch.float32).mean(dim=1).argmax(dim=-1).to(
-        torch.int32)
+    return _head_mean(probs).argmax(dim=-1).to(torch.int32)
 
 
 def _transformer_decoder_step_lean(lean, cfg: ModelConfig, y1: torch.Tensor,

@@ -14,6 +14,7 @@ the JAX package's do.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -181,18 +182,30 @@ def decode_teacher_forced(params, cfg: ModelConfig, tgt_in: torch.Tensor,
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                state: dict[str, Any]):
+                state: dict[str, Any], return_attn: bool = False):
     """One decode step.  tokens: (B,) int current input tokens.
     Returns (log_probs (B, V) f32, attn_pos (B,) int32 — the last layer's
     cross-attention argmax over encoder positions (the RNN decoder's:
     of its f32 Luong probabilities, ties to the lowest position) — and
-    the new state)."""
+    the new state).
+
+    With return_attn, returns (log_probs, attn_pos, attn_mean (B, S) f32,
+    new state): attn_mean is the head mean of the last layer's
+    cross-attention probabilities, taken in f32 (the RNN decoder's Luong
+    probabilities), which the beam coverage penalty accumulates.  The
+    kernels never materialise the probabilities, so a transformer step
+    then runs unfolded (over per-layer self caches, from
+    init_decode_state with lean_step false) with use_pallas false."""
     y1 = _embed_tokens(params, cfg, tokens[:, None], state["step"])
     if cfg.decoder_type == "rnn":
         hidden, probs, new_state = dec.rnn_decoder_step(params["decoder"], cfg, y1, state)
-        attn_pos = probs[:, 0, 0, :].argmax(dim=-1).to(torch.int32)
-        return generator_log_probs(params, hidden[:, 0, :]), attn_pos, new_state
-    if cfg.lean_step:
+        attn_mean = probs[:, 0, 0, :]
+        attn_pos = attn_mean.argmax(dim=-1).to(torch.int32)
+        log_probs = generator_log_probs(params, hidden[:, 0, :])
+        if return_attn:
+            return log_probs, attn_pos, attn_mean, new_state
+        return log_probs, attn_pos, new_state
+    if cfg.lean_step and not return_attn:
         if "_lean" not in params:
             raise ValueError(_NOT_FOLDED)
         lean = params["_lean"]
@@ -200,7 +213,14 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
             lean, cfg, y1, state)
         logits = hidden[:, 0, :].to(torch.float32) @ lean["gen_w"] + lean["gen_b"]
         return torch.log_softmax(logits, dim=-1), attn_pos, new_state
+    scfg = dataclasses.replace(cfg, use_pallas=False) if return_attn else cfg
     hidden, (probs, amax), new_state = dec.transformer_decoder_step(
-        params["decoder"], cfg, y1, state)
-    attn_pos = amax if probs is None else dec._head_mean_argmax(probs)
-    return generator_log_probs(params, hidden[:, 0, :]), attn_pos, new_state
+        params["decoder"], scfg, y1, state)
+    log_probs = generator_log_probs(params, hidden[:, 0, :])
+    if probs is None:
+        return log_probs, amax, new_state
+    attn_mean = dec._head_mean(probs)
+    attn_pos = attn_mean.argmax(dim=-1).to(torch.int32)
+    if return_attn:
+        return log_probs, attn_pos, attn_mean, new_state
+    return log_probs, attn_pos, new_state

@@ -15,7 +15,6 @@ qualities within 1 Phred per base (the f32 sums run in another order;
 tests/test_torch_golden.py states the same tolerance).
 """
 
-import dataclasses
 import functools
 import io
 import os
@@ -103,9 +102,14 @@ def _write_multi_fast5(path, reads):
 
 @pytest.fixture(scope="module")
 def fast5_files(tmp_path_factory):
+    return write_fast5_files(tmp_path_factory.mktemp("fast5"))
+
+
+def write_fast5_files(root) -> list[str]:
+    """The module's reads (seed 5) in N_FILES multi-read fast5 files under
+    root; their paths, sorted."""
     from nanodecoder_tpu.train.data import SimSpec, simulate_read
 
-    root = tmp_path_factory.mktemp("fast5")
     rng = np.random.default_rng(5)
     spec = SimSpec()
     for fi in range(N_FILES):
@@ -240,17 +244,6 @@ def test_engine_relays_a_writer_error(fast5_files):
         _port_engine().run(fast5_files, BoomWriter(), num_workers=2)
 
 
-def test_engine_sample_mode_not_ported():
-    cfg = _port_cfg()
-    cfg = dataclasses.replace(cfg, decode=dataclasses.replace(cfg.decode, mode="sample"))
-    from nanodecoder_tpu_torch.decode.engine import StreamingBasecaller
-    from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy
-
-    with pytest.raises(ValueError, match="not ported"):
-        StreamingBasecaller(params_from_numpy(_flat(), cfg.model, device="cpu"), cfg,
-                            device="cpu")
-
-
 def test_engine_and_cli_default_to_cuda(monkeypatch, tmp_path, fast5_files):
     from nanodecoder_tpu_torch.cli import basecall
     from nanodecoder_tpu_torch.decode.engine import StreamingBasecaller
@@ -274,16 +267,6 @@ def _write_ckpt(root) -> str:
     with open(os.path.join(str(root), "config.json"), "w") as f:
         f.write(_jcfg("greedy", "float32").to_json())
     return path
-
-
-@pytest.mark.parametrize("argv", [["--sample"], ["--beam", "3", "--coverage-penalty",
-                                                 "wu", "--beta", "0.2"]])
-def test_cli_options_not_ported_exit_2(argv, tmp_path, fast5_files):
-    from nanodecoder_tpu_torch.cli import basecall
-
-    assert basecall.main(["--cpu", "--input", fast5_files[0], "--output",
-                          str(tmp_path / "o.fq"), "--ckpt", _write_ckpt(tmp_path)]
-                         + argv) == 2
 
 
 def _jax_cli(argv, tmp_path) -> None:
