@@ -150,14 +150,39 @@ Phases, in order; any failure exits non-zero before the last line:
      (g) launches of each mode's own runs (ModeRuns): sample K1 and K2,
      path_reorder K1, K2 and K3 (one a step), coverage K1 only (0 of K2
      and K3);
- 16. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+ 16. the host tier and data parallelism: (a) the native host library
+     (built with g++ in phase 1, where the run fails if it does not
+     load) is loaded from the build directory; (b) its edit distance and
+     overlap scorer equal the numpy versions on 1000 random pairs, and
+     its read identity equals numpy's on phase 4's pairs; the seconds
+     read identity took in phases 3-15 (native), numpy's estimated from
+     10 of those calls timed serially, and per read on 3 of phase 4's
+     reads, numpy and native, serially; (c) a NCCL group of
+     one rank: the streaming engine with a mesh plan on 20 reads (bf16,
+     int6 wire, 512-chunk batches) gives FASTQ byte-equal to the engine
+     without one; (d) two ranks sharing the card (subprocesses; gloo,
+     which the bootstrap picks where ranks outnumber cards): which
+     collectives gloo takes on CUDA tensors of each dtype; a greedy batch
+     of 640 chunks and a beam-5 batch of 256 chunks of the MQA flagship
+     (f32, kernel route) sharded over the ranks against one rank's call
+     (every chunk's identity >= 0.99; the count of exactly equal chunks
+     printed); two data-parallel Adam steps at batch 8 (phase 13 (a)'s
+     settings, dropout 0) each held to one rank's step from the same
+     state at phase 13 (a)'s tolerances; the gather ms of a batch and the
+     gradient all-reduce ms of a step; each rank's launches (K1, K2, K3);
+     then the basecall CLI at world 2 on 20 reads in 4 files: every read
+     exactly once in the merged FASTQ, no shard left; (e) no child process
+     left; (f) utils.profiling.device_trace writes a Chrome trace of one
+     batch; the phase's wall;
+ 17. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
      beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11; engine,
      12; train, 13 (a)-(c); train_serve, 13 (d); rnn, 14 (a)-(b);
      rnn_hybrid, 14 (c); rnn_train, 14 (d); rnn_import, 14 (e);
-     rnn_engine, 14 (f); sample, path_reorder and coverage, 15), K4a's
-     and K4b's launches of the scalar decode-attention kernel apart
-     (none on phases 3-9), errors, times;
- 17. the last line: {"ok": true, "device": {...}}.
+     rnn_engine, 14 (f); sample, path_reorder and coverage, 15; dp_nccl,
+     16 (c); dp_rank0 and dp_rank1, 16 (d), counted in each rank's
+     process), K4a's and K4b's launches of the scalar decode-attention
+     kernel apart (none on phases 3-9), errors, times;
+ 18. the last line: {"ok": true, "device": {...}}.
 
 `--kernels` runs phase 1 and the named kernels' phase 2 only and prints
 their numbers as one JSON line; with `--root` it imports (and builds) the
@@ -305,11 +330,18 @@ def phase_card() -> None:
 def phase_build() -> None:
     from nanodecoder_tpu_torch.ops import _build
 
+    from nanodecoder_tpu_torch import native
+
     t0 = time.perf_counter()
     log = _build.build(verbose=True)
     _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({len(_build.sources())} sources)")
+    t0 = time.perf_counter()
+    check(native.load() is not None, "the native host library (g++) did not build or "
+          "load: read identity would run its numpy version")
+    print(f"native host library build or load: {time.perf_counter() - t0:.1f} s "
+          f"({native.LIBRARY_NAME} in {_build.build_dir()})")
     # One line per kernel: its mangled name without the namespace prefix,
     # registers and spills (shared memory is dynamic, sized at launch).
     lines = log.splitlines()
@@ -725,16 +757,33 @@ def load_config(compute_dtype: str, h2d: str, batch_chunks: int, model=None,
                                    batch_chunks=batch_chunks, **decode))
 
 
-def expand_kv_heads(flat: dict, heads: int) -> dict:
-    """Flat MQA params -> the same model in MHA form: every decoder K/V
-    projection (self and cross, w (D, Dh) and b (Dh,)) tiled across the
-    heads.  The MHA model computes the same function."""
-    out = dict(flat)
-    for key, arr in flat.items():
-        if key.startswith("decoder/layers/") and any(
-                f"_attn/{p}/" in key for p in "kv"):
-            out[key] = np.tile(arr, (1,) * (arr.ndim - 1) + (heads,))
-    return out
+class IdentityLog:
+    """Every read identity that phases 3-15 compute, through the port's
+    `identity.read_identity` (native where the host library loads): the
+    pair and the result, and the seconds all the calls took.  Phase 16
+    holds phase 4's pairs to the numpy version and times a sample of the
+    pairs in numpy."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, str, float]] = []
+        self.seconds = 0.0
+
+    def __call__(self, called: str, truth: str) -> float:
+        from nanodecoder_tpu_torch import identity
+
+        t0 = time.perf_counter()
+        value = identity.read_identity(called, truth)
+        self.seconds += time.perf_counter() - t0
+        self.calls.append((called, truth, value))
+        return value
+
+
+IDENTITY = IdentityLog()
+
+
+def read_identity(called: str, truth: str) -> float:
+    """The port's read identity, logged in IDENTITY."""
+    return IDENTITY(called, truth)
 
 
 def simulated_reads(n_reads: int, n_bases: int = 3000):
@@ -750,7 +799,6 @@ def simulated_reads(n_reads: int, n_bases: int = 3000):
 def call_reads(tr, reads) -> tuple[list[float], int, float, list[str]]:
     """Basecall reads (attn stitch): (identities, samples, wall seconds,
     sequences)."""
-    from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.fast5 import RawRead
 
     torch.cuda.synchronize()
@@ -766,7 +814,6 @@ def call_reads(tr, reads) -> tuple[list[float], int, float, list[str]]:
 
 def phase_golden(params, cfg, label="golden f32") -> tuple[int, int]:
     from nanodecoder_tpu_torch.decode.translator import Translator
-    from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.fast5 import RawRead
     from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
 
@@ -814,7 +861,6 @@ def phase_beam_parity(params, cfg, ref=None, label=None):
     (ref None) or the sequence `ref`.  Returns (batches, decode steps,
     the card's sequence)."""
     from nanodecoder_tpu_torch.decode.translator import Translator
-    from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.fast5 import RawRead
     from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
 
@@ -1088,38 +1134,6 @@ def phase_repaired(dev, rng) -> dict:
     return out
 
 
-def random_params(cfg, seed: int, generator_scale: float = 3.0,
-                  rnn_cell_scale: float = 1.0) -> dict:
-    """Flat params at cfg's shapes from a numpy seed (the port has no
-    init_model): glorot-scaled dense and conv weights, embeddings of std
-    1/sqrt(D), unit LN scales, zero biases, the generator scaled up so
-    that with this seed some chunks end early (EOS, then PAD) and some
-    run to max_decode_len; an RNN decoder's LSTM weights scaled by
-    rnn_cell_scale (at the init's scale a random recurrence settles on
-    one token a chunk)."""
-    from nanodecoder_tpu_torch.train.checkpoint import expected_param_shapes
-
-    rng = np.random.default_rng(seed)
-    flat = {}
-    for key, shape in expected_param_shapes(cfg).items():
-        if key.endswith("/scale"):
-            a = np.ones(shape)
-        elif key.endswith("/bias") or key.endswith("/b"):
-            a = np.zeros(shape)
-        elif key.endswith("/table"):
-            a = rng.standard_normal(shape) / np.sqrt(shape[1])
-        else:
-            fan_in = int(np.prod(shape[:-1]))
-            a = rng.standard_normal(shape) * np.sqrt(2.0 / (fan_in + shape[-1]))
-        flat[key] = a.astype(np.float32)
-    flat["generator/w"] = flat["generator/w"] * generator_scale
-    if cfg.decoder_type == "rnn":
-        for key in flat:
-            if key.startswith("decoder/layers/") and key[-3:] in ("/wx", "/wh"):
-                flat[key] = flat[key] * rnn_cell_scale
-    return flat
-
-
 def phase_tiny(dev, reset, counts) -> dict:
     """Phase 11: the JAX package's tiny_test_config (D 32, 4 heads of 8,
     MHA decoder), f32, random params from seed 3, on 4 simulated reads of
@@ -1130,9 +1144,9 @@ def phase_tiny(dev, reset, counts) -> dict:
     launches."""
     from nanodecoder_tpu_torch.config import tiny_test_config
     from nanodecoder_tpu_torch.decode.translator import Translator
-    from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.fast5 import RawRead
     from nanodecoder_tpu_torch.io.signal import chunk_signal, normalize_signal
+    from nanodecoder_tpu_torch.profile_serving import random_params
     from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy
     from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
 
@@ -1371,7 +1385,6 @@ def engine_runs(params, reset, counts, phase4, reads, files, gold_files) -> dict
     """The engine's three runs, their checks and numbers; returns their
     launches.  The golden run goes first: it also starts the ingest
     pool's processes, so the greedy run's wall is the steady state."""
-    from nanodecoder_tpu_torch.identity import read_identity
 
     reset()
     with open(GOLDEN) as f:
@@ -1915,6 +1928,8 @@ def rnn_config(compute_dtype: str, h2d: str, model=None, batch: int = 640, **dec
 
 def rnn_flat(cfg) -> dict:
     """Phase 14's random flat params at cfg's shapes."""
+    from nanodecoder_tpu_torch.profile_serving import random_params
+
     return random_params(cfg.model, RNN_SEED, rnn_cell_scale=RNN_CELL_SCALE)
 
 
@@ -1950,7 +1965,6 @@ def rnn_greedy_parity(params, cfg, label: str, reads) -> None:
     params: identity of the two at least 0.99 on each read; the share of
     chunks with equal tokens and the chunks ended by EOS printed."""
     from nanodecoder_tpu_torch.decode.translator import Translator
-    from nanodecoder_tpu_torch.identity import read_identity
 
     card, cpu = Translator(params, cfg), Translator(params, cfg, device="cpu")
     tmax = cfg.model.max_decode_len
@@ -2165,7 +2179,6 @@ def rnn_engine(params, cfg, record: dict) -> None:
     batches, greedy, on the first 20 reads of phase 4 written as signal
     files: every read back once, mean identity to (b)'s Translator calls
     (attn stitch) at least 0.99."""
-    from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.pipeline import stop_ingest_processes
 
     cfg = dataclasses.replace(cfg, decode=dataclasses.replace(cfg.decode,
@@ -2352,7 +2365,6 @@ def same_calls(a, b) -> bool:
 def modes_sample(params, run, phase4: dict, numbers: dict) -> None:
     """Phase 15 (a)-(d): sample mode."""
     from nanodecoder_tpu_torch.decode.translator import Translator
-    from nanodecoder_tpu_torch.identity import read_identity
     from nanodecoder_tpu_torch.io.pipeline import stop_ingest_processes
 
     reads = golden_signals()
@@ -2570,6 +2582,581 @@ def phase_modes(params, reset, counts, expect, phase4: dict) -> tuple[dict, dict
             "coverage": cov.launches}, numbers
 
 
+# Phase 16: the native host tier, data parallelism (one rank under NCCL;
+# two ranks sharing the one card under gloo, as subprocesses) and the
+# device trace.
+DP_WORLD, DP_TIMEOUT_S = 2, 600
+DP_GREEDY_BATCH, DP_BEAM_BATCH = 640, 256
+# The collectives and dtypes that the ranks probe on CUDA tensors under
+# gloo (the mesh plan uses broadcast, all-reduce and all-gather).
+DP_PROBE_OPS = ("broadcast", "all_reduce", "all_gather")
+DP_PROBE_DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.float64,
+                   torch.int64, torch.int32, torch.int16, torch.uint8)
+
+
+def kernel_wrappers() -> dict:
+    """{kernel id: its wrapper}, each carrying a `launches` count."""
+    from nanodecoder_tpu_torch.ops.attention import (decode_attention,
+                                                     decode_attention_grouped)
+    from nanodecoder_tpu_torch.ops.beam_step import beam_advance, beam_topk
+    from nanodecoder_tpu_torch.ops.cache_update import write_cache_block
+    from nanodecoder_tpu_torch.ops.encoder_attention import (
+        flash_encoder_attention, flash_encoder_attention_nld, flash_encoder_attention_qkv)
+
+    return {"K1": flash_encoder_attention_qkv, "K2": write_cache_block,
+            "K3": beam_advance, "K4a": decode_attention,
+            "K4b": decode_attention_grouped, "K5": flash_encoder_attention_nld,
+            "K6": flash_encoder_attention, "K7": beam_topk}
+
+
+def reset_launches(wrappers: dict) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+    for name in ("K4a", "K4b"):
+        wrappers[name].scalar_launches = 0
+
+
+def launch_counts(wrappers: dict) -> dict:
+    """Launches by kernel; K4a_scalar, K4b_scalar: the launches of K4a and
+    K4b that ran the scalar decode-attention kernel (counted in K4a and
+    K4b too)."""
+    return {**{name: fn.launches for name, fn in wrappers.items()},
+            "K4a_scalar": wrappers["K4a"].scalar_launches,
+            "K4b_scalar": wrappers["K4b"].scalar_launches}
+
+
+def _numpy_identity(pair: tuple[str, str]) -> float:
+    """A pool worker's numpy read identity of one logged pair."""
+    from nanodecoder_tpu_torch.identity import read_identity_plain
+
+    return read_identity_plain(*pair)
+
+
+def _numpy_distance(pair: tuple[str, str]) -> int:
+    """A pool worker's numpy edit distance of one pair."""
+    from nanodecoder_tpu_torch.identity import edit_distance_plain
+
+    return edit_distance_plain(*pair)
+
+
+def serial_s(fn, pairs) -> list[float]:
+    """Seconds of fn(*pair) for each pair, one after another."""
+    out = []
+    for pair in pairs:
+        t0 = time.perf_counter()
+        fn(*pair)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def random_pair(rng) -> tuple[str, str]:
+    """Two bases strings of up to 400: unrelated, or the second an edited
+    copy of the first (substitutions, insertions, deletions)."""
+    a = "".join(rng.choice(list("ACGT"), int(rng.integers(0, 400))))
+    if rng.random() < 0.5:
+        return a, "".join(rng.choice(list("ACGT"), int(rng.integers(0, 400))))
+    b = list(a)
+    for _ in range(int(rng.integers(0, len(a) // 5 + 2))):
+        p = int(rng.integers(0, len(b) + 1))
+        op = int(rng.integers(0, 3))
+        if op == 0:
+            b.insert(p, "ACGT"[int(rng.integers(4))])
+        elif b and p < len(b):
+            if op == 1:
+                b.pop(p)
+            else:
+                b[p] = "ACGT"[int(rng.integers(4))]
+    return a, "".join(b)
+
+
+# Logged identity calls timed in numpy, serially, for the estimate of
+# what read identity cost before the native tier.
+NUMPY_SAMPLE = 10
+
+
+def host_identity(phase4_calls: tuple[int, int]) -> dict:
+    """(a) the native host library is loaded from the build directory;
+    (b) its edit distance and overlap scorer equal the numpy versions on
+    1000 random pairs, and its read identity equals numpy's on phase 4's
+    pairs (numpy's distances and identities in one pool of spawned
+    processes, untimed).  Times, each call alone: numpy and native on 3
+    of phase 4's 3000-base reads, and numpy on NUMPY_SAMPLE of the logged
+    calls (every k-th), whose mean times the number of calls estimates
+    the seconds the numpy route would have spent in phases 3-15."""
+    import concurrent.futures
+    import multiprocessing
+
+    from nanodecoder_tpu_torch import build_cache, identity, native
+    from nanodecoder_tpu_torch.io import stitch
+
+    lib = native.load()
+    check(lib is not None, "(a) the native host library is not loaded")
+    check(os.path.dirname(lib._name) == build_cache.build_dir(),
+          f"(a) the native library {lib._name} is not in {build_cache.build_dir()}")
+    rng = np.random.default_rng(16)
+    pairs = [random_pair(rng) for _ in range(1000)]
+    calls = list(IDENTITY.calls)
+    lo, hi = phase4_calls
+    check(hi > lo, "(b) phase 4 logged no read identity")
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            os.cpu_count() or 1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        distances = pool.map(_numpy_distance, pairs, chunksize=25)
+        plain = list(pool.map(_numpy_identity, [c[:2] for c in calls[lo:hi]], chunksize=2))
+        distances = list(distances)
+    pool_s = time.perf_counter() - t0
+    for i, ((a, b), d) in enumerate(zip(pairs, distances)):
+        k = 1 + i % 150
+        check(identity.edit_distance(a, b) == d
+              and stitch._best_overlap_len(a, b, k) == stitch._best_overlap_len_plain(a, b, k),
+              f"(b) native and numpy differ on pair {i}: {a!r}, {b!r}")
+    for j, value in zip(range(lo, hi), plain):
+        check(value == calls[j][2], f"(b) read identity of phase 4's call {j - lo}: numpy "
+              f"{value} vs native {calls[j][2]}")
+    p4 = [c[:2] for c in calls[lo:lo + 3]]
+    step = max(1, len(calls) // NUMPY_SAMPLE)
+    sample = [c[:2] for c in calls[::step][:NUMPY_SAMPLE]]
+    numpy_sample = serial_s(identity.read_identity_plain, sample)
+    numbers = {
+        "identity_calls": len(calls),
+        "identity_native_s": IDENTITY.seconds,
+        "identity_numpy_s_estimate": float(np.mean(numpy_sample)) * len(calls),
+        "numpy_sample_calls": len(sample),
+        "phase4_reads": hi - lo,
+        "numpy_check_pool_s": pool_s,
+        "phase4_native_ms_per_read": float(np.mean(serial_s(identity.read_identity, p4))) * 1e3,
+        "phase4_numpy_ms_per_read": float(np.mean(serial_s(identity.read_identity_plain,
+                                                            p4))) * 1e3}
+    print(f"(a)-(b) native host library loaded from {lib._name}; edit distance and "
+          f"overlap equal to numpy on 1000 random pairs; read identity equal to numpy on "
+          f"phase 4's {hi - lo} pairs (numpy's side {pool_s:.1f} s in a pool).  Seconds in read "
+          f"identity over the {len(calls)} calls of phases 3-15: native (this run) "
+          f"{numbers['identity_native_s']:.3f} s; numpy (the route before the native "
+          f"tier) about {numbers['identity_numpy_s_estimate']:.1f} s, the mean of "
+          f"{len(sample)} calls timed serially times {len(calls)}.  Per 3000-base read of "
+          f"phase 4, serially on 3 reads: native "
+          f"{numbers['phase4_native_ms_per_read']:.2f} ms, numpy "
+          f"{numbers['phase4_numpy_ms_per_read']:.1f} ms")
+    return numbers
+
+
+def compact_outputs(rows: int, tmax: int, dev) -> tuple:
+    """Tensors of the shapes and dtypes of a batch's compact decode outputs
+    (Translator._compact_d2h): what the mesh plan gathers a batch."""
+    return (torch.zeros(rows, tmax, dtype=torch.int16, device=dev),
+            torch.zeros(rows, dtype=torch.int32, device=dev),
+            torch.zeros(rows, tmax, dtype=torch.float16, device=dev),
+            torch.zeros(rows, dtype=torch.float32, device=dev),
+            torch.zeros(rows, tmax, dtype=torch.int16, device=dev))
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Mean ms of fn() on the host clock, each run ended by a synchronize
+    (collectives: the wait is part of the cost), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def dp_one_rank(params, reset, counts, dev) -> tuple[dict, dict]:
+    """(c) A NCCL group of one rank on the card: the engine with a mesh
+    plan on the first 20 reads of phase 12's greedy run (bf16, int6 wire,
+    512-chunk batches) gives FASTQ byte-equal to the same engine without
+    one; the gather of a batch's outputs timed.  Returns (launches,
+    numbers)."""
+    import torch.distributed as dist
+
+    from nanodecoder_tpu_torch.decode.engine import StreamingBasecaller
+    from nanodecoder_tpu_torch.io.pipeline import stop_ingest_processes
+    from nanodecoder_tpu_torch.parallel.mesh import make_mesh_plan
+    from nanodecoder_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                          shutdown_multihost)
+
+    cfg = load_config("bfloat16", "int6", 640)
+    fmt, _found = signal_file_format()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp1_")
+
+    def run(files, plan):
+        out = io.StringIO()
+        engine = StreamingBasecaller(params, cfg, mesh_plan=plan)
+        engine.run(files, out, stitch_method="attn", num_workers=4)
+        torch.cuda.synchronize()
+        return out.getvalue(), engine
+
+    try:
+        files = write_signal_files(tmp, [(f"sim{i}", sig) for i, (_t, sig)
+                                         in enumerate(simulated_reads(20))], fmt, per_file=5)
+        with (npz_ingest() if fmt == "npz" else contextlib.nullcontext()):
+            plain, _engine = run(files, None)
+            initialize_multihost(f"file://{tmp}/rendezvous", 1, 0, backend="nccl", device=dev)
+            try:
+                plan = make_mesh_plan()
+                check(plan.n_devices == 1 and dist.get_backend() == "nccl",
+                      f"(c) a group of {plan.n_devices} on {dist.get_backend()}")
+                reset()
+                sharded, engine = run(files, plan)
+                launches = counts()
+                bsz = cfg.decode.effective_batch_chunks(engine=True)
+                gather = host_ms(lambda: plan.gather_rows(
+                    compact_outputs(bsz, cfg.model.max_decode_len, dev)))
+            finally:
+                shutdown_multihost()
+    finally:
+        stop_ingest_processes()
+        shutil.rmtree(tmp, ignore_errors=True)
+    calls = parse_fastq(sharded, "(c) engine with a one-rank plan")
+    check(sorted(calls) == sorted(f"sim{i}" for i in range(20)),
+          f"(c) {len(calls)} reads came back of 20")
+    check(sharded == plain, "(c) the engine's FASTQ with a one-rank NCCL plan differs "
+          "from the engine's without a plan")
+    enc_layers = cfg.model.enc_layers
+    check(launches["K1"] == enc_layers * engine.batches
+          and launches["K2"] >= engine.decode_steps > 0 and launches["K3"] == 0,
+          f"(c) launches {launches} for {engine.batches} batches")
+    print(f"(c) one-rank NCCL group: the engine with a mesh plan, 20 reads in "
+          f"{engine.batches} batches of {bsz}: FASTQ byte-equal to the engine without a "
+          f"plan ({len(sharded)} bytes); gather of a batch's outputs {gather:.3f} ms; "
+          f"launches K1 {launches['K1']}, K2 {launches['K2']}, K3 {launches['K3']}")
+    return launches, {"nccl1_gather_ms": gather, "nccl1_batches": engine.batches}
+
+
+def chunk_strings(vocab, tokens, lengths) -> list[str]:
+    return [vocab.decode(t[:n]) for t, n in zip(tokens.cpu().numpy().astype(np.int64),
+                                                lengths.cpu().numpy())]
+
+
+def dp_rank_main(argv: list[str]) -> int:
+    """One of phase 16's ranks sharing the card (run as
+    `python -c "import sys, chip_smoke; sys.exit(chip_smoke.dp_rank_main(sys.argv[1:]))" RANK WORLD DIR DEVICE`,
+    with LOCAL_RANK and LOCAL_WORLD_SIZE set): joins the group through a
+    file in DIR, runs `dp_rank` on DEVICE and writes its result to
+    DIR/rank<R>.json."""
+    from nanodecoder_tpu_torch.parallel.multihost import shutdown_multihost
+
+    rank, world, work, dev = int(argv[0]), int(argv[1]), argv[2], torch.device(argv[3])
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        result = dp_rank(rank, world, work, dev)
+    except SmokeError as e:
+        print(f"rank {rank} FAILED: {e}", file=sys.stderr)
+        return 1
+    finally:
+        shutdown_multihost()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def probe_collectives(dev) -> dict:
+    """Which of DP_PROBE_OPS gloo takes on CUDA tensors of each dtype
+    ("ok" or the error), both ranks in step."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    found = {}
+    for op in DP_PROBE_OPS:
+        for dt in DP_PROBE_DTYPES:
+            x = torch.ones(8, dtype=dt, device=dev)
+            try:
+                if op == "broadcast":
+                    dist.broadcast(x, 0)
+                elif op == "all_reduce":
+                    dist.all_reduce(x)
+                else:
+                    dist.all_gather([torch.empty_like(x) for _ in range(world)], x)
+                torch.cuda.synchronize()
+                found[f"{op} {str(dt)[6:]}"] = "ok"
+            except (RuntimeError, TypeError, ValueError) as e:
+                found[f"{op} {str(dt)[6:]}"] = str(e).splitlines()[0][:80]
+            dist.barrier()
+    return found
+
+
+def dp_rank(rank: int, world: int, work: str, dev: torch.device) -> dict:
+    """A rank of (d): the MQA flagship (f32, float32 wire, kernel route)
+    decoding a greedy batch of 640 chunks and a beam-5 batch of 256 chunks
+    sharded over the ranks, then two data-parallel Adam steps at batch 8
+    (phase 13 (a)'s settings, dropout 0).  Rank 0 also runs each on its own,
+    unsharded (one rank's call): every chunk's identity to it >= 0.99 (the
+    count of exactly equal chunks reported; cuBLAS tiles the half batch
+    otherwise), and each train step from the same state held to phase 13
+    (a)'s tolerances.  Also: which collectives gloo takes on CUDA tensors,
+    the gather ms of a batch and the gradient all-reduce ms of a step."""
+    import torch.distributed as dist
+
+    from nanodecoder_tpu_torch.decode.translator import Translator
+    from nanodecoder_tpu_torch.io.signal import convert_h2d
+    from nanodecoder_tpu_torch.parallel.mesh import make_mesh_plan
+    from nanodecoder_tpu_torch.parallel.multihost import initialize_multihost
+    from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
+
+    initialize_multihost(f"file://{work}/rendezvous", world, rank, device=dev)
+    backend = dist.get_backend()
+    check(backend == "gloo", f"ranks sharing the card joined a {backend} group")
+    out = {"rank": rank, "backend": backend, "collectives": probe_collectives(dev)}
+    plan = make_mesh_plan()
+    wrappers = kernel_wrappers()
+    greedy_cfg = load_config("float32", "float32", DP_GREEDY_BATCH)
+    beam_cfg = load_config("float32", "float32", DP_GREEDY_BATCH, mode="beam", beam_size=5,
+                           batch_chunks_beam=DP_BEAM_BATCH)
+    params = load_params_npz(NPZ, greedy_cfg.model, device=dev)
+    batches = {}
+    for name, cfg, bsz in (("greedy", greedy_cfg, DP_GREEDY_BATCH),
+                           ("beam", beam_cfg, DP_BEAM_BATCH)):
+        tr = Translator(params, cfg, device=dev)
+        chunks, lengths = batch_of_chunks(cfg.signal, bsz, 60)
+        wire = convert_h2d(np.asarray(chunks, np.float32), tr._h2d, cfg.signal.clip_sigma)
+        batches[name] = (tr, wire, lengths)
+    reset_launches(wrappers)
+    sharded, secs = {}, {}
+    for name, (tr, wire, lengths) in batches.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded[name] = plan.shard_decode_fn(tr.decode_program)(wire, lengths)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    out["launches"] = launch_counts(wrappers)
+    out["decode_steps"] = {name: tr.decode_steps for name, (tr, _w, _l) in batches.items()}
+    out["decode_s"] = secs
+    enc_layers = greedy_cfg.model.enc_layers
+    got = out["launches"]
+    check(got["K1"] == 2 * enc_layers and got["K3"] == batches["beam"][0].decode_steps
+          and got["K2"] >= sum(out["decode_steps"].values()) > 0,
+          f"rank {rank}: launches {got} for the two sharded batches")
+    tmax = greedy_cfg.model.max_decode_len
+    out["gather_ms"] = host_ms(lambda: plan.gather_rows(
+        compact_outputs(DP_GREEDY_BATCH // world, tmax, dev)))
+    if rank == 0:
+        for name, (tr, wire, lengths) in batches.items():
+            ref = tr.decode_program(wire, lengths)
+            a = chunk_strings(tr.vocab, sharded[name][0], sharded[name][1])
+            b = chunk_strings(tr.vocab, ref[0], ref[1])
+            idents = [read_identity(x, y) for x, y in zip(a, b)]
+            out[f"{name}_chunks"] = len(a)
+            out[f"{name}_equal_chunks"] = sum(x == y for x, y in zip(a, b))
+            out[f"{name}_min_identity"] = min(idents)
+            check(len(a) == len(b) == len(wire) and min(idents) >= 0.99,
+                  f"{name}: sharded vs one rank's call, min chunk identity {min(idents)}")
+    out.update(dp_train(rank, plan, dev))
+    return out
+
+
+def dp_train(rank: int, plan, dev) -> dict:
+    """(d)'s two data-parallel Adam steps; on rank 0 each against one
+    rank's step from the same state (phase 13 (a)'s gates)."""
+    from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
+    from nanodecoder_tpu_torch.train.data import synthetic_batches
+    from nanodecoder_tpu_torch.train.trainer import Trainer
+    from nanodecoder_tpu_torch.utils.report import ReportManager
+
+    cfg = train_config(PARITY_BATCH, dropout=0.0)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, optimizer="adam", lr_schedule="constant", learning_rate=PARITY_LR))
+    it = synthetic_batches(cfg, seed=0)
+    batches = [next(it) for _ in range(PARITY_STEPS)]
+    dp = Trainer(cfg, load_params_npz(NPZ, cfg.model, device=dev),
+                 report=ReportManager(report_every=10 ** 9), mesh_plan=plan)
+    ref = quiet_trainer(cfg, load_params_npz(NPZ, cfg.model, device=dev)) if rank == 0 \
+        else None
+    out = {"train_steps": []}
+    for i, batch in enumerate(batches):
+        if ref is not None:
+            ref.state = dp.state
+        md = dp.train_step(batch)
+        if ref is None:
+            continue
+        mr = ref.train_step(batch)
+        ld, lr_ = float(md["loss_sum"]), float(mr["loss_sum"])
+        gd, gr = host_leaves(dp.params, grad=True), host_leaves(ref.params, grad=True)
+        pd, pr = host_leaves(dp.params), host_leaves(ref.params)
+        every = max(float((pd[k] - pr[k]).abs().max()) for k in pr)
+        held, n_ex, n_all = 0.0, 0, 0
+        for k, c in gr.items():
+            d = (gd[k] - c).abs()
+            lo, hi = torch.minimum(gd[k].abs(), c.abs()), torch.maximum(gd[k].abs(), c.abs())
+            exempt = ((lo < 1e-6) & (hi > 0)) | (d > 1e-6 + 1e-4 * c.abs())
+            held = max(held, float((pd[k] - pr[k]).abs().masked_fill(exempt, 0).max()))
+            n_ex, n_all = n_ex + int(exempt.sum()), n_all + c.numel()
+        step = {"loss_sum": ld, "loss_sum_one_rank": lr_, "tokens": int(md["n_tokens"]),
+                "max_param_diff": every, "held_param_diff": held,
+                "exempt_share": n_ex / n_all}
+        out["train_steps"].append(step)
+        print(f"dp train step {i + 1}: {step}")
+        check(int(md["n_tokens"]) == int(mr["n_tokens"]), "dp train: token counts")
+        check(abs(ld - lr_) <= 1e-4 * abs(lr_), f"dp train: loss {ld} vs {lr_}")
+        check(every <= 1e-4 and held <= 1e-5 and n_ex < 0.1 * n_all,
+              f"dp train: params differ by {every}, {held} over the elements held, "
+              f"{n_ex} of {n_all} exempt")
+        parity_gradients(i + 1, gd, gr, "dp train")
+    out["all_reduce_ms"] = host_ms(lambda: plan.all_reduce_grads(
+        dp.optimizer.params.values()), reps=5)
+    out["grad_elements"] = sum(p.numel() for p in dp.optimizer.params.values())
+    return out
+
+
+def spawn_ranks(cmd: list[str], root: str, extra_env: dict) -> list[tuple[int, str]]:
+    """Start DP_WORLD processes of `cmd` (RANK, WORLD_SIZE, LOCAL_RANK and
+    LOCAL_WORLD_SIZE set, rank as the last argument where cmd ends in
+    "{rank}"), wait for all (DP_TIMEOUT_S) and return (exit code, output)
+    by rank; none is left running."""
+    procs = []
+    for r in range(DP_WORLD):
+        env = {**os.environ, **extra_env, "RANK": str(r), "WORLD_SIZE": str(DP_WORLD),
+               "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(DP_WORLD)}
+        procs.append(subprocess.Popen([a.replace("{rank}", str(r)) for a in cmd], cwd=root,
+                                      env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=DP_TIMEOUT_S)
+            outs.append((p.returncode, text))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def dp_two_ranks(root: str) -> tuple[dict, dict]:
+    """(d) two ranks on the one card (gloo: NCCL refuses two ranks on one
+    device): `dp_rank` in each; then the basecall CLI at world 2 on 20
+    reads in 4 files (each rank its files, rank 0 merges): every read
+    exactly once, no shard left.  Returns (launches by rank, numbers)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
+    try:
+        outs = spawn_ranks([sys.executable, "-c", "import sys, chip_smoke; "
+                            "sys.exit(chip_smoke.dp_rank_main(sys.argv[1:]))",
+                            "{rank}", str(DP_WORLD), tmp, "cuda:0"], root, {})
+        for r, (rc, text) in enumerate(outs):
+            print("\n".join(f"  rank {r}: {line}" for line in text.splitlines()
+                            if "dp train step" in line or "FAILED" in line
+                            or "dp train" in line))
+            check(rc == 0, f"(d) rank {r} exited {rc}: {text[-3000:]}")
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        r0 = ranks[0]
+        print(f"(d) {DP_WORLD} ranks on one card, {r0['backend']}: collectives on CUDA "
+              f"tensors: " + ", ".join(f"{k} {v}" for k, v in r0["collectives"].items()))
+        for name in ("greedy", "beam"):
+            print(f"(d) sharded {name} batch ({r0[f'{name}_chunks']} chunks, f32): "
+                  f"{r0[f'{name}_equal_chunks']} chunks equal to one rank's call, min "
+                  f"chunk identity {r0[f'{name}_min_identity']:.4f}; decode "
+                  + ", ".join(f"rank {r['rank']} {r['decode_s'][name]:.3f} s / "
+                              f"{r['decode_steps'][name]} steps" for r in ranks))
+        for r in ranks:
+            c = r["launches"]
+            print(f"(d) rank {r['rank']} launches: K1 {c['K1']}, K2 {c['K2']}, K3 {c['K3']}; "
+                  f"gather of its {DP_GREEDY_BATCH // DP_WORLD}-row outputs "
+                  f"{r['gather_ms']:.3f} ms; gradient all-reduce "
+                  f"({r['grad_elements']} f32) {r['all_reduce_ms']:.3f} ms a step")
+        cli = dp_cli(tmp, root)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers = {"gloo_gather_ms": [r["gather_ms"] for r in ranks],
+               "gloo_all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+               "grad_elements": r0["grad_elements"], "collectives": r0["collectives"],
+               "train_steps": r0["train_steps"],
+               **{f"{n}_{k}": r0[f"{n}_{k}"] for n in ("greedy", "beam")
+                  for k in ("chunks", "equal_chunks", "min_identity")},
+               "cli_wall_s": cli}
+    return {f"dp_rank{r['rank']}": r["launches"] for r in ranks}, numbers
+
+
+def dp_cli(tmp: str, root: str) -> float:
+    """The basecall CLI at world 2 (gloo, the card shared) on 20 reads in 4
+    files: every read exactly once in the merged FASTQ, no shard left.
+    Returns its wall seconds."""
+    fmt, _found = signal_file_format()
+    reads_dir = os.path.join(tmp, "reads")
+    os.makedirs(reads_dir)
+    write_signal_files(reads_dir, [(f"sim{i}", sig) for i, (_t, sig)
+                                   in enumerate(simulated_reads(20))], fmt, per_file=5)
+    out = os.path.join(tmp, "cli.fastq")
+    args = ["--input", reads_dir, "--output", out, "--ckpt", NPZ, "--workers", "2",
+            "--dist-init", f"file://{tmp}/rendezvous_cli"]
+    cmd = ([sys.executable, "-m", "nanodecoder_tpu_torch.cli.basecall"] if fmt != "npz"
+           else [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.basecall_cli_npz(sys.argv[1:]))"]) + args
+    t0 = time.perf_counter()
+    outs = spawn_ranks(cmd, root, {})
+    wall = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(outs):
+        check(rc == 0, f"(d) basecall CLI rank {r} exited {rc}: {text[-3000:]}")
+    with open(out) as f:
+        calls = parse_fastq(f.read(), "(d) basecall CLI at world 2")
+    check(sorted(calls) == sorted(f"sim{i}" for i in range(20)),
+          f"(d) basecall CLI at world 2: {len(calls)} reads of 20")
+    left = [p for p in os.listdir(tmp) if ".shard" in p]
+    check(not left, f"(d) shard files left: {left}")
+    print(f"(d) basecall CLI at world {DP_WORLD} ({fmt} files, gloo on one card): 20 reads "
+          f"once each in the merged FASTQ, no shard left; wall {wall:.1f} s")
+    return wall
+
+
+def device_trace_check(params) -> dict:
+    """(f) utils.profiling.device_trace around one small batch (64 chunks,
+    bf16, int6 wire) writes a Chrome trace with device kernels in it."""
+    from torch.autograd import DeviceType
+
+    from nanodecoder_tpu_torch.decode.translator import Translator
+    from nanodecoder_tpu_torch.io.signal import convert_h2d
+    from nanodecoder_tpu_torch.utils.profiling import device_trace
+
+    cfg = load_config("bfloat16", "int6", 64)
+    tr = Translator(params, cfg)
+    chunks, lengths = batch_of_chunks(cfg.signal, 64, 5)
+    wire = convert_h2d(np.asarray(chunks, np.float32), tr._h2d, cfg.signal.clip_sigma)
+    tr.decode_program(wire, lengths)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with device_trace(tmp) as prof:
+            tr.decode_program(wire, lengths)
+            torch.cuda.synchronize()
+        traces = [f for f in os.listdir(tmp) if f.endswith(".pt.trace.json")]
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in traces)
+        kernels = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(len(traces) == 1 and size > 0 and kernels > 0,
+          f"(f) device_trace wrote {traces} ({size} bytes, {kernels} device kernels)")
+    print(f"(f) device_trace: {traces[0]}, {size} bytes, {kernels} device kernels for "
+          f"one 64-chunk batch")
+    return {"trace_bytes": size, "trace_kernels": kernels}
+
+
+def phase_host_dp(params, reset, counts, dev, root: str,
+                  phase4_calls: tuple[int, int]) -> tuple[dict, dict]:
+    """Phase 16: (a)-(b) `host_identity`, (c) `dp_one_rank`, (d)
+    `dp_two_ranks`, (e) no child process left, (f) `device_trace_check`.
+    Returns (launches by path, numbers)."""
+    t0 = time.perf_counter()
+    numbers = host_identity(phase4_calls)
+    print(f"[phase 16] (a)-(b) {time.perf_counter() - t0:.1f} s")
+    nccl, one = dp_one_rank(params, reset, counts, dev)
+    numbers.update(one)
+    print(f"[phase 16] (c) {time.perf_counter() - t0:.1f} s")
+    ranks, two = dp_two_ranks(root)
+    numbers.update(two)
+    print(f"[phase 16] (d) {time.perf_counter() - t0:.1f} s")
+    left = live_children()
+    check(not left, f"(e) processes still running after (d): {left}")
+    numbers.update(device_trace_check(params))
+    numbers["phase16_s"] = time.perf_counter() - t0
+    print(f"(e) no child process left; [phase 16] host and data-parallel: "
+          f"{numbers['phase16_s']:.1f} s")
+    return {"dp_nccl": nccl, **ranks}, numbers
+
+
 def kernel_times(names: list[str]) -> int:
     """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
     three dtypes, K3, K2 at four widths, K7); one JSON line of their
@@ -2628,31 +3215,16 @@ def main(argv: list[str] | None = None) -> int:
         return kernel_times(args.kernels.split(","))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from nanodecoder_tpu_torch.ops.attention import (decode_attention,
-                                                     decode_attention_grouped)
-    from nanodecoder_tpu_torch.ops.beam_step import beam_advance, beam_topk
-    from nanodecoder_tpu_torch.ops.cache_update import write_cache_block
-    from nanodecoder_tpu_torch.ops.encoder_attention import (
-        flash_encoder_attention, flash_encoder_attention_nld, flash_encoder_attention_qkv)
+    from nanodecoder_tpu_torch import profile_serving
     from nanodecoder_tpu_torch.train.checkpoint import load_params_npz, params_from_numpy
 
-    wrappers = {"K1": flash_encoder_attention_qkv, "K2": write_cache_block,
-                "K3": beam_advance, "K4a": decode_attention,
-                "K4b": decode_attention_grouped, "K5": flash_encoder_attention_nld,
-                "K6": flash_encoder_attention, "K7": beam_topk}
+    wrappers = kernel_wrappers()
 
     def reset():
-        for fn in wrappers.values():
-            fn.launches = 0
-        for fn in (decode_attention, decode_attention_grouped):
-            fn.scalar_launches = 0
+        reset_launches(wrappers)
 
     def counts():
-        # K4a_scalar, K4b_scalar: the launches of K4a and K4b that ran the
-        # scalar decode-attention kernel (counted in K4a and K4b too).
-        return {**{name: fn.launches for name, fn in wrappers.items()},
-                "K4a_scalar": decode_attention.scalar_launches,
-                "K4b_scalar": decode_attention_grouped.scalar_launches}
+        return launch_counts(wrappers)
 
     def expect(path, got, **want):
         for name, n in want.items():
@@ -2692,7 +3264,9 @@ def main(argv: list[str] | None = None) -> int:
         reset()  # the greedy path: phases 3-4
         gb, gs = phase_golden(params, golden_cfg)
         phase4 = {}
+        n_identity = len(IDENTITY.calls)
         sb, ss, greedy_idents = phase_serving(params, serve_cfg, record=phase4)
+        phase4_calls = (n_identity, len(IDENTITY.calls))
         paths["greedy"] = greedy = counts()
         batches, steps = gb + sb, gs + ss
         check(greedy["K2"] >= steps > 0,
@@ -2716,7 +3290,7 @@ def main(argv: list[str] | None = None) -> int:
         # Phases 7-8: the flagship in MHA form.
         mha = {"dec_kv_heads": 0}
         with np.load(NPZ) as data:
-            flat = expand_kv_heads({k: data[k] for k in data.files},
+            flat = profile_serving.expand_kv_heads({k: data[k] for k in data.files},
                                    golden_cfg.model.dec_heads)
         mha_params = params_from_numpy(
             flat, load_config("float32", "float32", 640, model=mha).model, device=dev)
@@ -2801,6 +3375,11 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(mode_paths)
         print("decode mode numbers: " + json.dumps(mode_numbers))
         elapsed("phase 15")
+        dp_paths, dp_numbers = phase_host_dp(params, reset, counts, dev, root,
+                                             phase4_calls)  # phase 16
+        paths.update(dp_paths)
+        print("host and data-parallel numbers: " + json.dumps(dp_numbers))
+        elapsed("phase 16")
         check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
               "K6 or K7 launched on a serving path")
         for path, c in paths.items():

@@ -1,8 +1,9 @@
 """nanodecoder_tpu_torch: the PyTorch + CUDA port of nanodecoder_tpu.
 
-Greedy and beam-search basecalling of transformer models (lean or
-unfolded, MQA/GQA or MHA decoders, exact or int8 cross caches), and their
-training, on one NVIDIA H100:
+Greedy, beam-search and sampling basecalling of transformer models (lean
+or unfolded, MQA/GQA or MHA decoders, exact or int8 cross caches) and of
+the recurrent family (biLSTM encoder, input-feed RNN decoder), and their
+training, on NVIDIA H100 cards, one process per card:
 
     import dataclasses
     from nanodecoder_tpu_torch.config import Config
@@ -35,8 +36,22 @@ The CLIs:
 `python -m nanodecoder_tpu_torch.cli.train --ckpt-dir ck/ --data shards/`
 (--ckpt takes an .npz export or such a checkpoint directory).
 
+More than one card: the basecall and train CLIs take one process per
+card as torchrun starts them
+(`torchrun --nproc_per_node N -m nanodecoder_tpu_torch.cli.basecall ...`):
+basecalling partitions the files over the ranks and merges their FASTQ
+shards on rank 0; training runs data-parallel, the gradients summed over
+the ranks (`parallel.mesh.MeshPlan`, which also shards the streaming
+engine's batches over the ranks).
+
 Entry points run on the card unless the caller passes device="cpu"
-(--cpu for the CLIs).  The package imports torch, numpy and the standard
-library only, plus h5py (fast5) and pyarrow, zstandard and flatbuffers
-(pod5) where they are installed.
+(--cpu for the CLIs).  Read identity and the overlap stitch run in a
+small C++ host library (`native/`, built with g++ at first use; numpy
+where it cannot be built).  The package imports torch, numpy and the
+standard library only, plus h5py (fast5) and pyarrow, zstandard and
+flatbuffers (pod5) where they are installed.
 """
+
+__version__ = "0.1.0"
+
+from nanodecoder_tpu_torch.vocab import DNA_VOCAB, Vocab, make_vocab, vocab_size_for  # noqa: F401,E402

@@ -11,8 +11,17 @@ It runs on the CUDA card unless given --cpu (and raises without a card);
 kernel route or the plain PyTorch one), by default the kernel route on
 the card and the plain one with --cpu.  Greedy, --beam (with a
 --coverage-penalty) and --sample decoding; --beam with --sample exits 2.
-One process: the JAX CLI's multi-host file sharding and shard merge are
-not ported.
+
+More than one rank (one process per card, as torchrun starts them):
+
+    torchrun --nproc_per_node 4 -m nanodecoder_tpu_torch.cli.basecall \
+        --input reads_dir/ --output out.fastq --ckpt params.npz
+
+Each rank basecalls its strided share of the sorted files on card
+LOCAL_RANK into out.fastq.shard0000R (with its own done log, so --resume
+works per shard), then after a barrier rank 0 merges the shards into
+out.fastq and deletes them: share-nothing, no collective per batch.
+The rendezvous is torchrun's (MASTER_ADDR, MASTER_PORT), or --dist-init.
 """
 
 from __future__ import annotations
@@ -80,6 +89,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
                     help="the kernel route (model.use_pallas and decode.use_pallas; "
                          "default: on with the CUDA card, off with --cpu)")
+    ap.add_argument("--dist-init", default="",
+                    help="rendezvous of a multi-rank run (tcp://host:port or "
+                         "file:///shared/path; default: torchrun's MASTER_ADDR and "
+                         "MASTER_PORT); rank and world size from RANK and WORLD_SIZE")
     return ap
 
 
@@ -92,15 +105,29 @@ def main(argv=None) -> int:
         log.error("--beam and --sample are mutually exclusive")
         return 2
 
+    from nanodecoder_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                          local_device, shutdown_multihost)
+
+    device = local_device(args.cpu)  # raises without a card unless --cpu
+    rank, world = initialize_multihost(args.dist_init or None,
+                                       backend="gloo" if args.cpu else None, device=device)
+    try:
+        return _basecall(args, log, device, rank, world)
+    finally:
+        shutdown_multihost()
+
+
+def _basecall(args, log, device, rank: int, world: int) -> int:
     from nanodecoder_tpu_torch.cli.common import load_params_and_config
     from nanodecoder_tpu_torch.decode.engine import StreamingBasecaller
-    from nanodecoder_tpu_torch.device import resolve_device
     from nanodecoder_tpu_torch.io.fast5 import list_signal_files
     from nanodecoder_tpu_torch.io.fastx import recover_fastx_output
+    from nanodecoder_tpu_torch.parallel.multihost import (barrier, host_shard_path,
+                                                          merge_host_shards,
+                                                          partition_files_for_host)
     from nanodecoder_tpu_torch.utils.profiling import StageTimer
     from nanodecoder_tpu_torch.utils.report import ReportManager
 
-    device = resolve_device("cpu" if args.cpu else "cuda")
     params, config = load_params_and_config(args.ckpt, device)
     overrides = {}
     if args.beam > 0:
@@ -131,7 +158,8 @@ def main(argv=None) -> int:
     if not files:
         log.error("no fast5/pod5 files under %s", args.input)
         return 2
-    out_path = args.output
+    files = partition_files_for_host(files, rank, world)
+    out_path = args.output if world == 1 else host_shard_path(args.output, rank)
     skip: set[str] = set()
     done_path = out_path + ".done"
     out_mode = "w"
@@ -159,11 +187,14 @@ def main(argv=None) -> int:
             num_workers=args.workers, write_format=args.format,
             done_log=done_log, stage_timer=timer,
         )
+    barrier("basecall-done")
+    if world > 1:
+        merge_host_shards(args.output, world, rank)
     if timer is not None:
         for name, st in timer.summary().items():
             log.info("stage %-17s total %7.3fs  mean %6.2fms  x%d",
                      name, st["total_sec"], st["mean_sec"] * 1e3, st["count"])
-    ReportManager().report_inference(meter.rates(), {"n_hosts": 1,
+    ReportManager().report_inference(meter.rates(), {"n_hosts": world, "rank": rank,
                                                      "device": str(device)})
     return 0
 

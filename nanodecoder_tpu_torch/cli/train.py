@@ -12,8 +12,20 @@ start alike) or from --init-npz.  Batches come from preprocessed shards
 validates every `valid_every` steps on 4 simulated batches (the encoder
 through kernel K5 when `use_pallas` is set).  Checkpoints go to
 --ckpt-dir every `save_every` steps and at the end, also on SIGTERM or
-Ctrl-C; --resume continues from the latest one.  One process on one
-device: the JAX CLI's --tensorboard and multi-device mesh are not ported.
+Ctrl-C; --resume continues from the latest one.  --metrics appends JSON
+records and --tensorboard writes TensorBoard scalars.
+
+Data-parallel training over more than one rank (one process per card):
+
+    torchrun --nproc_per_node 4 -m nanodecoder_tpu_torch.cli.train \
+        --ckpt-dir ckpts --data shards/
+
+Every rank reads the same batches and trains on its rows of each
+(`parallel.mesh.MeshPlan`, the config's `mesh` section; batch_size must
+divide by the ranks), the gradients summed over the ranks before each
+update; rank 0 alone reports to --metrics / --tensorboard and writes the
+checkpoints.  --data-workers above 1 is refused there (its interleaved
+streams have no fixed order, so ranks would see different batches).
 """
 
 from __future__ import annotations
@@ -26,8 +38,10 @@ import sys
 import torch
 
 from nanodecoder_tpu_torch.config import Config
-from nanodecoder_tpu_torch.device import resolve_device
 from nanodecoder_tpu_torch.models.model import init_model, param_count, params_to
+from nanodecoder_tpu_torch.parallel.mesh import make_mesh_plan
+from nanodecoder_tpu_torch.parallel.multihost import (initialize_multihost, local_device,
+                                                      shutdown_multihost)
 from nanodecoder_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
 from nanodecoder_tpu_torch.train.data import (interleave_batches, prefetch_batches,
                                               synthetic_batches, synthetic_valid_batches)
@@ -50,10 +64,18 @@ def build_argparser() -> argparse.ArgumentParser:
                          "(shapes must match --config)")
     ap.add_argument("--cpu", action="store_true", help="train on the CPU")
     ap.add_argument("--metrics", default="", help="JSONL metrics path")
+    ap.add_argument("--tensorboard", default="",
+                    help="TensorBoard event-file dir (a second sink beside "
+                         "--metrics; skipped with a warning where tensorboard is "
+                         "not installed)")
     ap.add_argument("--report-every", type=int, default=50)
     ap.add_argument("--data-workers", type=int, default=1,
                     help="simulator threads (1 = one deterministic producer "
                          "behind a queue; >1 interleaves per-seed streams)")
+    ap.add_argument("--dist-init", default="",
+                    help="rendezvous of a multi-rank run (tcp://host:port or "
+                         "file:///shared/path; default: torchrun's MASTER_ADDR and "
+                         "MASTER_PORT); rank and world size from RANK and WORLD_SIZE")
     return ap
 
 
@@ -63,7 +85,16 @@ def _interrupt(*_):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    device = local_device(args.cpu)  # raises without a card unless --cpu
+    rank, world = initialize_multihost(args.dist_init or None,
+                                       backend="gloo" if args.cpu else None, device=device)
+    try:
+        return _train(args, device, rank, world)
+    finally:
+        shutdown_multihost()
+
+
+def _train(args, device: torch.device, rank: int, world: int) -> int:
     log = get_logger("train-cli")
     config = Config()
     if args.config:
@@ -72,6 +103,10 @@ def main(argv=None) -> int:
     if args.steps:
         config = dataclasses.replace(
             config, train=dataclasses.replace(config.train, train_steps=args.steps))
+    if world > 1 and args.data_workers > 1 and not args.data:
+        log.error("--data-workers > 1 interleaves its streams in no fixed order, so "
+                  "%d ranks would train on different batches", world)
+        return 2
     if args.init_npz:
         params = load_params_npz(args.init_npz, config.model, device)
         log.info("initialized params from %s", args.init_npz)
@@ -80,11 +115,15 @@ def main(argv=None) -> int:
                                       config.model), device)
     log.info("model: %.2fM params on %s", param_count(params) / 1e6, device)
 
+    lead = rank == 0
     report = ReportManager(report_every=args.report_every,
-                           metrics_path=args.metrics or None)
+                           metrics_path=(args.metrics or None) if lead else None,
+                           tensorboard_dir=(args.tensorboard or None) if lead else None)
     ckpt = CheckpointManager(args.ckpt_dir, config,
                              max_to_keep=config.train.keep_checkpoints)
-    trainer = Trainer(config, params, report=report, checkpointer=ckpt)
+    plan = make_mesh_plan(config.mesh) if world > 1 else None
+    trainer = Trainer(config, params, report=report, checkpointer=ckpt if lead else None,
+                      mesh_plan=plan)
     if args.resume and ckpt.latest_step() is not None:
         trainer.state = ckpt.restore(device=device)
         log.info("resumed at step %d", trainer.step)
@@ -112,7 +151,7 @@ def main(argv=None) -> int:
         trainer.train(train_iter, valid_iter_fn=valid_fn)
     except KeyboardInterrupt:
         log.info("interrupted: saving the checkpoint of step %d", trainer.step)
-    if ckpt.latest_step() != trainer.step:
+    if lead and ckpt.latest_step() != trainer.step:
         ckpt.save(trainer.step, trainer.state)
     report.close()
     return 0

@@ -18,10 +18,18 @@ port's counterpart of `nanodecoder_tpu.decode.engine`).
 
 Greedy, beam and sample mode, as `Translator` serves them; in sample
 mode the batches are numbered for their generators in dispatch order
-(one dispatching thread), whatever the depth.  The JAX engine's
-`mesh_plan` (data-parallel decode over a device mesh) is not ported.
-Its warning about beam state spilling a TPU core's VMEM is not carried
-over: this card has no such wall.
+(one dispatching thread), whatever the depth.
+
+Data-parallel decode (`mesh_plan`, a `parallel.mesh.MeshPlan`): every rank
+runs the engine on the same files and so packs the same batches; each
+decodes its rows of every batch, the rows are gathered (one collective a
+batch), and rank 0 finishes and writes every read while the other ranks
+write nothing.  The FASTQ equals one device's.  Each rank's stop flag
+rides in that collective, so when rank 0's writing fails every rank
+leaves after the same batch (and raises) instead of waiting in the next
+gather.  The JAX engine's warning
+about beam state spilling a TPU core's VMEM is not carried over: this
+card has no such wall.
 """
 
 from __future__ import annotations
@@ -46,11 +54,12 @@ from nanodecoder_tpu_torch.utils.statistics import ThroughputMeter
 
 class StreamingBasecaller:
     def __init__(self, params, config: Config, depth: int = 2, attn_pos: bool = True,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh_plan=None):
         """params: the nested parameter dict of
         train.checkpoint.load_params_npz; the serving fold runs once here,
-        on `device` (the card unless the caller asks for the CPU).
-        config.decode.mode: greedy, beam or sample.
+        on `device` (the card unless the caller asks for the CPU; with a
+        `mesh_plan`, this rank's device).  config.decode.mode: greedy, beam
+        or sample.
 
         attn_pos=False drops the per-token attention positions from the
         device->host copy: only the "attn" stitcher reads them."""
@@ -60,6 +69,12 @@ class StreamingBasecaller:
         self._translator = Translator(params, config, device=device)
         self.device = self._translator.device
         self._h2d = self._translator._h2d
+        self._program = self._translator.decode_program
+        self._sharded = mesh_plan is not None
+        self._writer = True
+        if self._sharded:
+            self._program = mesh_plan.shard_decode_fn(self._program)
+            self._writer = mesh_plan.rank == 0
 
     @property
     def batches(self) -> int:
@@ -71,20 +86,29 @@ class StreamingBasecaller:
         """Decode steps run so far, over all batches."""
         return self._translator.decode_steps
 
-    def _decode(self, wire: np.ndarray, lengths: np.ndarray):
-        """Dispatch one batch.  Returns (host tensors, event): the compact
-        outputs, their copy to host memory queued right behind the batch's
-        kernels (pinned, asynchronous), and an event recorded after it;
-        on the CPU the tensors themselves and no event."""
-        tokens, tlens, lps, _scores, pos = self._translator.decode_program(wire, lengths)
+    def _decode(self, wire: np.ndarray, lengths: np.ndarray, stop: bool = False):
+        """Dispatch one batch.  Returns (host tensors, event, stop): the
+        compact outputs, their copy to host memory queued right behind the
+        batch's kernels (pinned, asynchronous), and an event recorded after
+        it; on the CPU the tensors themselves and no event; (None, None) on
+        a rank that writes nothing.  `stop`: with a mesh plan, whether any
+        rank passed stop=True for this batch (else False)."""
+        with torch.inference_mode():
+            if self._sharded:
+                (tokens, tlens, lps, _scores, pos), stop = self._program(wire, lengths,
+                                                                         stop=stop)
+            else:
+                (tokens, tlens, lps, _scores, pos), stop = self._program(wire, lengths), False
         self._translator.batches += 1
+        if not self._writer:
+            return None, None, stop
         outs = (tokens, tlens, lps) + ((pos,) if self.attn_pos else ())
         if self.device.type != "cuda":
-            return outs, None
+            return outs, None, stop
         host = tuple(x.to("cpu", non_blocking=True) for x in outs)
         event = torch.cuda.Event()
         event.record()
-        return host, event
+        return host, event, stop
 
     # -----------------------------------------------------------------
 
@@ -101,7 +125,8 @@ class StreamingBasecaller:
         stage_timer: StageTimer | None = None,
     ) -> ThroughputMeter:
         """Basecall `files`, writing FASTQ/FASTA records to text file `out`
-        in read-completion order.
+        in read-completion order (with a mesh plan, on rank 0 only: the
+        other ranks decode their rows and return an empty meter).
 
         `done_log`: optional file handle; completed read ids are appended
         one per line (resume: pass the previous contents as
@@ -221,16 +246,25 @@ class StreamingBasecaller:
                                       daemon=True)
         col_thread.start()
         t_wall0 = time.perf_counter()
+        stopped = False  # a rank's stop flag came back in a gather
         try:
             batches = pipe.batches()
-            while not collector_exc:
+            # With a mesh plan, a failure leaves the loop through the
+            # flag of the next gather, which every rank joins.
+            while self._sharded or not collector_exc:
                 with timer.stage("ingest-wait"):
                     packed = next(batches, None)
                 if packed is None:
                     break
                 with timer.stage("dispatch"):
-                    host, event = self._decode(packed.chunks, packed.lengths)
-                    fut = transfer_pool.submit(to_host, host, event)
+                    host, event, stopped = self._decode(packed.chunks, packed.lengths,
+                                                        bool(collector_exc))
+                    fut = None if host is None or stopped else \
+                        transfer_pool.submit(to_host, host, event)
+                if stopped:
+                    break
+                if fut is None:
+                    continue
                 with timer.stage("backpressure-wait"):
                     result_q.put((fut, packed))
         finally:
@@ -242,4 +276,7 @@ class StreamingBasecaller:
             timer.counts["wall"] += 1
         if collector_exc:
             raise collector_exc[0]
+        if stopped:
+            raise RuntimeError("a rank of the mesh stopped the run (rank 0 failed to "
+                               f"write) after batch {self.batches}")
         return meter

@@ -25,7 +25,7 @@ from nanodecoder_tpu_torch.config import Config
 from nanodecoder_tpu_torch.decode.beam import beam_decode, needs_coverage
 from nanodecoder_tpu_torch.decode.finish import stitch_read
 from nanodecoder_tpu_torch.decode.greedy import greedy_decode
-from nanodecoder_tpu_torch.decode.sampling import batch_generator, sample_decode
+from nanodecoder_tpu_torch.decode.sampling import batch_generator, gumbel_noise, sample_decode
 from nanodecoder_tpu_torch.device import resolve_device
 from nanodecoder_tpu_torch.io.fast5 import RawRead
 from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
@@ -115,13 +115,20 @@ class Translator:
         return res
 
     @torch.inference_mode()
-    def decode_program(self, wire: np.ndarray, lengths: np.ndarray):
+    def decode_program(self, wire: np.ndarray, lengths: np.ndarray, rows: slice | None = None):
         """Encode and decode one batch of wire rows on the device; the best
         hypothesis of each chunk in beam mode, with its per-token log-probs
-        and positions; in sample mode from the next batch's generator.  Returns the compact device tensors of
-        `_compact_d2h`: (tokens int16, lengths, log-probs f16, scores,
-        sample positions int16).  The streaming engine runs it too."""
+        and positions; in sample mode from the next batch's generator.
+        `rows` decodes only those rows of the batch (a data-parallel rank's
+        share, `parallel.mesh.MeshPlan.shard_decode_fn`); sample mode then
+        draws the whole batch's noise and keeps these rows', so each row
+        samples as it does in the whole batch.  Returns the compact device
+        tensors of `_compact_d2h`: (tokens int16, lengths, log-probs f16,
+        scores, sample positions int16).  The streaming engine runs it too."""
         cfg = self.config.model
+        n_rows = len(wire)
+        if rows is not None:
+            wire, lengths = wire[rows], lengths[rows]
         if self.config.decode.mode == "beam":
             res = self._beam(wire, lengths)
             tokens, tok_lengths, lps, scores, attn_pos = (
@@ -132,8 +139,11 @@ class Translator:
                 gen = batch_generator(self.config.decode.sampling_seed,
                                       self.sample_batches, self.device)
                 self.sample_batches += 1
+                whole_batch = {} if rows is None else {"gumbel": (
+                    lambda _t, shape: gumbel_noise(gen, (n_rows, shape[1]),
+                                                   self.device)[rows])}
                 res = sample_decode(self.params, cfg, self.config.decode,
-                                    *self._encode(wire, lengths), gen)
+                                    *self._encode(wire, lengths), gen, **whole_batch)
             else:
                 res = greedy_decode(self.params, cfg, *self._encode(wire, lengths),
                                     min_len=self.config.decode.min_len)

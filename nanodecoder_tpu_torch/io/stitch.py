@@ -3,17 +3,20 @@
   "trim":  cut each chunk's basecall at the overlap midpoint,
            proportionally in base space (default).
   "align": pick the best suffix/prefix overlap of adjacent basecalls
-           and splice at it (pure-Python scorer).
+           and splice at it (the native scorer where the host library
+           loads, else numpy).
   "attn":  keep each base in the chunk that owns the sample position
            its cross-attention peaked at.
 
-Pure host-side numpy/python: stitching is post-processing, not device
-work.
+Host-side numpy/python and the native host library: stitching is
+post-processing, not device work.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from nanodecoder_tpu_torch import native
 
 
 def _cut_indices(n: int, valid_samples: int, lo_sample: float, hi_sample: float) -> tuple[int, int]:
@@ -50,6 +53,17 @@ def _trim_spans(seqs: list[str], starts: np.ndarray, lengths: np.ndarray,
 
 
 def _best_overlap_len(left: str, right: str, max_k: int) -> int:
+    """Best overlap length k such that left[-k:] matches right[:k]: the
+    native scorer where the host library loads, else
+    `_best_overlap_len_plain`."""
+    max_k = min(max_k, len(left), len(right))
+    if max_k <= 0:
+        return 0
+    k = native.best_overlap_len_native(left.encode(), right.encode(), max_k)
+    return _best_overlap_len_plain(left, right, max_k) if k is None else k
+
+
+def _best_overlap_len_plain(left: str, right: str, max_k: int) -> int:
     """Best overlap length k such that left[-k:] matches right[:k].
 
     Scores every k in [0, max_k] by (matches - mismatches) of the
@@ -57,8 +71,7 @@ def _best_overlap_len(left: str, right: str, max_k: int) -> int:
     of `right` and returns the argmax.  For random DNA a wrong k scores
     ~-k/2 in expectation while the true overlap scores ~+k, so the true
     overlap dominates; k=0 (plain concatenation) is always a candidate.
-    Vectorized: one O(max_k^2) byte comparison via stride tricks is
-    overkill — a per-k numpy compare is fast enough for max_k ~ hundreds.
+    A per-k numpy compare, the plain version of the native scorer.
     """
     max_k = min(max_k, len(left), len(right))
     if max_k <= 0:

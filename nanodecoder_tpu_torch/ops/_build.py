@@ -3,8 +3,11 @@
 Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` (one compiler
 process per source, all started together) and linked into one shared
 library with a plain C interface, loaded with ctypes.  The build runs
-at first use and again only when a source is newer than the library.
-Its output goes to `nanodecoder_tpu_torch/_build/`, which git ignores.
+at first use and again when a source is newer than the library or the
+compiler flags differ from those in the stamp file beside it, into
+`build_cache.build_dir()` ($NANODECODER_TORCH_BUILD_DIR, else the
+git-ignored `nanodecoder_tpu_torch/_build/`, else a temp dir), where the
+host library of `native/` builds too.
 """
 
 from __future__ import annotations
@@ -16,10 +19,11 @@ import shutil
 import subprocess
 import threading
 
+from nanodecoder_tpu_torch.build_cache import build_dir, install, stale
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libnanodecoder_kernels.so")
+LIBRARY_NAME = "libnanodecoder_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -70,11 +74,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIBRARY):
-        return True
-    deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh"))
-    return max(os.path.getmtime(p) for p in deps) > os.path.getmtime(LIBRARY)
+def library() -> str:
+    return os.path.join(build_dir(), LIBRARY_NAME)
 
 
 def build(verbose: bool = False) -> str:
@@ -82,33 +83,38 @@ def build(verbose: bool = False) -> str:
     the compilers' messages (with `verbose`, ptxas's register and
     shared-memory report per kernel)."""
     with _lock:
-        if not verbose and not _stale():
-            return ""
-        os.makedirs(BUILD_DIR, exist_ok=True)
         nvcc = _nvcc()
+        out_dir, lib_path = build_dir(), library()
+        command = [nvcc, *CFLAGS]
+        deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh"))
+        if not verbose and not stale(lib_path, deps, command):
+            return ""
         extra = ["-Xptxas", "-v"] if verbose else []
-        procs = []
-        for src in sources():
-            obj = os.path.join(BUILD_DIR, os.path.basename(src) + ".o")
-            procs.append((src, subprocess.Popen(
+        objs = {src: os.path.join(out_dir, f"{os.path.basename(src)}.{os.getpid()}.o")
+                for src in sources()}
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        try:
+            procs = [(src, subprocess.Popen(
                 [nvcc, *CFLAGS, *extra, "-c", src, "-o", obj],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        log, failed = [], []
-        for src, proc in procs:
-            out, _ = proc.communicate()
-            log.append(out)
-            if proc.returncode != 0:
-                failed.append(f"{os.path.basename(src)}:\n{out}")
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        tmp = LIBRARY + f".{os.getpid()}.tmp"
-        objs = [os.path.join(BUILD_DIR, os.path.basename(s) + ".o")
-                for s in sources()]
-        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *objs, "-o", tmp],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
-        os.replace(tmp, LIBRARY)
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                for src, obj in objs.items()]
+            log, failed = [], []
+            for src, proc in procs:
+                out, _ = proc.communicate()
+                log.append(out)
+                if proc.returncode != 0:
+                    failed.append(f"{os.path.basename(src)}:\n{out}")
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *objs.values(), "-o", tmp],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+        finally:
+            for obj in objs.values():
+                if os.path.exists(obj):
+                    os.unlink(obj)
+        install(tmp, lib_path, command)
         return "".join(log)
 
 
@@ -117,7 +123,7 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(LIBRARY)
+        lib = ctypes.CDLL(library())
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -134,6 +134,14 @@ def decode_attention_plain(q, k_cache, v_cache, valid_lens, n_heads: int,
     return out.reshape(b, d).to(q.dtype), amax.reshape(b)
 
 
+def decode_attention_reference(q, k_cache, v_cache, valid_lens, n_heads: int
+                               ) -> torch.Tensor:
+    """The JAX package's `decode_attention_reference`: (B, D) outputs of
+    exact caches (MHA, GQA or MQA), K4a's plain version without the
+    attention position."""
+    return decode_attention_plain(q, k_cache, v_cache, valid_lens, n_heads)[0]
+
+
 def decode_attention_grouped_plain(q, k_cache, v_cache, valid_lens, n_heads: int,
                                    group: int, k_scale=None, v_scale=None):
     """K4b's plain PyTorch version: (out (B * G, D), amax (B * G,))."""

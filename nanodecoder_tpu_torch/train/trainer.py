@@ -14,6 +14,18 @@ token-summed loss over the token count of all A micro-batches (counted
 before any backward), plus ga_weight / A times its guided-attention
 penalty, so the summed gradient is the one-batch gradient.  Float32
 means float32: TF32 is switched off for matmuls and cuDNN.
+
+Data parallelism (`Trainer(mesh_plan=)`, `parallel.mesh.MeshPlan`): every
+rank is fed the whole host batch and runs forward and backward on its
+rows of each micro-batch; the gradients are summed over the ranks in one
+all-reduce before the update, which every rank then applies alike.  The
+loss stays the global batch's function: the token count that divides it
+is the whole batch's, and a rank's guided-attention mean over its B/W
+rows is weighted by (B/W)/B, so the summed gradient is one device's.
+Each rank draws its dropout masks from its own generator (seeded with
+`train.seed` plus its rank): with dropout, a data-parallel run differs
+from one device's run; at dropout 0 it equals it within f32 summation
+order.
 """
 
 from __future__ import annotations
@@ -47,8 +59,10 @@ def batch_to_device(batch: dict[str, np.ndarray], device: torch.device
 
 
 def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
-    """train_step(params, batch, gen) -> metrics summed over micro-batches
-    (0-d tensors); updates params in place through `optimizer`.
+    """train_step(params, batch, gen, plan=None) -> metrics summed over
+    micro-batches (0-d tensors); updates params in place through
+    `optimizer`.  With a MeshPlan, this rank's rows and summed gradients
+    and metrics.
     batch: tensors with the accumulation axis,
       signal (A, B, S) f32, sig_lengths (A, B) int,
       tgt_in (A, B, T) int, tgt_out (A, B, T) int."""
@@ -69,21 +83,28 @@ def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
                                       tcfg.guided_attention_sigma)
         return loss, metrics
 
-    def train_step(params, batch: dict[str, torch.Tensor], gen):
-        accum = batch["signal"].shape[0]
-        # Token counts are data: the total over all micro-batches is known
-        # before the first backward.
+    def train_step(params, batch: dict[str, torch.Tensor], gen, plan=None):
+        accum, bsz = batch["signal"].shape[:2]
+        # Token counts are data: the total over all micro-batches (and all
+        # ranks' rows) is known before the first backward.
         total = torch.clamp((batch["tgt_out"] != PAD_ID).sum(), min=1).to(torch.float32)
         inv_total = 1.0 / total
+        rows, share = slice(None), 1.0
+        if plan is not None:
+            rows = plan.row_slice(bsz)
+            share = (rows.stop - rows.start) / bsz
         optimizer.zero_grad()
         summed = None
         for i in range(accum):
-            loss, metrics = micro_loss(params, {k: v[i] for k, v in batch.items()},
-                                       gen, inv_total, 1.0 / accum)
+            loss, metrics = micro_loss(params, {k: v[i, rows] for k, v in batch.items()},
+                                       gen, inv_total, share / accum)
             loss.backward()
             metrics = {k: metrics[k].detach() for k in METRIC_KEYS}
             summed = metrics if summed is None else \
                 {k: summed[k] + metrics[k] for k in METRIC_KEYS}
+        if plan is not None:
+            plan.all_reduce_grads(optimizer.params.values())
+            summed = plan.sum_metrics(summed)
         optimizer.step()
         return summed
 
@@ -91,17 +112,20 @@ def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
 
 
 def make_eval_step(config: Config) -> Callable:
-    """eval_step(params, batch) -> metrics of one (B, ...) batch, without a
-    gradient; the encoder takes K5 when `use_pallas` is set."""
+    """eval_step(params, batch, plan=None) -> metrics of one (B, ...) batch,
+    without a gradient (with a MeshPlan, of this rank's rows, summed over
+    the ranks); the encoder takes K5 when `use_pallas` is set."""
     mcfg = config.model
 
     @torch.no_grad()
-    def eval_step(params, batch: dict[str, torch.Tensor]):
+    def eval_step(params, batch: dict[str, torch.Tensor], plan=None):
+        if plan is not None:
+            batch = plan.shard_batch(batch)
         mem, mem_len = encode(params, mcfg, batch["signal"], batch["sig_lengths"])
         log_probs, _ = decode_teacher_forced(params, mcfg, batch["tgt_in"], mem, mem_len)
         _loss, metrics = loss_and_metrics(log_probs, batch["tgt_out"],
                                           config.train.label_smoothing)
-        return metrics
+        return metrics if plan is None else plan.sum_metrics(metrics)
 
     return eval_step
 
@@ -121,11 +145,15 @@ class Trainer:
     (B, ...) batches.  Dropout masks come from one generator on the device
     seeded with `train.seed`; like the JAX package's, it is not part of a
     checkpoint, so a resumed run equals an uninterrupted one only with
-    dropout 0."""
+    dropout 0.
+
+    `mesh_plan` (a `parallel.mesh.MeshPlan`): data-parallel steps over its
+    ranks (see the module docstring), every rank fed the same batches;
+    the params are made rank 0's first."""
 
     def __init__(self, config: Config, params: dict[str, Any],
                  report: ReportManager | None = None, checkpointer=None,
-                 early_stopping=None):
+                 early_stopping=None, mesh_plan=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
@@ -142,10 +170,16 @@ class Trainer:
         self.step = 0
         self._train_step = make_train_step(config, self.optimizer)
         self._eval_step = make_eval_step(config)
+        seed = config.train.seed
+        if mesh_plan is not None:
+            mesh_plan.replicate(params)
+            self._train_step = mesh_plan.shard_train_step(self._train_step)
+            self._eval_step = mesh_plan.shard_eval_step(self._eval_step)
+            seed += mesh_plan.rank
         self.report = report or ReportManager()
         self.checkpointer = checkpointer
         self.early_stopping = early_stopping
-        self.gen = torch.Generator(device=self.device).manual_seed(config.train.seed)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
     @property
     def state(self) -> TrainState:

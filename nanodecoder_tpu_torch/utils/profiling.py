@@ -1,6 +1,7 @@
-"""Per-stage wall-clock timers (the port's copy of
-`nanodecoder_tpu.utils.profiling.StageTimer`; its `device_trace`, a
-jax.profiler hook, has no counterpart here yet)."""
+"""Per-stage wall-clock timers and the device trace (the port's
+counterpart of `nanodecoder_tpu.utils.profiling`: `StageTimer`, and
+`device_trace` on torch.profiler where the JAX package's runs
+jax.profiler)."""
 
 from __future__ import annotations
 
@@ -42,3 +43,23 @@ class StageTimer:
     def reset(self) -> None:
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None):
+    """Trace the enclosed work with torch.profiler (CPU activity, and CUDA
+    where a card is present) into a Chrome trace under `log_dir`, written
+    by `tensorboard_trace_handler` (a `*.pt.trace.json` file) when the
+    block ends.  No-op for None.  Yields the profiler (None when off)."""
+    if log_dir is None:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

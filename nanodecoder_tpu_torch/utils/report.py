@@ -1,7 +1,10 @@
 """Training reports and structured JSON metrics (the port's copy of
 `nanodecoder_tpu.utils.report`): periodic log lines, and one JSON record
-per report appended to `metrics_path` when it is given.  The basecall
-CLI emits its inference record through `report_inference`.
+per report appended to `metrics_path` when it is given, and TensorBoard
+scalars (`kind/key` at the record's step) in `tensorboard_dir` when it is
+given and `torch.utils.tensorboard` imports (else one warning, and no
+TensorBoard sink).  The basecall CLI emits its inference record through
+`report_inference`.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from nanodecoder_tpu_torch.utils.statistics import Statistics
 
 
 class ReportManager:
-    def __init__(self, report_every: int = 50, metrics_path: str | None = None):
+    def __init__(self, report_every: int = 50, metrics_path: str | None = None,
+                 tensorboard_dir: str | None = None):
         self.report_every = report_every
         self.metrics_path = metrics_path
         self.log = get_logger("train")
@@ -26,11 +30,25 @@ class ReportManager:
             self._fh = open(metrics_path, "a")
         else:
             self._fh = None
+        self._tb = None
+        if tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:  # the tensorboard package is optional
+                self.log.warning("tensorboard requested but unavailable (%s); "
+                                 "skipping it", e)
+            else:
+                self._tb = SummaryWriter(log_dir=tensorboard_dir)
 
     def _emit(self, record: dict[str, Any]) -> None:
         if self._fh is not None:
             self._fh.write(json.dumps(record) + "\n")
             self._fh.flush()
+        if self._tb is not None and "step" in record:
+            kind = record.get("kind", "train")
+            for key, val in record.items():
+                if key not in ("kind", "step", "time") and isinstance(val, (int, float)):
+                    self._tb.add_scalar(f"{kind}/{key}", val, record["step"])
 
     def report_training(self, step: int, stats: Statistics, lr: float) -> None:
         if step % self.report_every != 0:
@@ -76,3 +94,6 @@ class ReportManager:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
