@@ -174,15 +174,34 @@ Phases, in order; any failure exits non-zero before the last line:
      exactly once in the merged FASTQ, no shard left; (e) no child process
      left; (f) utils.profiling.device_trace writes a Chrome trace of one
      batch; the phase's wall;
- 17. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+ 17. orbax: the JAX package's orbax checkpoint directory (the committed
+     tests/golden/jax_orbax_tiny: the tiny config after 3 Adam steps
+     with clip, written by scripts/make_orbax_fixture.py), read without
+     JAX through the native zstd library (built in phase 1; no
+     fallback): (a) the TrainState read on the host bit-equal to the JAX
+     package's restore (tests/golden/jax_orbax_tiny_expected.npz):
+     params, mu, nu, count, step; its seconds (first and median of 3)
+     and MB/s of files; (b) load_params_and_config onto the card, kernel
+     route, f32: greedy and beam 5 on 4 reads made as phase 11 makes
+     them, equal to the same calls on the npz export's params (K1, K2,
+     K4a; K1, K2, K3, K4b launched); the basecall CLI (--parity, .npz
+     signal files) with --ckpt the orbax directory byte-equal to the same
+     CLI on the npz export, and the evaluate CLI's JSON equal on both;
+     (c) cli.train --resume 3 -> 5 on the card from a copy of the
+     directory and from the port-format copy of the same state: params
+     within 1e-6, the JAX step's files hashed unchanged; (d) with the
+     zstd library unbuildable the read raises ZstdUnavailable; the
+     phase's wall;
+ 18. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
      beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11; engine,
      12; train, 13 (a)-(c); train_serve, 13 (d); rnn, 14 (a)-(b);
      rnn_hybrid, 14 (c); rnn_train, 14 (d); rnn_import, 14 (e);
      rnn_engine, 14 (f); sample, path_reorder and coverage, 15; dp_nccl,
      16 (c); dp_rank0 and dp_rank1, 16 (d), counted in each rank's
-     process), K4a's and K4b's launches of the scalar decode-attention
-     kernel apart (none on phases 3-9), errors, times;
- 18. the last line: {"ok": true, "device": {...}}.
+     process; orbax, 17 (b) in this process), K4a's and K4b's launches of
+     the scalar decode-attention kernel apart (none on phases 3-9),
+     errors, times;
+ 19. the last line: {"ok": true, "device": {...}}.
 
 `--kernels` runs phase 1 and the named kernels' phase 2 only and prints
 their numbers as one JSON line; with `--root` it imports (and builds) the
@@ -331,6 +350,7 @@ def phase_build() -> None:
     from nanodecoder_tpu_torch.ops import _build
 
     from nanodecoder_tpu_torch import native
+    from nanodecoder_tpu_torch.native import zstd
 
     t0 = time.perf_counter()
     log = _build.build(verbose=True)
@@ -342,6 +362,13 @@ def phase_build() -> None:
           "load: read identity would run its numpy version")
     print(f"native host library build or load: {time.perf_counter() - t0:.1f} s "
           f"({native.LIBRARY_NAME} in {_build.build_dir()})")
+    t0 = time.perf_counter()
+    try:
+        zstd.load()
+    except zstd.ZstdUnavailable as e:
+        raise SmokeError(str(e)) from e
+    print(f"native zstd library build or load: {time.perf_counter() - t0:.1f} s "
+          f"({zstd.LIBRARY_NAME}; phase 17 reads orbax checkpoints with it, no fallback)")
     # One line per kernel: its mangled name without the namespace prefix,
     # registers and spills (shared memory is dynamic, sized at launch).
     lines = log.splitlines()
@@ -3157,6 +3184,214 @@ def phase_host_dp(params, reset, counts, dev, root: str,
     return {"dp_nccl": nccl, **ranks}, numbers
 
 
+# Phase 17: the JAX package's orbax checkpoint, read without JAX.
+ORBAX = os.path.join(REPO, "tests", "golden", "jax_orbax_tiny")
+ORBAX_EXPECTED = ORBAX + "_expected.npz"
+
+
+def tree_hashes(root: str) -> dict[str, str]:
+    import hashlib
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = \
+                    hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def run_clis(runs: list[tuple[str, list[str]]], root: str) -> list[tuple[str, float]]:
+    """Start each (command, args) as a process at once, then wait for all:
+    [(stdout, wall seconds)], failing on a non-zero exit.  The host's cores
+    are shared out among them (OMP_NUM_THREADS)."""
+    env = {**os.environ,
+           "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // len(runs)))}
+    procs = []
+    for i, (cmd, args) in enumerate(runs):
+        head = ([sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.basecall_cli_npz(sys.argv[1:]))"]
+                if cmd == "basecall_npz" else
+                [sys.executable, "-m", f"nanodecoder_tpu_torch.cli.{cmd}"])
+        err = tempfile.TemporaryFile("w+")
+        procs.append((cmd, subprocess.Popen([*head, *args], cwd=root, env=env, text=True,
+                                            stdout=subprocess.PIPE, stderr=err),
+                      err, time.perf_counter()))
+    out = []
+    for cmd, proc, err, t0 in procs:
+        stdout, _ = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        err.seek(0)
+        check(proc.returncode == 0, f"cli.{cmd} exit {proc.returncode}: {err.read()[-2000:]}")
+        err.close()
+        out.append((stdout, wall))
+    return out
+
+
+def phase_orbax(dev, reset, counts, root: str) -> tuple[dict, dict]:
+    """Phase 17 (see the module docstring); returns (the orbax path's
+    launches, numbers)."""
+    from nanodecoder_tpu_torch import build_cache
+    from nanodecoder_tpu_torch.cli.common import load_params_and_config
+    from nanodecoder_tpu_torch.decode.translator import Translator
+    from nanodecoder_tpu_torch.io.fast5 import RawRead
+    from nanodecoder_tpu_torch.io.ocdbt import OcdbtStore
+    from nanodecoder_tpu_torch.native import zstd
+    from nanodecoder_tpu_torch.train.checkpoint import (CheckpointManager, load_config,
+                                                        params_from_numpy, params_to_numpy,
+                                                        read_jax_checkpoint)
+    from nanodecoder_tpu_torch.train.data import SimSpec, simulate_read
+
+    t_phase = time.perf_counter()
+    numbers: dict = {}
+    tmp = tempfile.mkdtemp(prefix="orbax_")
+    try:
+        # (a) the read on the host, bit-equal to the JAX package's restore
+        check(zstd.load() is not None, "the native zstd library did not load")
+        with np.load(ORBAX_EXPECTED) as e:
+            want = {k: e[k] for k in e.files}
+        files = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                    os.walk(os.path.join(ORBAX, "3")) for f in fs)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state = read_jax_checkpoint(ORBAX, device="cpu")
+            walls.append(time.perf_counter() - t0)
+        arrays = sum(v.nbytes for v in want.values())
+        for name, tree in (("params", state.params), ("mu", state.opt_state["mu"]),
+                           ("nu", state.opt_state["nu"])):
+            got = params_to_numpy(tree)
+            for key, w in ((k[len(name) + 1:], v) for k, v in want.items()
+                           if k.startswith(name + "/")):
+                check(got[key].dtype == w.dtype and got[key].shape == w.shape
+                      and got[key].tobytes() == w.tobytes(),
+                      f"orbax read: {name}/{key} differs from the JAX package's restore")
+        check(int(state.opt_state["count"]) == int(want["count"]) and
+              state.step == int(want["step"]) == 3, "orbax read: count or step differs")
+        store = OcdbtStore(os.path.join(ORBAX, "3", "default"))
+        frames = [store.read(k) for k in store.keys() if not k.endswith("/.zarray")]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            decoded = sum(len(zstd.decompress(f)) for f in frames)
+        decode_s = (time.perf_counter() - t0) / 10
+        numbers.update(read_s_first=walls[0], read_s_median=statistics.median(walls),
+                       files_bytes=files, array_bytes=arrays,
+                       read_mb_per_s=files / 1e6 / statistics.median(walls),
+                       decode_frames=len(frames), decode_mb_per_s=decoded / 1e6 / decode_s)
+        print(f"orbax (a): the fixture read on the host bit-equal to the JAX package's "
+              f"restore (params, mu, nu, count, step 3): {files} bytes of files, {arrays} "
+              f"bytes of arrays, first read {walls[0]:.4f} s, median of 3 "
+              f"{statistics.median(walls):.4f} s ({numbers['read_mb_per_s']:.2f} MB/s of "
+              f"files); the zstd decoder alone on its {len(frames)} chunk frames "
+              f"{numbers['decode_mb_per_s']:.2f} MB/s decoded")
+
+        # (b) served on the card, kernel route, f32, against the npz export
+        export = os.path.join(tmp, "export")
+        os.makedirs(export)
+        npz = os.path.join(export, "params.npz")
+        np.savez(npz, **{k[len("params/"):]: v for k, v in want.items()
+                         if k.startswith("params/")})
+        shutil.copy(os.path.join(ORBAX, "config.json"), export)
+        t0 = time.perf_counter()
+        params, config = load_params_and_config(ORBAX, dev)
+        numbers["load_to_card_s"] = time.perf_counter() - t0
+        npz_params = params_from_numpy({k[len("params/"):]: v for k, v in want.items()
+                                        if k.startswith("params/")}, config.model, dev)
+        spec = SimSpec()
+        rng = np.random.default_rng(7)
+        reads = [RawRead(f"tiny{i}", simulate_read(rng, 1500, spec, spec.level_table())[1],
+                         "sim") for i in range(4)]
+        model = dataclasses.replace(config.model, use_pallas=True, compute_dtype="float32")
+        reset()
+        for mode, kernels in (("greedy", ("K1", "K2", "K4a")),
+                              ("beam", ("K1", "K2", "K3", "K4b"))):
+            decode = dataclasses.replace(config.decode, use_pallas=True, batch_chunks=64,
+                                         batch_chunks_beam=16, mode=mode, beam_size=5)
+            cfg = dataclasses.replace(config, model=model, decode=decode)
+            before = counts()
+            seqs = [[Translator(p, cfg, device=dev).basecall_read(r, stitch_method="trim").sequence
+                     for r in reads] for p in (params, npz_params)]
+            c = counts()
+            for name in kernels:
+                check(c[name] > before[name], f"orbax {mode}: {name} not launched")
+            check(seqs[0] == seqs[1], f"orbax {mode}: the orbax params' calls differ from "
+                  "the npz export's")
+            print(f"orbax (b): {mode} on 4 reads from the orbax directory equal to the npz "
+                  f"export's ({sum(map(len, seqs[0]))} bases)")
+        launches = counts()
+
+        reads_dir = os.path.join(tmp, "reads")
+        os.makedirs(reads_dir)
+        write_signal_files(reads_dir, [(r.read_id, r.signal) for r in reads], "npz")
+        outs = {k: os.path.join(tmp, f"{k}.fastq") for k in ("orbax", "npz")}
+        runs = [("basecall_npz", ["--input", reads_dir, "--output", outs[k], "--ckpt", ck,
+                                  "--parity", "--workers", "2"])
+                for k, ck in (("orbax", ORBAX), ("npz", npz))]
+        runs += [("evaluate", ["--ckpt", ck, "--simulate", "2", "--read-bases", "1000",
+                               "--dtype", "float32", "--json"]) for ck in (ORBAX, npz)]
+        results = run_clis(runs, root)
+        fastq = {k: open(v).read() for k, v in outs.items()}
+        calls = parse_fastq(fastq["orbax"], "basecall CLI on the orbax directory")
+        check(fastq["orbax"] == fastq["npz"] and len(calls) == len(reads),
+              "basecall CLI: the orbax directory's FASTQ differs from the npz export's")
+        evals = [json.loads(out.strip().splitlines()[-1]) for out, _ in results[2:]]
+        check(evals[0] == evals[1] and evals[0]["n_reads"] == 2,
+              f"evaluate CLI: {evals[0]} on the orbax directory, {evals[1]} on the npz")
+        print(f"orbax (b): basecall CLI --parity on the orbax directory: FASTQ byte-equal "
+              f"to the npz export's ({len(calls)} reads); evaluate CLI equal on both "
+              f"(identity {evals[0]['mean_identity']:.4f}); process walls "
+              + ", ".join(f"{w:.1f} s" for _, w in results))
+
+        # (c) --resume from a copy of the fixture against a resume from the
+        # port-format copy of the same state
+        jax_copy, port_copy = os.path.join(tmp, "jax_ck"), os.path.join(tmp, "port_ck")
+        shutil.copytree(ORBAX, jax_copy)
+        before = tree_hashes(jax_copy)
+        CheckpointManager(port_copy, load_config(ORBAX)).save(3, state)
+        cfg_path = os.path.join(jax_copy, "config.json")
+        results = run_clis([("train", ["--ckpt-dir", ck, "--config", cfg_path, "--steps",
+                                       "5", "--resume", "--report-every", "1"])
+                            for ck in (jax_copy, port_copy)], root)
+        a, b = (params_to_numpy(CheckpointManager(ck, load_config(ORBAX)).restore(
+            5, device="cpu").params) for ck in (jax_copy, port_copy))
+        diff = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+        after = tree_hashes(jax_copy)
+        check(diff <= 1e-6, f"train --resume: the orbax copy's params differ from the "
+              f"port-format copy's by {diff}")
+        check({k: v for k, v in after.items() if not k.startswith("5" + os.sep)} == before,
+              "train --resume changed the JAX step's files")
+        numbers["resume_max_param_diff"] = diff
+        print(f"orbax (c): cli.train --resume 3 -> 5 on the card from the orbax copy and "
+              f"from the port-format copy: params within {diff:.3g}; the JAX step's "
+              f"{len(before)} files hash as before; process walls "
+              + ", ".join(f"{w:.1f} s" for _, w in results))
+
+        # (d) the library failing to build fails the read: no fallback
+        saved = (zstd._lib, zstd._error, zstd.COMPILER, os.environ.get(
+            build_cache.BUILD_DIR_ENV))
+        try:
+            zstd._lib, zstd._error, zstd.COMPILER = None, None, "no-such-compiler-g++"
+            os.environ[build_cache.BUILD_DIR_ENV] = os.path.join(tmp, "empty_build")
+            try:
+                load_params_and_config(ORBAX, "cpu")
+                raised = ""
+            except zstd.ZstdUnavailable as e:
+                raised = str(e).splitlines()[0]
+        finally:
+            zstd._lib, zstd._error, zstd.COMPILER = saved[:3]
+            if saved[3] is None:
+                os.environ.pop(build_cache.BUILD_DIR_ENV, None)
+            else:
+                os.environ[build_cache.BUILD_DIR_ENV] = saved[3]
+        check(bool(raised), "a zstd library that does not build did not fail the read")
+        print(f"orbax (d): with the zstd library unbuildable the read raises: {raised[:120]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"[phase 17] orbax: {numbers['phase_s']:.1f} s")
+    return launches, numbers
+
+
 def kernel_times(names: list[str]) -> int:
     """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
     three dtypes, K3, K2 at four widths, K7); one JSON line of their
@@ -3380,6 +3615,9 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(dp_paths)
         print("host and data-parallel numbers: " + json.dumps(dp_numbers))
         elapsed("phase 16")
+        paths["orbax"], orbax_numbers = phase_orbax(dev, reset, counts, root)  # phase 17
+        print("orbax numbers: " + json.dumps(orbax_numbers))
+        elapsed("phase 17")
         check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
               "K6 or K7 launched on a serving path")
         for path, c in paths.items():

@@ -48,8 +48,10 @@ Entry points run on the card unless the caller passes device="cpu"
 (--cpu for the CLIs).  Read identity and the overlap stitch run in a
 small C++ host library (`native/`, built with g++ at first use; numpy
 where it cannot be built).  The package imports torch, numpy and the
-standard library only, plus h5py (fast5) and pyarrow, zstandard and
-flatbuffers (pod5) where they are installed.
+standard library only, plus h5py (fast5) and pyarrow and flatbuffers
+(pod5) where they are installed, and zstandard for pod5's signal.  The
+JAX package's orbax checkpoints are read with a second C++ library
+(`native/zstd.cpp`: Zstandard and CRC32C) and no other package.
 """
 
 __version__ = "0.1.0"

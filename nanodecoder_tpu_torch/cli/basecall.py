@@ -37,7 +37,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--input", required=True, help="fast5/pod5 file or directory")
     ap.add_argument("--output", required=True, help="output FASTQ/FASTA path")
     ap.add_argument("--ckpt", required=True, help=".npz params (config.json beside it) or a "
-                    "checkpoint directory of cli.train")
+                    "checkpoint directory of cli.train, the port's or the JAX "
+                    "package's (orbax; read without JAX)")
     ap.add_argument("--format", choices=["fastq", "fasta"], default="fastq")
     ap.add_argument("--beam", type=int, default=0, help="beam size (0 = greedy)")
     ap.add_argument("--length-penalty", choices=["none", "wu", "avg"], default="avg",

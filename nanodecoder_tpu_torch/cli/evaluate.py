@@ -56,7 +56,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--truth", default="", help="truth TSV: read_id<TAB>sequence")
     ap.add_argument("--ckpt", default="",
                     help="params .npz (config.json beside it) or a checkpoint "
-                         "directory of cli.train, for simulator mode")
+                         "directory of cli.train, the port's or the JAX package's "
+                         "(orbax; read without JAX), for simulator mode")
     ap.add_argument("--simulate", type=int, default=0, help="simulate N reads")
     ap.add_argument("--read-bases", type=int, default=3000)
     ap.add_argument("--beam", type=int, default=0, help="beam size (0 = greedy)")

@@ -12,7 +12,9 @@ start alike) or from --init-npz.  Batches come from preprocessed shards
 validates every `valid_every` steps on 4 simulated batches (the encoder
 through kernel K5 when `use_pallas` is set).  Checkpoints go to
 --ckpt-dir every `save_every` steps and at the end, also on SIGTERM or
-Ctrl-C; --resume continues from the latest one.  --metrics appends JSON
+Ctrl-C; --resume continues from the latest one, the port's or the JAX
+package's (an orbax step, read without JAX; later saves go beside it and
+never replace it).  --metrics appends JSON
 records and --tensorboard writes TensorBoard scalars.
 
 Data-parallel training over more than one rank (one process per card):
@@ -124,8 +126,10 @@ def _train(args, device: torch.device, rank: int, world: int) -> int:
     plan = make_mesh_plan(config.mesh) if world > 1 else None
     trainer = Trainer(config, params, report=report, checkpointer=ckpt if lead else None,
                       mesh_plan=plan)
-    if args.resume and ckpt.latest_step() is not None:
+    restored = None
+    if args.resume and ckpt.latest() is not None:
         trainer.state = ckpt.restore(device=device)
+        restored = trainer.step
         log.info("resumed at step %d", trainer.step)
 
     if args.data:
@@ -151,7 +155,9 @@ def _train(args, device: torch.device, rank: int, world: int) -> int:
         trainer.train(train_iter, valid_iter_fn=valid_fn)
     except KeyboardInterrupt:
         log.info("interrupted: saving the checkpoint of step %d", trainer.step)
-    if lead and ckpt.latest_step() != trainer.step:
+    # The final save, unless this run already saved this step or restored
+    # it and trained no further (it may be a JAX step, which save refuses).
+    if lead and trainer.step not in (ckpt.last_saved, restored):
         ckpt.save(trainer.step, trainer.state)
     report.close()
     return 0

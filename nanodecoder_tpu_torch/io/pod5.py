@@ -3,8 +3,8 @@
 
 pod5 is the columnar successor to fast5, built from Apache Arrow IPC
 tables (pyarrow), a FlatBuffers footer (flatbuffers), and zstd-compressed
-svb16 signal (zstandard + numpy for the StreamVByte codec).  The layout,
-as published:
+svb16 signal (zstandard, imported at its first use, + numpy for the
+StreamVByte codec).  The layout, as published:
 
     [signature][section marker]
     [embedded Arrow file: signal table][padding][section marker]
@@ -45,10 +45,8 @@ try:
     import pyarrow.ipc as pa_ipc
 except ImportError:  # pragma: no cover
     pa = None
-try:
-    import zstandard as _zstd
-except ImportError:  # pragma: no cover
-    _zstd = None
+_UNLOADED = object()
+_zstd = _UNLOADED  # zstandard once vbz needs it; None where not installed
 try:
     import flatbuffers as _fb
 except ImportError:  # pragma: no cover
@@ -65,11 +63,23 @@ CONTENT_RUN_INFO_TABLE = 2
 
 
 def _require():
-    missing = [n for n, m in
-               (("pyarrow", pa), ("zstandard", _zstd), ("flatbuffers", _fb))
-               if m is None]
+    missing = [n for n, m in (("pyarrow", pa), ("flatbuffers", _fb)) if m is None]
     if missing:  # pragma: no cover
         raise RuntimeError(f"pod5 support needs {missing} (not installed)")
+
+
+def _zstandard():
+    """zstandard, imported at the first call (vbz's codec)."""
+    global _zstd
+    if _zstd is _UNLOADED:
+        try:
+            import zstandard
+        except ImportError:  # pragma: no cover
+            zstandard = None
+        _zstd = zstandard
+    if _zstd is None:
+        raise RuntimeError("pod5 signal needs zstandard (not installed)")
+    return _zstd
 
 
 # --------------------------------------------------------------------------
@@ -155,13 +165,11 @@ def svb16_decode(stream: bytes, count: int, delta: bool = True,
 
 
 def vbz_compress(signal: np.ndarray) -> bytes:
-    _require()
-    return _zstd.ZstdCompressor(level=1).compress(svb16_encode(signal))
+    return _zstandard().ZstdCompressor(level=1).compress(svb16_encode(signal))
 
 
 def vbz_decompress(blob: bytes, count: int) -> np.ndarray:
-    _require()
-    raw = _zstd.ZstdDecompressor().decompress(
+    raw = _zstandard().ZstdDecompressor().decompress(
         blob, max_output_size=2 * count + (count + 7) // 8 + 16)
     return svb16_decode(raw, count)
 

@@ -16,6 +16,14 @@ file.  It is
 rebuilt when `overlap.cpp` is newer or the compiler command changed.
 Where it cannot be built or loaded, one warning is logged and the numpy
 versions run.
+
+`zstd.cpp` is a library of its own, `libnanodecoder_zstd.so`
+(`native.zstd`): the Zstandard decoder (with its XXH64 content
+checksum) and CRC32C that reading the JAX package's orbax checkpoints
+needs (`io.ocdbt`, `io.zarr`).  It
+has no fallback: where it cannot be built or loaded, reading such a
+checkpoint raises with the compiler's stderr.  Being separate, a fault
+in it never sends the overlap scorer to its numpy version.
 """
 
 from __future__ import annotations
@@ -38,13 +46,16 @@ _lib: ctypes.CDLL | None = None
 _failed = False
 
 
-def _build_library() -> str:
-    path = os.path.join(build_cache.build_dir(), LIBRARY_NAME)
-    command = [COMPILER, *FLAGS]
-    if build_cache.stale(path, [SOURCE], command):
+def build_library(source: str, name: str, compiler: str, flags: list[str]) -> str:
+    """Build `source` into `build_cache.build_dir()/name` unless it is
+    current; its path.  Raises OSError or subprocess.SubprocessError (with
+    the compiler's stderr) where the build fails."""
+    path = os.path.join(build_cache.build_dir(), name)
+    command = [compiler, *flags]
+    if build_cache.stale(path, [source], command):
         tmp = f"{path}.{os.getpid()}.tmp"
         try:
-            subprocess.run([*command, SOURCE, "-o", tmp], check=True,
+            subprocess.run([*command, source, "-o", tmp], check=True,
                            capture_output=True, text=True, timeout=300)
         except BaseException:
             if os.path.exists(tmp):
@@ -52,6 +63,10 @@ def _build_library() -> str:
             raise
         build_cache.install(tmp, path, command)
     return path
+
+
+def _build_library() -> str:
+    return build_library(SOURCE, LIBRARY_NAME, COMPILER, FLAGS)
 
 
 def load() -> ctypes.CDLL | None:

@@ -460,26 +460,29 @@ def test_evaluate_cli_beam_matches_jax(small_ckpt, capsys, monkeypatch):
 
 @pytest.mark.parametrize("what", ["int8_cross", "ckpt_dir"])
 def test_unported_options_raise(what, small_ckpt, tmp_path, capsys, monkeypatch):
-    """A JAX checkpoint directory raises "not ported".  --int8-cross is
-    ported now: the CLI's JSON summary with it equals the JAX CLI's (the
-    small MQA model reads its int8 cross caches through the dequantize
-    fallback)."""
+    """Both options once refused are ported, and the CLI's JSON summary
+    with each equals the JAX CLI's: --int8-cross (the small MQA model reads
+    its int8 cross caches through the dequantize fallback), and a JAX
+    orbax checkpoint directory (the committed tiny fixture, read without
+    JAX).  A directory without config.json still raises."""
+    from nanodecoder_tpu.cli import evaluate as jeval
+    from nanodecoder_tpu.utils import cache
+
     from nanodecoder_tpu_torch.cli import evaluate
 
     if what == "int8_cross":
-        argv = ["--ckpt", small_ckpt, "--cpu", "--simulate", "1", "--read-bases", "200",
-                "--dtype", "float32", "--json"]
-        from nanodecoder_tpu.cli import evaluate as jeval
-        from nanodecoder_tpu.utils import cache
-
-        argv += ["--int8-cross"]
-        assert evaluate.main(argv) == 0
-        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        monkeypatch.setenv("JAX_PLATFORMS", "cpu")
-        monkeypatch.setattr(cache, "setup_compilation_cache", lambda *a: "")
-        assert jeval.main(argv) == 0
-        assert got == json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert got["n_reads"] == 1 and got["mean_length_ratio"] > 0
-        return
-    with pytest.raises(ValueError, match="not ported"):
-        evaluate.main(["--ckpt", str(tmp_path), "--cpu", "--simulate", "1"])
+        ckpt, extra = small_ckpt, ["--int8-cross"]
+    else:
+        with pytest.raises(ValueError, match="no config.json"):
+            evaluate.main(["--ckpt", str(tmp_path), "--cpu", "--simulate", "1"])
+        ckpt, extra = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                                   "jax_orbax_tiny"), []
+    argv = ["--ckpt", ckpt, "--cpu", "--simulate", "1", "--read-bases", "200",
+            "--dtype", "float32", "--json", *extra]
+    assert evaluate.main(argv) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    monkeypatch.setattr(cache, "setup_compilation_cache", lambda *a: "")
+    assert jeval.main(argv) == 0
+    assert got == json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["n_reads"] == 1 and got["mean_length_ratio"] > 0

@@ -21,7 +21,12 @@ PORT = os.path.join(REPO, "nanodecoder_tpu_torch")
 CONFIG = os.path.join(REPO, "bench_results", "config.json")
 NPZ = os.path.join(REPO, "bench_results", "flagship_params.npz")
 
-FORBIDDEN = ("jax", "jaxlib", "orbax", "optax", "nanodecoder_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "optax", "tensorstore", "zstandard", "nanodecoder_tpu")
+# The one import of these the port keeps: the pod5 writer's compressor,
+# zstandard at level 1 as the JAX package's writer (tests/test_torch_io.py
+# holds the bytes equal), imported at its first call.  Reading pod5 and
+# orbax checkpoints decodes zstd natively.
+ALLOWED = ("nanodecoder_tpu_torch/io/pod5.py: zstandard",)
 
 
 @pytest.mark.parametrize("text", [
@@ -216,7 +221,7 @@ def test_port_imports_no_jax_ast():
     assert len(_port_files()) > 20
     assert os.path.join(PORT, "ops", "attention.py") in _port_files()
     assert os.path.join(PORT, "models", "importer.py") in _port_files()
-    assert not offenders, offenders
+    assert not [o for o in offenders if o not in ALLOWED], offenders
 
 
 def test_port_imports_no_jax_subprocess():

@@ -277,8 +277,9 @@ def test_train_cli_needs_a_card_without_cpu(tmp_path, monkeypatch):
 
 def test_cli_common_reads_checkpoint_directories(tmp_path):
     """load_params_and_config takes a port checkpoint directory (its
-    latest step) and refuses a directory without one, and a JAX orbax
-    checkpoint directory."""
+    latest step) and refuses a directory without one; a directory whose
+    step is neither the port's nor the JAX package's orbax step holds no
+    checkpoint, and the JAX package's orbax directory is served."""
     from nanodecoder_tpu_torch.cli.common import load_params_and_config
     from nanodecoder_tpu_torch.models.model import init_model, named_leaves
     from nanodecoder_tpu_torch.train.checkpoint import CheckpointManager
@@ -297,12 +298,19 @@ def test_cli_common_reads_checkpoint_directories(tmp_path):
         assert torch.equal(t, want[key].detach()), key
     with pytest.raises(ValueError, match="neither an .npz"):
         load_params_and_config(str(tmp_path), "cpu")
-    orbax = tmp_path / "orbax"  # config.json and a step directory of another format
-    orbax.mkdir()
-    (orbax / "config.json").write_text(cfg.to_json())
-    (orbax / "1000").mkdir()
-    with pytest.raises(ValueError, match="orbax checkpoint directories are not ported"):
-        load_params_and_config(str(orbax), "cpu")
+    other = tmp_path / "other"  # config.json and a step directory of no known format
+    other.mkdir()
+    (other / "config.json").write_text(cfg.to_json())
+    (other / "1000").mkdir()
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        load_params_and_config(str(other), "cpu")
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                          "jax_orbax_tiny")
+    params, config = load_params_and_config(golden, "cpu")
+    with np.load(golden + "_expected.npz") as want:
+        for key, t in named_leaves(params).items():
+            w = want[f"params/{key}"]
+            assert np.array_equal(t.numpy(), w.transpose(2, 1, 0) if w.ndim == 3 else w), key
 
 
 def test_basecall_cli_serves_a_checkpoint_directory(tmp_path):
