@@ -84,14 +84,18 @@ Phases, in order; any failure exits non-zero before the last line:
      elements and each tensor within 1e-3 of its norm; the card's params
      within 1e-6 of the host's update on the card's gradients, within
      1e-4 of the CPU's, and within 1e-5 but for the elements the
-     gradients' tolerance did not hold or under 1e-6, under 10%);
-     (b) 50 steps from init_model (seed 0),
+     gradients' tolerance did not hold or under 1e-6, under 10%), then
+     one more such step at dropout 0.1 (both trainers key their masks
+     from PRNGKey(train.seed), so the card's R1 draws the CPU's masks and
+     the same gates hold); (b) 50 steps from init_model(PRNGKey(0)),
      f32, batch 32, behind prefetch_batches (every loss finite, the mean
      of the last 10 below that of the first 10; median step ms, chunks/s,
      ksamples/s, target tokens/s, peak memory, the host's wait for data;
      3 more steps under torch.profiler: device busy ms, idle share,
      kernels a step, the costliest kernels), then 10 bf16 steps
-     (finite); the training steps launch no kernel;
+     (finite), all at the committed dropout 0.1; the training steps
+     launch no kernel but R1, one launch a dropout draw (3 an encoder
+     layer, 4 a decoder layer);
      (c) validation of (a)'s params on 4 batches of 32 with K5 and
      without (K5 launches
      6 x 4 and 0, xent_sum within rtol 1e-4, n_correct within 0.1% of
@@ -129,10 +133,12 @@ Phases, in order; any failure exits non-zero before the last line:
  15. decode modes on the MQA flagship, kernel route: (a) sample mode at
      topk 1, f32, on the 3 golden reads: tokens equal to the card's
      greedy call; (b) sample at temperature 1.0, topk 5, topp 0.9, f32,
-     32-chunk batches, with the same host-made Gumbel noise on the card
-     and on the CPU (sample_decode's gumbel argument): identity >= 0.99
-     on each golden read; (c) served sample mode (bf16, int6 wire, batch
-     640) at temperature 0.3 on phase 4's first 20 reads: mean identity
+     32-chunk batches, from one sampling_seed on the card (R1 draws the
+     noise) and on the CPU (its plain version): tokens equal on each
+     golden read whose winning draws all lead by more than 1e-5 (the
+     CPU's leads recorded), identity >= 0.99 on each; (c) served sample
+     mode (bf16, int6 wire, batch 640) at temperature 0.3 on phase 4's
+     first 20 reads: mean identity
      no more than 0.02 under greedy's on the same reads, the seed again
      gives the same calls (5 reads), another seed other calls;
      temperature 1.0 printed on 10 of the reads, not gated; greedy and
@@ -147,9 +153,9 @@ Phases, in order; any failure exits non-zero before the last line:
      ms per step and at least one best score that differs from beta 0,
      and 20 served reads at mean identity >= 0.90 ("summary") and >= 0.85
      ("wu", which pays hypotheses for length; COVERAGE_MIN_IDENTITY);
-     (g) launches of each mode's own runs (ModeRuns): sample K1 and K2,
-     path_reorder K1, K2 and K3 (one a step), coverage K1 only (0 of K2
-     and K3);
+     (g) launches of each mode's own runs (ModeRuns): sample K1, K2 and
+     R1 (one a decode step), path_reorder K1, K2 and K3 (one a step),
+     coverage K1 only (0 of K2 and K3);
  16. the host tier and data parallelism: (a) the native host library
      (built with g++ in phase 1, where the run fails if it does not
      load) is loaded from the build directory; (b) its edit distance and
@@ -166,10 +172,12 @@ Phases, in order; any failure exits non-zero before the last line:
      of 640 chunks and a beam-5 batch of 256 chunks of the MQA flagship
      (f32, kernel route) sharded over the ranks against one rank's call
      (every chunk's identity >= 0.99; the count of exactly equal chunks
-     printed); two data-parallel Adam steps at batch 8 (phase 13 (a)'s
-     settings, dropout 0) each held to one rank's step from the same
-     state at phase 13 (a)'s tolerances; the gather ms of a batch and the
-     gradient all-reduce ms of a step; each rank's launches (K1, K2, K3);
+     printed); phase 13 (a)'s data-parallel Adam steps at batch 8 (two at
+     dropout 0, then one at dropout 0.1 from the flagship params, each
+     rank drawing its rows of the masks) each held to one rank's step from
+     the same state and key at phase 13 (a)'s tolerances; the gather ms of a batch and the gradient
+     all-reduce ms of a step; each rank's launches (K1, K2, K3, R1 once a
+     draw);
      then the basecall CLI at world 2 on 20 reads in 4 files: every read
      exactly once in the merged FASTQ, no shard left; (e) no child process
      left; (f) utils.profiling.device_trace writes a Chrome trace of one
@@ -192,7 +200,18 @@ Phases, in order; any failure exits non-zero before the last line:
      within 1e-6, the JAX step's files hashed unchanged; (d) with the
      zstd library unbuildable the read raises ZstdUnavailable; the
      phase's wall;
- 18. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
+ 18. prng: kernel R1 (threefry2x32 draws) against JAX's draws in the
+     committed tests/golden/jax_prng.npz (scripts/make_prng_fixture.py)
+     and its plain version on the card: bits, uniform and bernoulli at
+     2^24 draws from counter 0 and from past 2^32, exact; normal within 4
+     ulps and gumbel within 2e-6 of JAX's; then the bernoulli masks of a
+     flagship train step (32 x 256 x 256 and x 1024, 32 x 96 x 256 and x
+     1024) timed per call and device-only beside their bound (the built
+     kernel's SASS instructions per element on the SM's busiest pipe at
+     the card's SM count and highest clock, mask bytes against 3.35 TB/s),
+     the plain version and torch.rand; R1 launched on the train, sample,
+     dp_rank0 and dp_rank1 paths and on no other;
+ 19. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
      beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11; engine,
      12; train, 13 (a)-(c); train_serve, 13 (d); rnn, 14 (a)-(b);
      rnn_hybrid, 14 (c); rnn_train, 14 (d); rnn_import, 14 (e);
@@ -200,8 +219,8 @@ Phases, in order; any failure exits non-zero before the last line:
      16 (c); dp_rank0 and dp_rank1, 16 (d), counted in each rank's
      process; orbax, 17 (b) in this process), K4a's and K4b's launches of
      the scalar decode-attention kernel apart (none on phases 3-9),
-     errors, times;
- 19. the last line: {"ok": true, "device": {...}}.
+     errors, times; R1's times at the train step's mask shapes;
+ 20. the last line: {"ok": true, "device": {...}}.
 
 `--kernels` runs phase 1 and the named kernels' phase 2 only and prints
 their numbers as one JSON line; with `--root` it imports (and builds) the
@@ -1521,6 +1540,19 @@ LEARN_STEPS, BF16_STEPS, PARITY_BATCH, PROFILED_STEPS = 50, 10, 8, 3
 # moves an element, in units of lr, in its first steps (1.0013 in the
 # second, when the gradient changes between steps).
 PARITY_STEPS, PARITY_LR, ADAM_STEP = 2, 4e-5, 1.01
+DROPOUT_PARITY_STEPS = 1
+
+
+def train_draws(model) -> int:
+    """Dropout draws (R1 launches) of one training micro-step at a positive
+    rate: three a transformer encoder layer (one mask for the attention
+    output and its residual, which share a key and a flat count, one for
+    the FFN's hidden layer, one for its residual), four a transformer
+    decoder layer; the biLSTM encoder and the RNN decoder draw none."""
+    if model.dropout <= 0.0:
+        return 0
+    return (3 * model.enc_layers * (model.encoder_type == "transformer")
+            + 4 * model.dec_layers * (model.decoder_type == "transformer"))
 
 
 def train_config(batch: int, dtype: str = "float32", dropout: float | None = None,
@@ -1601,10 +1633,13 @@ def parity_gradients(step: int, gg: dict, gc: dict, label: str = "train parity")
     check(tensor[0] <= 1.0, f"{label}: the gradient of {tensor[1]} differs")
 
 
-def train_parity(dev, model=None, flat=None, label="train parity"):
-    """(a) PARITY_STEPS Adam steps at a constant lr PARITY_LR from the
+def train_parity(dev, model=None, flat=None, label="train parity", dropout=0.0,
+                 steps=PARITY_STEPS):
+    """(a) `steps` Adam steps at a constant lr PARITY_LR from the
     flagship params (or the flat params `flat` of the flagship with
-    `model`'s overrides), dropout 0, batch 8, f32 without TF32, on the card
+    `model`'s overrides), at `dropout` (0, or 0.1: each trainer keys its
+    masks from PRNGKey(train.seed), so the card draws the CPU's masks
+    with kernel R1), batch 8, f32 without TF32, on the card
     and on the CPU, each step from the card's state (params and
     optimizer; from one state to the next the card's and the CPU's
     would part wherever Adam's first steps, about lr whatever a
@@ -1624,11 +1659,11 @@ def train_parity(dev, model=None, flat=None, label="train parity"):
 
     from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy
 
-    cfg = train_config(PARITY_BATCH, dropout=0.0, model=model)
+    cfg = train_config(PARITY_BATCH, dropout=dropout, model=model)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, optimizer="adam", lr_schedule="constant", learning_rate=PARITY_LR))
     it = synthetic_batches(cfg, seed=0)
-    batches = [next(it) for _ in range(PARITY_STEPS + 1)]
+    batches = [next(it) for _ in range(steps + 1)]
 
     def start(device):
         return load_params_npz(NPZ, cfg.model, device=device) if flat is None \
@@ -1638,7 +1673,7 @@ def train_parity(dev, model=None, flat=None, label="train parity"):
     replay = {k: v.requires_grad_(True) for k, v in host_leaves(card.params).items()}
     replay_opt = Optimizer(replay, cfg.train, cfg.model.d_model)
     t0 = time.perf_counter()
-    for i, batch in enumerate(batches[:PARITY_STEPS]):
+    for i, batch in enumerate(batches[:steps]):
         cpu.state = card.state
         zg, zc = [], []
         with relu_inputs(zg):
@@ -1676,8 +1711,8 @@ def train_parity(dev, model=None, flat=None, label="train parity"):
               f"{held} over the elements held")
         check(n_ex < 0.1 * n_all, f"{label}: {n_ex} of {n_all} elements exempt")
         parity_gradients(i + 1, gg, gc, label)
-    print(f"{label}: {PARITY_STEPS} steps, {time.perf_counter() - t0:.1f} s with the "
-          f"CPU's steps")
+    print(f"{label}: {steps} steps at dropout {dropout}, {time.perf_counter() - t0:.1f} s "
+          f"with the CPU's steps")
     return card, batches
 
 
@@ -1721,10 +1756,11 @@ def train_learning(dev):
     rates, peak memory and the host's wait for data.  Then BF16_STEPS
     steps in bf16 (losses finite).  Returns the numbers."""
     from nanodecoder_tpu_torch.models.model import init_model, params_to
+    from nanodecoder_tpu_torch.prng import PRNGKey
     from nanodecoder_tpu_torch.train.data import prefetch_batches, synthetic_batches
 
     cfg = train_config(32)
-    trainer = quiet_trainer(cfg, params_to(init_model(torch.Generator().manual_seed(0),
+    trainer = quiet_trainer(cfg, params_to(init_model(PRNGKey(0),
                                                       cfg.model), dev))
     it = prefetch_batches(synthetic_batches(cfg, seed=cfg.train.seed))
     losses, step_ms, waits, tokens = [], [], [], []
@@ -1761,7 +1797,7 @@ def train_learning(dev):
     check(last < first, f"train: loss did not fall ({first} -> {last})")
 
     bf_cfg = train_config(32, "bfloat16")
-    bf = quiet_trainer(bf_cfg, params_to(init_model(torch.Generator().manual_seed(0),
+    bf = quiet_trainer(bf_cfg, params_to(init_model(PRNGKey(0),
                                                     bf_cfg.model), dev))
     bf_it = synthetic_batches(bf_cfg, seed=1)
     bf_losses, bf_ms = [], []
@@ -1839,12 +1875,13 @@ def train_checkpoint_serve(card, batches, dev, tmp: str, phase4: dict) -> float:
     first 20 reads of phase 4 (mean identity >= 0.90).  Returns the
     identity."""
     from nanodecoder_tpu_torch.models.model import init_model, params_to
+    from nanodecoder_tpu_torch.prng import PRNGKey
     from nanodecoder_tpu_torch.train.checkpoint import CheckpointManager
 
     ckpt = CheckpointManager(os.path.join(tmp, "ck"), card.config)
     ckpt.save(card.step, card.state)
     fresh = quiet_trainer(card.config, params_to(init_model(
-        torch.Generator().manual_seed(1), card.config.model), dev))
+        PRNGKey(1), card.config.model), dev))
     fresh.state = ckpt.restore(device=dev)
     restored = max_param_diff(fresh.params, card.params)
     deterministic = torch.backends.cudnn.deterministic
@@ -1914,15 +1951,24 @@ def phase_train(dev, reset, counts, phase4: dict, root: str) -> tuple[dict, dict
     print("train: flagship width, committed train section, overrides "
           + ", ".join(f"{k} {v}" for k, v in TRAIN_OVERRIDES.items())
           + f"; use_pallas true; parity batch {PARITY_BATCH} dropout 0 adam constant lr "
-          f"{PARITY_LR:.0e}; learning batch "
-          f"32 {LEARN_STEPS} f32 steps + {BF16_STEPS} bf16 steps")
+          f"{PARITY_LR:.0e}, then {DROPOUT_PARITY_STEPS} at dropout 0.1; learning batch "
+          f"32 {LEARN_STEPS} f32 steps + {BF16_STEPS} bf16 steps at dropout "
+          f"{train_config(32).model.dropout}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         reset()
         card, batches = train_parity(dev)
+        train_parity(dev, label="train parity, dropout 0.1", dropout=0.1,
+                     steps=DROPOUT_PARITY_STEPS)
         numbers = train_learning(dev)
-        stepped = counts()  # the training steps launch no kernel
-        check(all(n == 0 for n in stepped.values()), f"training steps launched {stepped}")
+        # The training steps launch no kernel but R1, once a dropout draw.
+        stepped = counts()
+        want = train_draws(train_config(32).model) * (
+            DROPOUT_PARITY_STEPS + LEARN_STEPS + PROFILED_STEPS + BF16_STEPS)
+        print(f"training steps: R1 launched {stepped['R1']} times ({want} expected: "
+              f"{train_draws(train_config(32).model)} dropout draws a step)")
+        check(stepped["R1"] == want and all(n == 0 for k, n in stepped.items() if k != "R1"),
+              f"training steps launched {stepped}, expected R1 {want} and nothing else")
         numbers.update(train_validation(card.params, dev, reset, counts))
         launches = {k: n + stepped[k] for k, n in numbers.pop("launches").items()}
         reset()
@@ -2074,12 +2120,13 @@ def rnn_train(dev) -> dict:
     steps from init_model at batch 32 with the committed train section
     (losses finite; median step ms by CUDA events, peak memory)."""
     from nanodecoder_tpu_torch.models.model import init_model, params_to
+    from nanodecoder_tpu_torch.prng import PRNGKey
     from nanodecoder_tpu_torch.train.data import synthetic_batches
 
     cfg = train_config(PARITY_BATCH, dropout=0.0, model=RNN_MODEL)
     train_parity(dev, RNN_MODEL, rnn_flat(cfg), "rnn train parity")
     cfg = train_config(32, model=RNN_MODEL)
-    trainer = quiet_trainer(cfg, params_to(init_model(torch.Generator().manual_seed(0),
+    trainer = quiet_trainer(cfg, params_to(init_model(PRNGKey(0),
                                                       cfg.model), dev))
     it = synthetic_batches(cfg, seed=cfg.train.seed)
     losses, step_ms = [], []
@@ -2317,27 +2364,54 @@ COVERAGE_BETA = 0.2
 COVERAGE_MIN_IDENTITY = {"wu": 0.85, "summary": 0.90}
 
 
-def host_gumbel(seed: int):
-    """gumbel(t, shape) for sample_decode: Gumbel noise made on the host
-    from numpy (float64, then f32; finite), the same for every device."""
-    def noise(t: int, shape) -> torch.Tensor:
-        u = np.random.default_rng([seed, t]).uniform(np.finfo(np.float64).tiny, 1.0, shape)
-        return torch.from_numpy((-np.log(-np.log(u))).astype(np.float32))
-    return noise
+SAMPLE_LEAD = 1e-5  # a winning draw's lead above which card and CPU must agree
 
 
 @contextlib.contextmanager
-def fed_noise(noise):
-    """Translator's sample mode with `noise` in place of its generators'
-    draws (sample_decode's gumbel argument), for this block."""
-    from nanodecoder_tpu_torch.decode import translator
+def sample_draws(store: list):
+    """While active, record every draw of the sampler (on the CPU: a
+    record on the card would add R1 launches): (its key, the lead of the
+    winning noisy score over the runner-up in each row, the drawn
+    tokens)."""
+    from nanodecoder_tpu_torch import prng
 
-    saved = translator.sample_decode
-    translator.sample_decode = lambda *a, **k: saved(*a, gumbel=noise, **k)
+    real = prng.categorical
+
+    def categorical(key, logits, row0=0):
+        out = real(key, logits, row0=row0)
+        noisy = logits + prng.gumbel(key, logits.shape, device=logits.device,
+                                     offset=row0 * logits.shape[-1])
+        top2 = torch.topk(noisy, 2, dim=-1).values
+        store.append((tuple(int(w) for w in key), (top2[:, 0] - top2[:, 1]).cpu().numpy(),
+                      out.cpu().numpy()))
+        return out
+    prng.categorical = categorical
     try:
         yield
     finally:
-        translator.sample_decode = saved
+        prng.categorical = real
+
+
+def least_live_lead(draws: list, batch_keys) -> float:
+    """The least lead of a winning draw over the rows still live (no EOS
+    drawn before) in every step of the batches keyed by batch_keys (step t
+    of batch b draws with fold_in(batch_keys[b], t))."""
+    from nanodecoder_tpu_torch import prng
+    from nanodecoder_tpu_torch.vocab import EOS_ID
+
+    index = {tuple(int(w) for w in prng.fold_in(k, t)): (b, t)
+             for b, k in enumerate(batch_keys) for t in range(256)}
+    live, least = {}, math.inf
+    for key, lead, chosen in draws:
+        if key not in index:
+            continue
+        b, t = index[key]
+        if t == 0:
+            live[b] = np.ones(len(lead), bool)
+        if live[b].any():
+            least = min(least, float(lead[live[b]].min()))
+        live[b] &= chosen != EOS_ID
+    return least
 
 
 class ModeRuns:
@@ -2410,18 +2484,36 @@ def modes_sample(params, run, phase4: dict, numbers: dict) -> None:
               f"sample topk 1: {rid} tokens differ from the greedy call")
     print("sample f32 topk 1: the 3 golden reads' tokens equal the card's greedy call")
 
-    # (b) The same host-made noise on the card and on the CPU.
+    # (b) One sampling_seed on the card (R1 draws the noise) and on the CPU
+    # (the plain version): the same threefry noise, so the tokens are equal
+    # wherever every winning draw of a read leads by more than SAMPLE_LEAD.
+    from nanodecoder_tpu_torch import prng
+
     rich = load_config("float32", "float32", 32, mode="sample", temperature=1.0,
-                       sampling_topk=5, sampling_topp=0.9)
-    with fed_noise(host_gumbel(SAMPLE_SEEDS[0])):
-        card = run(lambda made: golden_calls(made, rich))
-        cpu = Translator(params, rich, device="cpu")
-        ref = [call_read_chunks(cpu, sig)[0] for _rid, sig in reads]
-    idents = [read_identity(c[0], r) for c, r in zip(card, ref)]
-    print("sample f32 T 1.0 topk 5 topp 0.9, host noise: card vs CPU identity "
+                       sampling_topk=5, sampling_topp=0.9, sampling_seed=SAMPLE_SEEDS[0])
+    card = run(lambda made: golden_calls(made, rich))
+    cpu = Translator(params, rich, device="cpu")
+    ref, leads = [], []
+    for _rid, sig in reads:
+        draws, first = [], cpu.sample_batches
+        with sample_draws(draws):
+            ref.append(call_read_chunks(cpu, sig))
+        base = prng.PRNGKey(SAMPLE_SEEDS[0])
+        leads.append(least_live_lead(draws, [prng.fold_in(base, b) for b in
+                                             range(first, cpu.sample_batches)]))
+    idents = [read_identity(c[0], r[0]) for c, r in zip(card, ref)]
+    same = [np.array_equal(c[2], r[2]) and np.array_equal(c[3], r[3])
+            for c, r in zip(card, ref)]
+    print("sample f32 T 1.0 topk 5 topp 0.9, sampling_seed "
+          f"{SAMPLE_SEEDS[0]} on each side: card vs CPU identity "
           + ", ".join(f"{x:.4f}" for x in idents)
-          + f" ({sum(c[0] == r for c, r in zip(card, ref))}/3 exact)")
-    check(min(idents) >= 0.99, f"sample card vs CPU: identity {min(idents)} below 0.99")
+          + f", tokens equal on {sum(same)}/3 reads; the least lead of a winning draw a "
+          "read " + ", ".join(f"{x:.2e}" for x in leads))
+    for (rid, _s), ident, eq, lead in zip(reads, idents, same, leads):
+        if lead > SAMPLE_LEAD:
+            check(eq, f"sample card vs CPU: {rid} tokens differ although every draw "
+                  f"leads by {lead:.2e} > {SAMPLE_LEAD}")
+        check(ident >= 0.99, f"sample card vs CPU: {rid} identity {ident} below 0.99")
 
     # (c) Served sample mode on phase 4's first 20 reads.
     sim = simulated_reads(20)
@@ -2584,7 +2676,7 @@ def phase_modes(params, reset, counts, expect, phase4: dict) -> tuple[dict, dict
     sample = ModeRuns(reset, counts)
     modes_sample(params, sample, phase4, numbers)
     expect("sample", sample.launches, K1=enc_layers * sample.batches, K3=0, K4a=0, K4b=0,
-           K5=0)
+           K5=0, R1=sample.steps)
     check(sample.launches["K2"] >= sample.steps > 0,
           f"sample path: K2 launched {sample.launches['K2']} times for {sample.steps} "
           f"decode steps")
@@ -2629,11 +2721,12 @@ def kernel_wrappers() -> dict:
     from nanodecoder_tpu_torch.ops.cache_update import write_cache_block
     from nanodecoder_tpu_torch.ops.encoder_attention import (
         flash_encoder_attention, flash_encoder_attention_nld, flash_encoder_attention_qkv)
+    from nanodecoder_tpu_torch.ops.threefry import threefry_draw
 
     return {"K1": flash_encoder_attention_qkv, "K2": write_cache_block,
             "K3": beam_advance, "K4a": decode_attention,
             "K4b": decode_attention_grouped, "K5": flash_encoder_attention_nld,
-            "K6": flash_encoder_attention, "K7": beam_topk}
+            "K6": flash_encoder_attention, "K7": beam_topk, "R1": threefry_draw}
 
 
 def reset_launches(wrappers: dict) -> None:
@@ -2908,8 +3001,9 @@ def probe_collectives(dev) -> dict:
 def dp_rank(rank: int, world: int, work: str, dev: torch.device) -> dict:
     """A rank of (d): the MQA flagship (f32, float32 wire, kernel route)
     decoding a greedy batch of 640 chunks and a beam-5 batch of 256 chunks
-    sharded over the ranks, then two data-parallel Adam steps at batch 8
-    (phase 13 (a)'s settings, dropout 0).  Rank 0 also runs each on its own,
+    sharded over the ranks, then `dp_train`'s data-parallel Adam steps at
+    batch 8 (at dropout 0.1, each rank draws its rows of the global masks
+    with R1).  Rank 0 also runs each on its own,
     unsharded (one rank's call): every chunk's identity to it >= 0.99 (the
     count of exactly equal chunks reported; cuBLAS tiles the half batch
     otherwise), and each train step from the same state held to phase 13
@@ -2970,57 +3064,74 @@ def dp_rank(rank: int, world: int, work: str, dev: torch.device) -> dict:
             out[f"{name}_min_identity"] = min(idents)
             check(len(a) == len(b) == len(wire) and min(idents) >= 0.99,
                   f"{name}: sharded vs one rank's call, min chunk identity {min(idents)}")
-    out.update(dp_train(rank, plan, dev))
+    out.update(dp_train(rank, plan, dev, wrappers))
+    out["launches"]["R1"] += out["dp_train_r1"]
     return out
 
 
-def dp_train(rank: int, plan, dev) -> dict:
-    """(d)'s two data-parallel Adam steps; on rank 0 each against one
-    rank's step from the same state (phase 13 (a)'s gates)."""
+def dp_train(rank: int, plan, dev, wrappers: dict) -> dict:
+    """(d)'s data-parallel Adam steps, phase 13 (a)'s parity steps over the
+    ranks: PARITY_STEPS at dropout 0 from the flagship params, then
+    DROPOUT_PARITY_STEPS from the flagship params at dropout 0.1, where
+    each rank draws its rows of the global masks with R1 (its launches
+    counted); on rank 0 each step held to one rank's step from the same
+    state and key at (a)'s gates.  (a) holds no second step at dropout
+    0.1, and neither does this: at this width that step's gradients part
+    card from CPU, and one rank from two, through a ReLU input within
+    rounding of 0 (PERF.md, section 7)."""
     from nanodecoder_tpu_torch.train.checkpoint import load_params_npz
     from nanodecoder_tpu_torch.train.data import synthetic_batches
     from nanodecoder_tpu_torch.train.trainer import Trainer
     from nanodecoder_tpu_torch.utils.report import ReportManager
 
-    cfg = train_config(PARITY_BATCH, dropout=0.0)
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, optimizer="adam", lr_schedule="constant", learning_rate=PARITY_LR))
-    it = synthetic_batches(cfg, seed=0)
-    batches = [next(it) for _ in range(PARITY_STEPS)]
-    dp = Trainer(cfg, load_params_npz(NPZ, cfg.model, device=dev),
-                 report=ReportManager(report_every=10 ** 9), mesh_plan=plan)
-    ref = quiet_trainer(cfg, load_params_npz(NPZ, cfg.model, device=dev)) if rank == 0 \
-        else None
-    out = {"train_steps": []}
-    for i, batch in enumerate(batches):
-        if ref is not None:
-            ref.state = dp.state
-        md = dp.train_step(batch)
-        if ref is None:
-            continue
-        mr = ref.train_step(batch)
-        ld, lr_ = float(md["loss_sum"]), float(mr["loss_sum"])
-        gd, gr = host_leaves(dp.params, grad=True), host_leaves(ref.params, grad=True)
-        pd, pr = host_leaves(dp.params), host_leaves(ref.params)
-        every = max(float((pd[k] - pr[k]).abs().max()) for k in pr)
-        held, n_ex, n_all = 0.0, 0, 0
-        for k, c in gr.items():
-            d = (gd[k] - c).abs()
-            lo, hi = torch.minimum(gd[k].abs(), c.abs()), torch.maximum(gd[k].abs(), c.abs())
-            exempt = ((lo < 1e-6) & (hi > 0)) | (d > 1e-6 + 1e-4 * c.abs())
-            held = max(held, float((pd[k] - pr[k]).abs().masked_fill(exempt, 0).max()))
-            n_ex, n_all = n_ex + int(exempt.sum()), n_all + c.numel()
-        step = {"loss_sum": ld, "loss_sum_one_rank": lr_, "tokens": int(md["n_tokens"]),
-                "max_param_diff": every, "held_param_diff": held,
-                "exempt_share": n_ex / n_all}
-        out["train_steps"].append(step)
-        print(f"dp train step {i + 1}: {step}")
-        check(int(md["n_tokens"]) == int(mr["n_tokens"]), "dp train: token counts")
-        check(abs(ld - lr_) <= 1e-4 * abs(lr_), f"dp train: loss {ld} vs {lr_}")
-        check(every <= 1e-4 and held <= 1e-5 and n_ex < 0.1 * n_all,
-              f"dp train: params differ by {every}, {held} over the elements held, "
-              f"{n_ex} of {n_all} exempt")
-        parity_gradients(i + 1, gd, gr, "dp train")
+    out = {"train_steps": [], "dp_train_r1": 0}
+    want = 0
+    for dropout, steps in ((0.0, PARITY_STEPS), (0.1, DROPOUT_PARITY_STEPS)):
+        cfg = train_config(PARITY_BATCH, dropout=dropout)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, optimizer="adam", lr_schedule="constant", learning_rate=PARITY_LR))
+        it = synthetic_batches(cfg, seed=0)
+        batches = [next(it) for _ in range(steps)]
+        want += steps * len(batches[0]["signal"]) * train_draws(cfg.model)
+        dp = Trainer(cfg, load_params_npz(NPZ, cfg.model, device=dev),
+                     report=ReportManager(report_every=10 ** 9), mesh_plan=plan)
+        ref = quiet_trainer(cfg, load_params_npz(NPZ, cfg.model, device=dev)) \
+            if rank == 0 else None
+        for i, batch in enumerate(batches):
+            if ref is not None:
+                ref.state = dp.state
+            before = wrappers["R1"].launches
+            md = dp.train_step(batch)
+            out["dp_train_r1"] += wrappers["R1"].launches - before
+            if ref is None:
+                continue
+            mr = ref.train_step(batch)
+            ld, lr_ = float(md["loss_sum"]), float(mr["loss_sum"])
+            gd, gr = host_leaves(dp.params, grad=True), host_leaves(ref.params, grad=True)
+            pd, pr = host_leaves(dp.params), host_leaves(ref.params)
+            every = max(float((pd[k] - pr[k]).abs().max()) for k in pr)
+            held, n_ex, n_all = 0.0, 0, 0
+            for k, c in gr.items():
+                d = (gd[k] - c).abs()
+                lo = torch.minimum(gd[k].abs(), c.abs())
+                hi = torch.maximum(gd[k].abs(), c.abs())
+                exempt = ((lo < 1e-6) & (hi > 0)) | (d > 1e-6 + 1e-4 * c.abs())
+                held = max(held, float((pd[k] - pr[k]).abs().masked_fill(exempt, 0).max()))
+                n_ex, n_all = n_ex + int(exempt.sum()), n_all + c.numel()
+            step = {"dropout": dropout, "loss_sum": ld, "loss_sum_one_rank": lr_,
+                    "tokens": int(md["n_tokens"]), "max_param_diff": every,
+                    "held_param_diff": held, "exempt_share": n_ex / n_all}
+            out["train_steps"].append(step)
+            label = f"dp train, dropout {dropout}"
+            print(f"{label} step {i + 1}: {step}")
+            check(int(md["n_tokens"]) == int(mr["n_tokens"]), f"{label}: token counts")
+            check(abs(ld - lr_) <= 1e-4 * abs(lr_), f"{label}: loss {ld} vs {lr_}")
+            check(every <= 1e-4 and held <= 1e-5 and n_ex < 0.1 * n_all,
+                  f"{label}: params differ by {every}, {held} over the elements held, "
+                  f"{n_ex} of {n_all} exempt")
+            parity_gradients(i + 1, gd, gr, label)
+    check(out["dp_train_r1"] == want > 0, f"dp train, rank {rank}: R1 launched "
+          f"{out['dp_train_r1']} times, {want} draws expected")
     out["all_reduce_ms"] = host_ms(lambda: plan.all_reduce_grads(
         dp.optimizer.params.values()), reps=5)
     out["grad_elements"] = sum(p.numel() for p in dp.optimizer.params.values())
@@ -3082,7 +3193,8 @@ def dp_two_ranks(root: str) -> tuple[dict, dict]:
                               f"{r['decode_steps'][name]} steps" for r in ranks))
         for r in ranks:
             c = r["launches"]
-            print(f"(d) rank {r['rank']} launches: K1 {c['K1']}, K2 {c['K2']}, K3 {c['K3']}; "
+            print(f"(d) rank {r['rank']} launches: K1 {c['K1']}, K2 {c['K2']}, K3 {c['K3']}, "
+                  f"R1 {c['R1']} (its train steps' dropout draws); "
                   f"gather of its {DP_GREEDY_BATCH // DP_WORLD}-row outputs "
                   f"{r['gather_ms']:.3f} ms; gradient all-reduce "
                   f"({r['grad_elements']} f32) {r['all_reduce_ms']:.3f} ms a step")
@@ -3392,6 +3504,181 @@ def phase_orbax(dev, reset, counts, root: str) -> tuple[dict, dict]:
     return launches, numbers
 
 
+# Phase 18: kernel R1 (threefry2x32 draws), which the port adds for the
+# XLA op behind jax.random: against JAX's draws committed in
+# tests/golden/jax_prng.npz (scripts/make_prng_fixture.py; the card's
+# machine has no JAX) and against its plain version, then timed at the
+# flagship train step's dropout-mask shapes.
+PRNG_FIXTURE = os.path.join(REPO, "tests", "golden", "jax_prng.npz")
+PRNG_N = 1 << 24
+PRNG_KEEP = 0.9  # dropout 0.1, and the fixture's bernoulli p
+# (B, T, width) of the train step's masks: the encoder's (S 256 after the
+# strided convs) of the attention output and residuals, and of the FFN's
+# hidden layer; the decoder's (T 96) likewise.
+PRNG_SHAPES = ((32, 256, 256), (32, 256, 1024), (32, 96, 256), (32, 96, 1024))
+R1_OUT_BYTES = {"bits": 4, "uniform": 4, "bernoulli": 1}
+R1_KINDS = ("bits", "uniform", "bernoulli")  # the kernel's template argument 0, 1, 2
+# R1's bound counts the instructions of the built kernel (its SASS, read with
+# the toolkit's cuobjdump) and puts each on the H100 SM's pipe that issues it,
+# with the pipe's lanes per SM per clock (the CUDA programming guide's
+# throughput table for compute capability 9.0; Nsight Compute's pipe names):
+# the ALU (integer add, logic, shifts, compares, selects) 64; the FMA pipe's
+# heavy half, the only one that runs integer multiply-adds (IMAD, which nvcc
+# also uses for plain adds and moves), 64; the whole FMA pipe (f32 add, mul,
+# FMA and IMAD) 128; and every instruction takes an issue slot, four warp
+# instructions (128 threads) an SM a clock.  Loads of constants and special
+# registers, the store and EXIT count only there.  The bound is the busiest of
+# these at the card's SM count and highest SM clock.  CUDA 12.9's build,
+# per element: bits 58 ALU, 19 IMAD, 0 f32, 88 issued; uniform 60, 19, 2,
+# 93; bernoulli 61, 19, 1, 93: bound by the ALU (61 / 64 clocks an element
+# an SM, where the 77 integer operations of the source would take 77 / 64).
+SASS_ALU = {"IADD3", "LOP3", "LOP", "SHF", "LEA", "ISETP", "FSETP", "FMNMX", "IMNMX",
+            "SEL", "FSEL", "PRMT", "MOV", "PLOP3", "BMSK", "SGXT"}
+SASS_IMAD = {"IMAD", "IMUL"}
+SASS_F32 = {"FFMA", "FADD", "FMUL"}
+SASS_BRANCH = {"BRA", "BRX", "JMP", "JMX", "CALL", "RET", "BSSY", "BSYNC", "BREAK",
+               "WARPSYNC"}
+PIPE_LANES = {"alu": 64, "imad": 64, "fma": 128, "issue": 128}
+NORMAL_ULPS, GUMBEL_ATOL = 4, 2e-6
+
+
+def r1_sass_counts() -> dict:
+    """r1_sass_pipes of the built library's SASS."""
+    from nanodecoder_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", _build.library()], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:500]}")
+    return r1_sass_pipes(res.stdout)
+
+
+def r1_sass_pipes(sass: str) -> dict:
+    """Per element, R1's instructions on each pipe (PIPE_LANES) in each
+    kind's instance of `sass` (cuobjdump -sass): every instruction up to
+    the last EXIT, which each thread that draws runs once (the kernel is
+    straight-line: a branch fails the check)."""
+    counts = {}
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
+                                 sass, re.S):
+        m = re.search(r"threefry_kernelILi(\d)E", name)
+        if not m:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+        ops = ops[:len(ops) - ops[::-1].index("EXIT")]
+        branches = sorted(set(ops) & SASS_BRANCH)
+        check(not branches, f"R1's SASS ({name}) branches ({branches}): its bound "
+              "counts a straight-line kernel")
+        imad = sum(op in SASS_IMAD for op in ops)
+        counts[R1_KINDS[int(m.group(1))]] = {
+            "alu": sum(op in SASS_ALU for op in ops), "imad": imad,
+            "fma": imad + sum(op in SASS_F32 for op in ops), "issue": len(ops)}
+    check(set(counts) == set(R1_KINDS), f"R1's SASS: instances {sorted(counts)}")
+    return counts
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "--id=0"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return float(res.stdout.split()[0]) * 1e6
+
+
+def r1_bound(n: int, kind: str, sass: dict, sm_per_s: float) -> tuple[float, str]:
+    """The least time of n draws: the output written once against the
+    memory rate, the busiest pipe's instructions (r1_sass_counts) against
+    its lanes at `sm_per_s` SM clocks a second (SMs x clock)."""
+    t_bytes = n * R1_OUT_BYTES[kind] / HBM_BYTES_PER_S * 1e3
+    clocks = max(c / PIPE_LANES[pipe] for pipe, c in sass[kind].items())
+    t_ops = n * clocks / sm_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_ulps(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.astype(np.float32).view(np.int32).astype(np.int64)
+                      - b.astype(np.float32).view(np.int32)).max())
+
+
+def phase_prng(dev) -> dict:
+    """Phase 18: (a) R1's bits, uniform (the fixture's glorot range) and
+    bernoulli (p 0.9) at 2^24 draws from counter 0 and from the fixture's
+    offset past 2^32, each equal to its plain version on the card and its
+    head equal to JAX's draws; normal within 4 ulps and gumbel within
+    2e-6 of JAX's; (b) bernoulli at each train-step mask shape: the
+    kernel's time per call and device-only (CUDA graph), the plain
+    version's, torch.rand's for as many floats (a yardstick: another
+    function), the bound.  Returns the numbers."""
+    from nanodecoder_tpu_torch import prng
+    from nanodecoder_tpu_torch.ops.threefry import threefry_draw, threefry_draw_plain
+
+    with np.load(PRNG_FIXTURE) as f:
+        saved = {k: f[k] for k in f.files}
+    key, off = saved["key"], int(saved["offset"])
+    lim = math.sqrt(6.0 / (256 + 1024))  # the fixture's uniform range
+    kinds = {"bits": {}, "uniform": {"lo": -lim, "hi": lim}, "bernoulli": {"p": PRNG_KEEP}}
+    worst_ulps, worst_gap = 0, 0.0
+    for pre, offset in (("", 0), ("off_", off)):
+        for kind, kw in kinds.items():
+            got = threefry_draw(key, PRNG_N, kind, offset=offset, device=dev, **kw)
+            plain = threefry_draw_plain(key, PRNG_N, kind, offset=offset, device=dev, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"R1 {kind} at offset {offset}: the kernel and "
+                  f"its plain version differ in {int((got != plain).sum())} of {PRNG_N}")
+            want = saved[pre + kind]
+            head = got[:len(want)].cpu().numpy()
+            check(np.array_equal(head.view(np.uint32) if kind == "bits" else head, want),
+                  f"R1 {kind} at offset {offset}: not JAX's draws")
+            del got, plain
+        n = len(saved[pre + "normal"])
+        ulps = f32_ulps(prng.normal(key, (n,), device=dev, offset=offset).cpu().numpy(),
+                        saved[pre + "normal"])
+        gap = float(np.abs(prng.gumbel(key, (n,), device=dev, offset=offset).cpu().numpy()
+                           - saved[pre + "gumbel"]).max())
+        worst_ulps, worst_gap = max(worst_ulps, ulps), max(worst_gap, gap)
+    print(f"R1: bits, uniform and bernoulli at 2^24 draws from counter 0 and from "
+          f"{off} (past 2^32): equal to the plain version on the card and to JAX's "
+          f"draws; normal within {worst_ulps} ulps, gumbel within {worst_gap:.2e} of JAX's")
+    check(worst_ulps <= NORMAL_ULPS, f"R1 normal: {worst_ulps} ulps from JAX's")
+    check(worst_gap <= GUMBEL_ATOL, f"R1 gumbel: {worst_gap} from JAX's")
+
+    sass = r1_sass_counts()
+    sm_per_s = torch.cuda.get_device_properties(dev).multi_processor_count * sm_clock_hz()
+    print(f"R1's SASS per element (pipe: instructions): {sass}; "
+          f"{sm_per_s / 1e9:.1f} G SM clocks a second")
+    shapes = {}
+    for shape in PRNG_SHAPES:
+        n = math.prod(shape)
+
+        def draw(n=n):
+            return threefry_draw(key, n, "bernoulli", p=PRNG_KEEP, device=dev)
+        call_ms = cuda_ms(draw)
+        device_ms = graph_ms(draw, n=20)
+        plain_ms = cuda_ms(lambda: threefry_draw_plain(key, n, "bernoulli", p=PRNG_KEEP,
+                                                       device=dev), reps=5, warmup=1)
+        rand_ms = graph_ms(lambda: torch.rand(n, device=dev), n=20)
+        bound_ms, by = r1_bound(n, "bernoulli", sass, sm_per_s)
+        shapes["x".join(map(str, shape))] = {
+            "call_ms": call_ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "torch_rand_ms": rand_ms, "bound_ms": bound_ms, "bound_by": by,
+            "bound_share": bound_ms / device_ms}
+        print(f"R1 bernoulli {shape} ({n} draws): {call_ms:.4f} ms a call, "
+              f"{device_ms:.4f} ms device-only, bound {bound_ms:.4f} ms ({by}; share "
+              f"{bound_ms / device_ms:.2f}); plain {plain_ms:.3f} ms; torch.rand of "
+              f"{n} floats {rand_ms:.4f} ms device-only (a yardstick: another function)")
+    per_step = {name: ms for name, ms in zip(
+        ("enc_d", "enc_ffn", "dec_d", "dec_ffn"),
+        (v["device_ms"] for v in shapes.values()))}
+    model = load_config("float32", "float32", 640).model
+    step_ms = (model.enc_layers * (2 * per_step["enc_d"] + per_step["enc_ffn"])
+               + model.dec_layers * (3 * per_step["dec_d"] + per_step["dec_ffn"]))
+    print(f"R1 in a flagship train step (batch 32, {train_draws(train_config(32).model)} "
+          f"draws): {step_ms:.4f} ms device-only")
+    return {"shapes": shapes, "train_step_ms": step_ms, "normal_ulps": worst_ulps,
+            "gumbel_max_abs": worst_gap, "sass": sass}
+
+
 def kernel_times(names: list[str]) -> int:
     """--kernels: phase 1 and the named kernels' phase 2 only (K4a in the
     three dtypes, K3, K2 at four widths, K7); one JSON line of their
@@ -3618,8 +3905,14 @@ def main(argv: list[str] | None = None) -> int:
         paths["orbax"], orbax_numbers = phase_orbax(dev, reset, counts, root)  # phase 17
         print("orbax numbers: " + json.dumps(orbax_numbers))
         elapsed("phase 17")
+        prng_numbers = phase_prng(dev)  # phase 18
+        elapsed("phase 18")
         check(all(c["K6"] == c["K7"] == 0 for c in paths.values()),
               "K6 or K7 launched on a serving path")
+        drawers = {"train", "sample", *(f"dp_rank{r}" for r in range(DP_WORLD))}
+        drawn = {path for path, c in paths.items() if c["R1"]}
+        check(drawn == drawers, f"R1 launched on the paths {sorted(drawn)}: training "
+              f"and sample mode ({sorted(drawers)}) draw, and no other")
         for path, c in paths.items():
             print(f"launches, {path} path: {c}")
         left = live_children()
@@ -3674,6 +3967,26 @@ def main(argv: list[str] | None = None) -> int:
               stats["K7"], "on no serving path (its only JAX caller is a test); "
               "launched only in phase 2"),
     ]
+    main_shape = prng_numbers["shapes"]["32x256x1024"]
+    kernels.append({
+        "name": "R1 threefry_draw", "route": "cuda",
+        "source": "nanodecoder_tpu_torch/csrc/threefry.cu",
+        "replaces": "jax/_src/prng.py:1184 (threefry2x32_p under jax.random, an XLA op: "
+                    "no Pallas site)",
+        "launches": sum(c["R1"] for c in paths.values()),
+        "launches_by_path": {path: c["R1"] for path, c in paths.items()},
+        "max_abs_err": 0.0, "ms": main_shape["device_ms"],
+        "call_ms": main_shape["call_ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        "library_ms": None, "torch_rand_ms": main_shape["torch_rand_ms"],
+        "shapes": prng_numbers["shapes"], "train_step_ms": prng_numbers["train_step_ms"],
+        "normal_ulps": prng_numbers["normal_ulps"],
+        "gumbel_max_abs": prng_numbers["gumbel_max_abs"],
+        "sass_per_element": prng_numbers["sass"],
+        "note": "bernoulli (p 0.9) at the (32, 256, 1024) encoder FFN mask; ms device-only; "
+                "bits, uniform and masks equal to the plain version and to JAX's (max_abs_err "
+                "0); no PyTorch call draws threefry (library_ms null; torch.rand is timed as "
+                "a yardstick)"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@
 
 Trains on the CUDA card; --cpu is the only way onto the CPU, and without
 a card and without --cpu the command fails.  Params start from
-`init_model` with `train.seed` (drawn on the CPU, so the card and the CPU
-start alike) or from --init-npz.  Batches come from preprocessed shards
+`init_model(PRNGKey(train.seed))`, the JAX package's own init (drawn on
+the CPU, so the card and the CPU start alike) or from --init-npz.  Batches come from preprocessed shards
 (--data) or from the simulator, one producer thread behind a queue or
 --data-workers seeded streams interleaved; with the simulator, the run
 validates every `valid_every` steps on 4 simulated batches (the encoder
@@ -42,6 +42,7 @@ import torch
 from nanodecoder_tpu_torch.config import Config
 from nanodecoder_tpu_torch.models.model import init_model, param_count, params_to
 from nanodecoder_tpu_torch.parallel.mesh import make_mesh_plan
+from nanodecoder_tpu_torch.prng import PRNGKey
 from nanodecoder_tpu_torch.parallel.multihost import (initialize_multihost, local_device,
                                                       shutdown_multihost)
 from nanodecoder_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz
@@ -113,8 +114,7 @@ def _train(args, device: torch.device, rank: int, world: int) -> int:
         params = load_params_npz(args.init_npz, config.model, device)
         log.info("initialized params from %s", args.init_npz)
     else:
-        params = params_to(init_model(torch.Generator().manual_seed(config.train.seed),
-                                      config.model), device)
+        params = params_to(init_model(PRNGKey(config.train.seed), config.model), device)
     log.info("model: %.2fM params on %s", param_count(params) / 1e6, device)
 
     lead = rank == 0

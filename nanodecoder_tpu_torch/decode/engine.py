@@ -17,8 +17,9 @@ port's counterpart of `nanodecoder_tpu.decode.engine`).
   * resumable: completed read ids can be skipped on restart.
 
 Greedy, beam and sample mode, as `Translator` serves them; in sample
-mode the batches are numbered for their generators in dispatch order
-(one dispatching thread), whatever the depth.
+mode the batches are numbered for their keys (fold_in(PRNGKey(
+sampling_seed), batch_no), as the JAX engine numbers them) in dispatch
+order (one dispatching thread), whatever the depth.
 
 Data-parallel decode (`mesh_plan`, a `parallel.mesh.MeshPlan`): every rank
 runs the engine on the same files and so packs the same batches; each

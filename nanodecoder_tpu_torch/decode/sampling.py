@@ -10,27 +10,27 @@ step, in this order:
   2. the min_len mask of EOS;
   3. restrict: keep the top-k tokens (k 0: all) and the top-p nucleus
      (p 0: off), renormalized;
-  4. draw: argmax(restricted log-probs + G) with Gumbel noise G, which is
-     what `jax.random.categorical` computes.
+  4. draw: `prng.categorical(fold_in(key, t), restricted log-probs)`, the
+     argmax of the log-probs plus Gumbel noise drawn as
+     `jax.random.categorical` draws it (kernel R1 on the card).
 
 One stage at max_decode_len, as the JAX package's loop (it does not
 stage); the loop runs on the host and stops once every row has emitted
 EOS.  The recorded per-token score is the chosen token's log-prob under
 the restricted distribution, in f32, as the Phred qualities read it.
 
-torch's generators cannot reproduce `jax.random`, so the sampled tokens
-differ from the JAX package's by design, and for one seed the CPU's
-generator and the card's draw differ too.  `sample_decode`'s `gumbel`
-argument lets a test feed JAX's own draws and hold the tokens to JAX's.
+The noise is the JAX package's from the same key, bit for bit up to
+the final logs (which round within about 1e-6 of XLA's), on the CPU and
+on the card alike: a token can differ from the JAX package's only where
+two candidates' noisy scores tie within that.
 """
 
 from __future__ import annotations
 
-from typing import Callable
-
 import numpy as np
 import torch
 
+from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import DecodeConfig, ModelConfig
 from nanodecoder_tpu_torch.decode.greedy import GreedyResult
 from nanodecoder_tpu_torch.models.model import decode_step, init_decode_state
@@ -59,39 +59,18 @@ def restrict_log_probs(log_probs: torch.Tensor, topk: int, topp: float) -> torch
     return torch.log_softmax(lp, dim=-1)
 
 
-def batch_generator(seed: int, batch_no: int, device: torch.device) -> torch.Generator:
-    """The generator of one dispatched batch, on `device`: seeded with the
-    first 64-bit word of numpy's SeedSequence([seed mod 2^64, batch_no]).
-    A fixed seed and batch order reproduce a run, and the batches draw
-    independently (the JAX package's fold_in(key, batch_no))."""
-    word = np.random.SeedSequence([seed % 2**64, batch_no]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(word))
-
-
-def gumbel_noise(gen: torch.Generator, shape, device: torch.device) -> torch.Tensor:
-    """Standard Gumbel noise -log(-log(U)), U uniform in [tiny, 1) (never
-    0), f32, drawn from `gen`."""
-    u = torch.empty(shape, dtype=torch.float32, device=device)
-    u.uniform_(torch.finfo(torch.float32).tiny, 1.0, generator=gen)
-    return -torch.log(-torch.log(u))
-
-
 @torch.inference_mode()
 def sample_decode(params, cfg: ModelConfig, dcfg: DecodeConfig, memory: torch.Tensor,
-                  mem_lengths: torch.Tensor, gen: torch.Generator | None = None,
-                  gumbel: Callable[[int, tuple[int, int]], torch.Tensor] | None = None
-                  ) -> GreedyResult:
+                  mem_lengths: torch.Tensor, key, row0: int = 0) -> GreedyResult:
     """Sample one hypothesis per row of the memory bank (B, S, D).
-    `params` must carry the serving fold.  The noise of step t is drawn
-    from `gen` (on the memory's device), or is gumbel(t, (B, V)) where a
-    test passes that.  Returns greedy's result fields."""
+    `params` must carry the serving fold.  Step t draws with fold_in(key,
+    t) over the (B, V) log-probs, the rows at their place row0.. in the
+    batch that the key draws for (a data-parallel rank's share), as the
+    JAX package's sample_decode does.  Returns greedy's result fields."""
     if dcfg.temperature <= 0.0:
         raise ValueError("sample mode needs temperature > 0")
-    if gumbel is None and gen is None:
-        raise ValueError("sample_decode needs a generator")
     b = memory.shape[0]
     dev = memory.device
-    v = cfg.vocab_size
     tmax = cfg.max_decode_len
     temp = float(dcfg.temperature)
     inv_temp = torch.tensor(np.float32(1.0) / np.float32(temp), device=dev)
@@ -110,8 +89,7 @@ def sample_decode(params, cfg: ModelConfig, dcfg: DecodeConfig, memory: torch.Te
         if t < dcfg.min_len:  # EOS is no legal continuation yet
             log_probs[:, EOS_ID] = NEG_INF
         lp_r = restrict_log_probs(log_probs, dcfg.sampling_topk, dcfg.sampling_topp)
-        noise = gumbel(t, (b, v)) if gumbel is not None else gumbel_noise(gen, (b, v), dev)
-        nxt = (lp_r + noise.to(dev)).argmax(dim=-1)
+        nxt = prng.categorical(prng.fold_in(key, t), lp_r, row0=row0)
         lp = lp_r.gather(1, nxt[:, None])[:, 0]
         # Finished rows keep emitting PAD with zero score.
         nxt = torch.where(finished, PAD_ID, nxt)

@@ -21,11 +21,12 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 import torch
 
+from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import Config
 from nanodecoder_tpu_torch.decode.beam import beam_decode, needs_coverage
 from nanodecoder_tpu_torch.decode.finish import stitch_read
 from nanodecoder_tpu_torch.decode.greedy import greedy_decode
-from nanodecoder_tpu_torch.decode.sampling import batch_generator, gumbel_noise, sample_decode
+from nanodecoder_tpu_torch.decode.sampling import sample_decode
 from nanodecoder_tpu_torch.device import resolve_device
 from nanodecoder_tpu_torch.io.fast5 import RawRead
 from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
@@ -57,13 +58,11 @@ class Translator:
     record: `batches` (device batches run) and `decode_steps` (decode
     steps run over all batches).
 
-    Sample mode needs temperature > 0.  Each dispatched batch draws from
-    its own generator on the device, `sampling.batch_generator(
-    sampling_seed, batch_no)` with batch_no counting the batches that
-    `decode_program` ran, from 0: a fixed seed and batch order reproduce
-    a run.  The sampled tokens differ from the JAX package's by design
-    (torch's generators cannot reproduce jax.random), and for one seed
-    the CPU's draws differ from the card's."""
+    Sample mode needs temperature > 0.  It is keyed as the JAX package's
+    Translator keys it: each dispatched batch draws with fold_in(
+    PRNGKey(sampling_seed), batch_no), batch_no counting the batches that
+    `decode_program` ran, from 0, so a fixed seed and batch order give the
+    JAX package's tokens, on the CPU and on the card alike."""
 
     def __init__(self, params: dict[str, Any], config: Config,
                  device: str | torch.device = "cuda"):
@@ -92,6 +91,7 @@ class Translator:
         self.batches = 0
         self.decode_steps = 0
         self.sample_batches = 0
+        self._sample_key = prng.PRNGKey(config.decode.sampling_seed)
 
     @staticmethod
     def _compact_d2h(tokens, lengths, lps, scores, sample_pos):
@@ -118,16 +118,17 @@ class Translator:
     def decode_program(self, wire: np.ndarray, lengths: np.ndarray, rows: slice | None = None):
         """Encode and decode one batch of wire rows on the device; the best
         hypothesis of each chunk in beam mode, with its per-token log-probs
-        and positions; in sample mode from the next batch's generator.
-        `rows` decodes only those rows of the batch (a data-parallel rank's
-        share, `parallel.mesh.MeshPlan.shard_decode_fn`); sample mode then
-        draws the whole batch's noise and keeps these rows', so each row
-        samples as it does in the whole batch.  Returns the compact device
+        and positions; in sample mode with the next batch's key.  `rows`
+        decodes only those rows of the batch (a data-parallel rank's share,
+        `parallel.mesh.MeshPlan.shard_decode_fn`); sample mode then draws
+        these rows' noise at their place in the batch, so each row samples
+        as it does in the whole batch.  Returns the compact device
         tensors of `_compact_d2h`: (tokens int16, lengths, log-probs f16,
         scores, sample positions int16).  The streaming engine runs it too."""
         cfg = self.config.model
-        n_rows = len(wire)
+        row0 = 0
         if rows is not None:
+            row0 = rows.start or 0
             wire, lengths = wire[rows], lengths[rows]
         if self.config.decode.mode == "beam":
             res = self._beam(wire, lengths)
@@ -136,14 +137,10 @@ class Translator:
                 res.scores[:, 0], res.attn_pos[:, 0])
         else:
             if self.config.decode.mode == "sample":
-                gen = batch_generator(self.config.decode.sampling_seed,
-                                      self.sample_batches, self.device)
+                key = prng.fold_in(self._sample_key, self.sample_batches)
                 self.sample_batches += 1
-                whole_batch = {} if rows is None else {"gumbel": (
-                    lambda _t, shape: gumbel_noise(gen, (n_rows, shape[1]),
-                                                   self.device)[rows])}
                 res = sample_decode(self.params, cfg, self.config.decode,
-                                    *self._encode(wire, lengths), gen, **whole_batch)
+                                    *self._encode(wire, lengths), key, row0)
             else:
                 res = greedy_decode(self.params, cfg, *self._encode(wire, lengths),
                                     min_len=self.config.decode.min_len)

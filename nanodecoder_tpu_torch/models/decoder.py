@@ -52,6 +52,7 @@ from typing import Any
 
 import torch
 
+from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import ModelConfig
 from nanodecoder_tpu_torch.models import modules as nn
 from nanodecoder_tpu_torch.ops.attention import (decode_attention,
@@ -61,27 +62,31 @@ from nanodecoder_tpu_torch.ops.attention import (decode_attention,
 from nanodecoder_tpu_torch.ops.cache_update import BLOCK, write_cache_block
 
 
-def init_transformer_decoder(gen: torch.Generator, cfg: ModelConfig):
-    d, dev = cfg.d_model, gen.device
-    layers = [{"ln1": nn.init_layer_norm(d, dev),
-               "self_attn": nn.init_mha(gen, d, cfg.dec_heads, kv_heads=cfg.dec_kv),
-               "ln2": nn.init_layer_norm(d, dev),
-               "cross_attn": nn.init_mha(gen, d, cfg.dec_heads, kv_heads=cfg.dec_kv),
-               "ln3": nn.init_layer_norm(d, dev),
-               "ffn": nn.init_ffn(gen, d, cfg.dec_ffn_dim)}
-              for _ in range(cfg.dec_layers)]
-    return {"layers": layers, "ln_out": nn.init_layer_norm(d, dev)}
+def init_transformer_decoder(key, cfg: ModelConfig, device: torch.device | str = "cpu"):
+    d = cfg.d_model
+    layers = []
+    for k in prng.split(key, cfg.dec_layers):
+        k1, k2, k3 = prng.split(k, 3)
+        layers.append({"ln1": nn.init_layer_norm(d, device),
+                       "self_attn": nn.init_mha(k1, d, cfg.dec_heads, cfg.dec_kv, device),
+                       "ln2": nn.init_layer_norm(d, device),
+                       "cross_attn": nn.init_mha(k2, d, cfg.dec_heads, cfg.dec_kv, device),
+                       "ln3": nn.init_layer_norm(d, device),
+                       "ffn": nn.init_ffn(k3, d, cfg.dec_ffn_dim, device)})
+    return {"layers": layers, "ln_out": nn.init_layer_norm(d, device)}
 
 
 def transformer_decoder_forced(p, cfg: ModelConfig, y: torch.Tensor,
                                memory: torch.Tensor, mem_lengths: torch.Tensor,
-                               gen: torch.Generator | None = None,
-                               train: bool = False):
+                               rng=None, train: bool = False, row0: int = 0):
     """Teacher-forced full-sequence pass; differentiable, no kernel.
     y: (B, T, D) embedded target inputs; memory: (B, S, D).  Causal self
     attention, cross attention under the memory's length mask, each with
     `dec_kv` KV heads; training drops out each residual branch and the
-    FFN's hidden layer (not the attention outputs, as in the JAX package).
+    FFN's hidden layer (not the attention outputs, as in the JAX package),
+    with per layer rng, r1, r2, r3 = split(rng, 4): r1 and r2 for the
+    attention residuals, r3 for the FFN's hidden layer and its residual.
+    `row0`: the first row of y in the global batch.
     Returns (hidden (B, T, D), the last layer's cross-attention probs
     (B, H, T, S) f32, still on the graph)."""
     t, s = y.shape[1], memory.shape[1]
@@ -90,16 +95,19 @@ def transformer_decoder_forced(p, cfg: ModelConfig, y: torch.Tensor,
     rate = cfg.dropout
     probs = None
     for layer in p["layers"]:
+        r1 = r2 = r3 = None
+        if train and rng is not None:
+            rng, r1, r2, r3 = prng.split(rng, 4)
         h = nn.layer_norm(layer["ln1"], y)
         a, _ = nn.mha(layer["self_attn"], cfg.dec_heads, h, h, self_mask,
                       kv_heads=cfg.dec_kv)
-        y = y + nn.dropout(a, rate, gen, train)
+        y = y + nn.dropout(a, rate, r1, train, row0)
         h = nn.layer_norm(layer["ln2"], y)
         a, probs = nn.mha(layer["cross_attn"], cfg.dec_heads, h, memory, cross_mask,
                           kv_heads=cfg.dec_kv)
-        y = y + nn.dropout(a, rate, gen, train)
-        f = nn.ffn(layer["ffn"], nn.layer_norm(layer["ln3"], y), rate, gen, train)
-        y = y + nn.dropout(f, rate, gen, train)
+        y = y + nn.dropout(a, rate, r2, train, row0)
+        f = nn.ffn(layer["ffn"], nn.layer_norm(layer["ln3"], y), rate, r3, train, row0)
+        y = y + nn.dropout(f, rate, r3, train, row0)
     return nn.layer_norm(p["ln_out"], y), probs
 
 
@@ -360,21 +368,26 @@ def transformer_decoder_step(p, cfg: ModelConfig, y1: torch.Tensor,
 LUONG_SCORES = ("dot", "general", "mlp")
 
 
-def init_global_attention(gen: torch.Generator, d_model: int, score: str):
+def init_global_attention(key, d_model: int, score: str,
+                          device: torch.device | str = "cpu"):
     """Luong attention params: `general` has wa (D, D), `mlp` has wq (no
     bias), wk (with bias) and va (D, 1, no bias), `dot` none of them; all
-    have wo (2D, D), with a bias only under `mlp`."""
+    have wo (2D, D), with a bias only under `mlp`.  Keys as the JAX
+    package's: wa from `key` itself, wq/wk/va from split(key, 3), wo from
+    fold_in(key, 7)."""
     if score not in LUONG_SCORES:
         raise ValueError(f"unknown attention score {score!r}")
     d = d_model
     p: dict[str, Any] = {}
     if score == "general":
-        p["wa"] = nn.init_dense(gen, d, d, use_bias=False)
+        p["wa"] = nn.init_dense(key, d, d, use_bias=False, device=device)
     elif score == "mlp":
-        p["wq"] = nn.init_dense(gen, d, d, use_bias=False)
-        p["wk"] = nn.init_dense(gen, d, d)
-        p["va"] = nn.init_dense(gen, d, 1, use_bias=False)
-    p["wo"] = nn.init_dense(gen, 2 * d, d, use_bias=score == "mlp")
+        k1, k2, k3 = prng.split(key, 3)
+        p["wq"] = nn.init_dense(k1, d, d, use_bias=False, device=device)
+        p["wk"] = nn.init_dense(k2, d, d, device=device)
+        p["va"] = nn.init_dense(k3, d, 1, use_bias=False, device=device)
+    p["wo"] = nn.init_dense(prng.fold_in(key, 7), 2 * d, d, use_bias=score == "mlp",
+                            device=device)
     return p
 
 
@@ -401,13 +414,16 @@ def global_attention(p, query: torch.Tensor, memory: torch.Tensor,
     return torch.tanh(nn.dense(p["wo"], torch.cat([ctx, query], dim=-1))), probs
 
 
-def init_rnn_decoder(gen: torch.Generator, cfg: ModelConfig):
+def init_rnn_decoder(key, cfg: ModelConfig, device: torch.device | str = "cpu"):
     """dec_layers LSTM cells of width D (the first takes [embedding ;
-    input feed], 2D wide) and the Luong attention of `rnn_attention`."""
+    input feed], 2D wide) and the Luong attention of `rnn_attention`, from
+    split(key, dec_layers + 1) (the attention takes the last key)."""
     d = cfg.d_model
-    layers = [nn.init_lstm_cell(gen, 2 * d if i == 0 else d, d)
+    keys = prng.split(key, cfg.dec_layers + 1)
+    layers = [nn.init_lstm_cell(keys[i], 2 * d if i == 0 else d, d, device)
               for i in range(cfg.dec_layers)]
-    return {"layers": layers, "attn": init_global_attention(gen, d, cfg.rnn_attention)}
+    return {"layers": layers,
+            "attn": init_global_attention(keys[-1], d, cfg.rnn_attention, device)}
 
 
 def init_rnn_state(cfg: ModelConfig, memory: torch.Tensor, mem_lengths: torch.Tensor,

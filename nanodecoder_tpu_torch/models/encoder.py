@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import ModelConfig
 from nanodecoder_tpu_torch.models import modules as nn
 from nanodecoder_tpu_torch.models.decoder import _fold_ln_dense, _ln_normalize
@@ -38,46 +39,56 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def init_conv_frontend(gen: torch.Generator, cfg: ModelConfig):
+def init_conv_frontend(key, cfg: ModelConfig, device: torch.device | str = "cpu"):
     """Conv weights drawn over the JAX package's (W, I, O) shape (its fan
-    rule) and stored as torch's (O, I, W)."""
+    rule and its draw) and stored as torch's (O, I, W)."""
+    keys = prng.split(key, len(cfg.conv_channels) + 1)
     layers = []
     in_ch = 1
-    for ch, ker in zip(cfg.conv_channels, cfg.conv_kernels):
-        w = nn.glorot(gen, (ker, in_ch, ch)).permute(2, 1, 0).contiguous()
+    for k, ch, ker in zip(keys, cfg.conv_channels, cfg.conv_kernels):
+        w = nn.glorot(k, (ker, in_ch, ch), device).permute(2, 1, 0).contiguous()
         layers.append({"w": w, "b": torch.zeros((ch,), dtype=torch.float32,
-                                                device=gen.device)})
+                                                device=device)})
         in_ch = ch
-    return {"convs": layers, "proj": nn.init_dense(gen, in_ch, cfg.d_model),
-            "ln": nn.init_layer_norm(cfg.d_model, gen.device)}
+    return {"convs": layers, "proj": nn.init_dense(keys[-1], in_ch, cfg.d_model,
+                                                   device=device),
+            "ln": nn.init_layer_norm(cfg.d_model, device)}
 
 
-def init_transformer_encoder(gen: torch.Generator, cfg: ModelConfig):
-    d, dev = cfg.d_model, gen.device
-    layers = [{"ln1": nn.init_layer_norm(d, dev),
-               "attn": nn.init_mha(gen, d, cfg.enc_heads),
-               "ln2": nn.init_layer_norm(d, dev),
-               "ffn": nn.init_ffn(gen, d, cfg.enc_ffn_dim)}
-              for _ in range(cfg.enc_layers)]
-    return {"layers": layers, "ln_out": nn.init_layer_norm(d, dev)}
+def init_transformer_encoder(key, cfg: ModelConfig, device: torch.device | str = "cpu"):
+    d = cfg.d_model
+    layers = []
+    for k in prng.split(key, cfg.enc_layers):
+        k1, k2 = prng.split(k)
+        layers.append({"ln1": nn.init_layer_norm(d, device),
+                       "attn": nn.init_mha(k1, d, cfg.enc_heads, device=device),
+                       "ln2": nn.init_layer_norm(d, device),
+                       "ffn": nn.init_ffn(k2, d, cfg.enc_ffn_dim, device)})
+    return {"layers": layers, "ln_out": nn.init_layer_norm(d, device)}
 
 
-def init_lstm_encoder(gen: torch.Generator, cfg: ModelConfig):
+def init_lstm_encoder(key, cfg: ModelConfig, device: torch.device | str = "cpu"):
     """Stacked biLSTM: per layer a fwd and a bwd cell over d_model inputs
     and a (2H, D) projection of their concatenated outputs."""
     d, hdim = cfg.d_model, cfg.lstm_hidden
-    layers = [{"fwd": init_lstm_cell(gen, d, hdim), "bwd": init_lstm_cell(gen, d, hdim),
-               "proj": nn.init_dense(gen, 2 * hdim, d)}
-              for _ in range(cfg.enc_layers)]
-    return {"layers": layers, "ln_out": nn.init_layer_norm(d, gen.device)}
+    layers = []
+    for k in prng.split(key, cfg.enc_layers):
+        kf, kb, kp = prng.split(k, 3)
+        layers.append({"fwd": init_lstm_cell(kf, d, hdim, device),
+                       "bwd": init_lstm_cell(kb, d, hdim, device),
+                       "proj": nn.init_dense(kp, 2 * hdim, d, device=device)})
+    return {"layers": layers, "ln_out": nn.init_layer_norm(d, device)}
 
 
-def init_encoder(gen: torch.Generator, cfg: ModelConfig):
+def init_encoder(key, cfg: ModelConfig, device: torch.device | str = "cpu"):
+    """Front-end and body from the first two of three keys split from
+    `key` (the third goes unused, as in the JAX package)."""
     bodies = {"transformer": init_transformer_encoder, "lstm": init_lstm_encoder}
     if cfg.encoder_type not in bodies:
         raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
-    return {"frontend": init_conv_frontend(gen, cfg),
-            "body": bodies[cfg.encoder_type](gen, cfg)}
+    k1, k2, _k3 = prng.split(key, 3)
+    return {"frontend": init_conv_frontend(k1, cfg, device),
+            "body": bodies[cfg.encoder_type](k2, cfg, device)}
 
 
 def conv_frontend(p, cfg: ModelConfig, signal: torch.Tensor,
@@ -102,19 +113,27 @@ def conv_frontend(p, cfg: ModelConfig, signal: torch.Tensor,
 
 
 def transformer_encoder(p, cfg: ModelConfig, x: torch.Tensor,
-                        enc_lengths: torch.Tensor, gen: torch.Generator | None = None,
-                        train: bool = False) -> torch.Tensor:
+                        enc_lengths: torch.Tensor, rng=None, train: bool = False,
+                        row0: int = 0) -> torch.Tensor:
     """Pre-norm transformer over the master weights.
     x: (B, T, D) in the compute dtype; returns the memory bank (B, T, D),
-    zero at padded positions.  Training (`train` with a generator) drops
-    out the attention output, each residual branch and the FFN's hidden
-    layer, drawing each layer's masks from `gen` in that order.  K5 runs
-    only for inference with `use_pallas`."""
-    valid = nn.length_mask(enc_lengths, x.shape[1])
+    zero at padded positions.  Training (`train` with a key) drops out the
+    attention output, each residual branch and the FFN's hidden layer with
+    the JAX package's keys: per layer rng, r1, r2 = split(rng, 3); r1 for
+    the attention output and its residual (the same mask, drawn once: one
+    flat count and row length), r2 for the FFN's hidden layer and its
+    residual.  `row0`: the first row of x in the global batch (a
+    data-parallel rank's).  K5 runs only for inference with `use_pallas`."""
+    b, t, d = x.shape
+    valid = nn.length_mask(enc_lengths, t)
     attn_mask = valid[:, None, None, :]
     lengths32 = enc_lengths.to(torch.int32).contiguous()
     rate = cfg.dropout
     for layer in p["layers"]:
+        r1 = r2 = m1 = None
+        if train and rng is not None:
+            rng, r1, r2 = prng.split(rng, 3)
+            m1 = nn.dropout_mask(r1, rate, (b, t, d), x.device, row0)
         h = nn.layer_norm(layer["ln1"], x)
         ap = layer["attn"]
         if cfg.use_pallas and not train:
@@ -123,10 +142,11 @@ def transformer_encoder(p, cfg: ModelConfig, x: torch.Tensor,
                                               cfg.enc_heads)
             a = nn.dense(ap["o"], ctx)
         else:
-            a, _ = nn.mha(ap, cfg.enc_heads, h, h, attn_mask, rate, gen, train)
-        x = x + nn.dropout(a, rate, gen, train)
-        f = nn.ffn(layer["ffn"], nn.layer_norm(layer["ln2"], x), rate, gen, train)
-        x = x + nn.dropout(f, rate, gen, train)
+            a, _ = nn.mha(ap, cfg.enc_heads, h, h, attn_mask, rate, r1, train,
+                          drop_mask=m1)
+        x = x + nn.dropout(a, rate, r1, train, mask=m1)
+        f = nn.ffn(layer["ffn"], nn.layer_norm(layer["ln2"], x), rate, r2, train, row0)
+        x = x + nn.dropout(f, rate, r2, train, row0)
     x = nn.layer_norm(p["ln_out"], x)
     return x * valid[:, :, None].to(x.dtype)
 
@@ -176,7 +196,7 @@ def lstm_encoder(p, x: torch.Tensor, enc_lengths: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_apply(p, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor,
-                  gen: torch.Generator | None = None, train: bool = False):
+                  rng=None, train: bool = False, row0: int = 0):
     """Unfolded encoder: conv front-end + transformer body (positional
     encoding added first) or biLSTM body (none, and no dropout).
     Returns (memory (B, T, D), enc_lengths (B,))."""
@@ -184,7 +204,7 @@ def encoder_apply(p, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tens
     if cfg.encoder_type == "lstm":
         return lstm_encoder(p["body"], x, enc_lengths), enc_lengths
     return transformer_encoder(p["body"], cfg, _add_positions(x, cfg),
-                               enc_lengths, gen, train), enc_lengths
+                               enc_lengths, rng, train, row0), enc_lengths
 
 
 def fold_encoder_lean(p_enc, cfg: ModelConfig, dtype: torch.dtype):

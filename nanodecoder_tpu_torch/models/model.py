@@ -20,6 +20,7 @@ from typing import Any
 
 import torch
 
+from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import ModelConfig
 from nanodecoder_tpu_torch.models import decoder as dec
 from nanodecoder_tpu_torch.models import modules as nn
@@ -31,10 +32,12 @@ from nanodecoder_tpu_torch.vocab import vocab_size_for
 _NOT_FOLDED = "params lack the serving fold; call prepare_serving_params first"
 
 
-def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
-    """Random float32 params on `gen`'s device: glorot-uniform weights,
-    zero biases, unit layer-norm scales, N(0, 1/d) embeddings, drawn from
-    `gen` (encoder, decoder, embedding, generator in that order)."""
+def init_model(key, cfg: ModelConfig, device: torch.device | str = "cpu") -> dict[str, Any]:
+    """Random float32 params on `device`: glorot-uniform weights, zero
+    biases, unit layer-norm scales, N(0, 1/d) embeddings, drawn from the
+    threefry `key` (`prng.PRNGKey(seed)`) split as the JAX package splits
+    it (encoder, decoder, embedding, generator), so the same seed gives the
+    JAX package's `init_model(jax.random.PRNGKey(seed))`."""
     expected = vocab_size_for(cfg.kmer_k)
     if cfg.vocab_size != expected:
         raise ValueError(
@@ -44,10 +47,11 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict[str, Any]:
     decoders = {"transformer": dec.init_transformer_decoder, "rnn": dec.init_rnn_decoder}
     if cfg.decoder_type not in decoders:
         raise ValueError(f"unknown decoder_type {cfg.decoder_type!r}")
-    return {"encoder": init_encoder(gen, cfg),
-            "decoder": decoders[cfg.decoder_type](gen, cfg),
-            "tgt_embed": nn.init_embedding(gen, cfg.vocab_size, cfg.d_model),
-            "generator": nn.init_dense(gen, cfg.d_model, cfg.vocab_size)}
+    k_enc, k_dec, k_emb, k_gen = prng.split(key, 4)
+    return {"encoder": init_encoder(k_enc, cfg, device),
+            "decoder": decoders[cfg.decoder_type](k_dec, cfg, device),
+            "tgt_embed": nn.init_embedding(k_emb, cfg.vocab_size, cfg.d_model, device),
+            "generator": nn.init_dense(k_gen, cfg.d_model, cfg.vocab_size, device=device)}
 
 
 def named_leaves(params, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -91,14 +95,16 @@ def prepare_serving_params(params: dict[str, Any], cfg: ModelConfig):
 
 
 def encode(params, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor,
-           gen: torch.Generator | None = None, train: bool = False):
+           rng=None, train: bool = False, row0: int = 0):
     """Raw signal chunk batch (B, S) -> (memory (B, T, D), enc_lengths).
     The folded lean encoder runs when the params carry it (`_enc_lean`,
     from prepare_serving_params) and this is not a training pass; else
-    the unfolded encoder over the master weights."""
+    the unfolded encoder over the master weights.  `rng` (a threefry key)
+    keys training's dropout; `row0` is the first row of this batch in the
+    global batch whose masks JAX draws (a data-parallel rank's rows)."""
     if not train and "_enc_lean" in params:
         return encoder_apply_lean(params["_enc_lean"], cfg, signal, lengths)
-    return encoder_apply(params["encoder"], cfg, signal, lengths, gen, train)
+    return encoder_apply(params["encoder"], cfg, signal, lengths, rng, train, row0)
 
 
 def init_decode_state(params, cfg: ModelConfig, memory: torch.Tensor,
@@ -167,17 +173,19 @@ def generator_log_probs(params, hidden: torch.Tensor) -> torch.Tensor:
 
 def decode_teacher_forced(params, cfg: ModelConfig, tgt_in: torch.Tensor,
                           memory: torch.Tensor, mem_lengths: torch.Tensor,
-                          gen: torch.Generator | None = None, train: bool = False):
+                          rng=None, train: bool = False, row0: int = 0):
     """Full teacher-forced decode: tgt_in (B, T) int (BOS-prefixed) ->
     (log-probs (B, T, V) f32, the last layer's cross-attention probs
-    (B, H, T, S) f32; H = 1 for the RNN decoder's Luong attention)."""
+    (B, H, T, S) f32; H = 1 for the RNN decoder's Luong attention, which
+    drops nothing out).  `rng` and `row0` as `encode`'s: the JAX package
+    passes encode and this one the same key."""
     y = _embed_tokens(params, cfg, tgt_in)
     if cfg.decoder_type == "rnn":
         hidden, attn = dec.rnn_decoder_forced(params["decoder"], cfg, y, memory,
                                               mem_lengths)
         return generator_log_probs(params, hidden), attn
     hidden, attn = dec.transformer_decoder_forced(params["decoder"], cfg, y, memory,
-                                                  mem_lengths, gen, train)
+                                                  mem_lengths, rng, train, row0)
     return generator_log_probs(params, hidden), attn
 
 

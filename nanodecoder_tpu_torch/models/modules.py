@@ -3,11 +3,12 @@
 The port's counterpart of `nanodecoder_tpu.models.modules`, with the
 same semantics:
   * params are nested dicts of float32 tensors; a dense `w` is (in, out);
-  * initializers draw from an explicit `torch.Generator` and make their
-    tensors on its device; dropout draws its masks from the caller's
-    generator (the port cannot reproduce `jax.random`'s streams, so
-    values and masks differ from the JAX package's by design, their
-    distributions do not);
+  * initializers take a threefry key (`nanodecoder_tpu_torch.prng`), split
+    it as the JAX package splits it and draw `jax.random`'s numbers from
+    it on the given device: the same seed gives the JAX package's params
+    (glorot arrays bit for bit, normal ones within a few ulps);
+  * dropout draws the JAX package's masks from the caller's key (kernel
+    R1 on the card);
   * activations run in the compute dtype, with layer-norm statistics
     and softmax in float32;
   * masks fill with -1e9, never -inf, so a row with no valid key gives
@@ -19,35 +20,33 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from nanodecoder_tpu_torch import prng
 
 NEG_INF = -1e9  # additive mask value; avoids NaN-producing -inf in softmax
 
 
-def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
-    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return u * (hi - lo) + lo
-
-
-def glorot(gen: torch.Generator, shape) -> torch.Tensor:
+def glorot(key, shape, device: torch.device | str = "cpu") -> torch.Tensor:
     """Glorot-uniform over `shape` with the JAX package's fan rule:
     fan_in, fan_out = shape[-2], shape[-1] (a (W, I, O) conv weight leaves
     the kernel width out)."""
     fan_in, fan_out = shape[-2], shape[-1]
     scale = math.sqrt(6.0 / (fan_in + fan_out))
-    return _uniform(gen, shape, -scale, scale)
+    return prng.uniform(key, shape, -scale, scale, device=device)
 
 
-def normal_init(gen: torch.Generator, shape, stddev: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32) * stddev
+def normal_init(key, shape, stddev: float, device: torch.device | str = "cpu"
+                ) -> torch.Tensor:
+    return prng.normal(key, shape, device=device) * stddev
 
 
-def init_dense(gen: torch.Generator, in_dim: int, out_dim: int,
-               use_bias: bool = True):
-    p = {"w": glorot(gen, (in_dim, out_dim))}
+def init_dense(key, in_dim: int, out_dim: int, use_bias: bool = True,
+               device: torch.device | str = "cpu"):
+    p = {"w": glorot(key, (in_dim, out_dim), device)}
     if use_bias:
-        p["b"] = torch.zeros((out_dim,), dtype=torch.float32, device=gen.device)
+        p["b"] = torch.zeros((out_dim,), dtype=torch.float32, device=device)
     return p
 
 
@@ -56,31 +55,36 @@ def init_layer_norm(dim: int, device: torch.device | str = "cpu"):
             "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
 
 
-def init_embedding(gen: torch.Generator, vocab: int, dim: int):
-    return {"table": normal_init(gen, (vocab, dim), 1.0 / math.sqrt(dim))}
+def init_embedding(key, vocab: int, dim: int, device: torch.device | str = "cpu"):
+    return {"table": normal_init(key, (vocab, dim), 1.0 / math.sqrt(dim), device)}
 
 
-def init_mha(gen: torch.Generator, d_model: int, n_heads: int,
-             kv_heads: int | None = None):
+def init_mha(key, d_model: int, n_heads: int, kv_heads: int | None = None,
+             device: torch.device | str = "cpu"):
     """q and o are (D, D); k and v project to kv_heads * head_dim (GQA/MQA
-    when kv_heads < n_heads)."""
+    when kv_heads < n_heads).  The key splits in four, one per matrix."""
     dk = d_model // n_heads * (kv_heads or n_heads)
-    return {"q": init_dense(gen, d_model, d_model), "k": init_dense(gen, d_model, dk),
-            "v": init_dense(gen, d_model, dk), "o": init_dense(gen, d_model, d_model)}
+    kq, kk, kv, ko = prng.split(key, 4)
+    return {"q": init_dense(kq, d_model, d_model, device=device),
+            "k": init_dense(kk, d_model, dk, device=device),
+            "v": init_dense(kv, d_model, dk, device=device),
+            "o": init_dense(ko, d_model, d_model, device=device)}
 
 
-def init_ffn(gen: torch.Generator, d_model: int, ffn_dim: int):
-    return {"in": init_dense(gen, d_model, ffn_dim),
-            "out": init_dense(gen, ffn_dim, d_model)}
+def init_ffn(key, d_model: int, ffn_dim: int, device: torch.device | str = "cpu"):
+    k1, k2 = prng.split(key)
+    return {"in": init_dense(k1, d_model, ffn_dim, device=device),
+            "out": init_dense(k2, ffn_dim, d_model, device=device)}
 
 
-def init_lstm_cell(gen: torch.Generator, in_dim: int, hidden: int):
+def init_lstm_cell(key, in_dim: int, hidden: int, device: torch.device | str = "cpu"):
     """One LSTM cell: wx (in, 4H), wh (H, 4H) glorot, one zero bias (4H,);
     gate order i, f, g, o.  (Here rather than in `encoder`, since both the
     biLSTM encoder and the RNN decoder use it.)"""
-    return {"wx": glorot(gen, (in_dim, 4 * hidden)),
-            "wh": glorot(gen, (hidden, 4 * hidden)),
-            "b": torch.zeros((4 * hidden,), dtype=torch.float32, device=gen.device)}
+    k1, k2 = prng.split(key)
+    return {"wx": glorot(k1, (in_dim, 4 * hidden), device),
+            "wh": glorot(k2, (hidden, 4 * hidden), device),
+            "b": torch.zeros((4 * hidden,), dtype=torch.float32, device=device)}
 
 
 def lstm_gates(gates: torch.Tensor, c: torch.Tensor):
@@ -134,17 +138,36 @@ def sinusoidal_positions(max_len: int, dim: int,
     return pe
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
-            train: bool) -> torch.Tensor:
-    """Inverted dropout: x / keep where a uniform draw from `gen` falls
-    below keep = 1 - rate, else 0.  The identity unless training with a
-    positive rate and a generator (which must lie on x's device)."""
-    if not train or rate <= 0.0 or gen is None:
+def dropout_mask(rng, rate: float, shape, device: torch.device | str,
+                 row0: int = 0) -> torch.Tensor | None:
+    """The keep mask of the JAX package's dropout, bernoulli(rng, 1 - rate,
+    shape), for a (rows, ...) tensor that holds rows row0.. of the array
+    JAX draws (a data-parallel rank's share); None where dropout does
+    nothing (no key, or rate 0).  Masks of one key are equal for any two
+    shapes of one flat count and row length, so one draw may serve both."""
+    if rng is None or rate <= 0.0:
+        return None
+    return prng.bernoulli(rng, 1.0 - rate, shape, device=device,
+                          offset=row0 * math.prod(tuple(shape)[1:]))
+
+
+def dropout(x: torch.Tensor, rate: float, rng, train: bool, row0: int = 0,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout as the JAX package's: where(keep mask, x / keep, 0)
+    with keep = 1 - rate, the mask drawn from `rng` (`dropout_mask`, or
+    `mask`, drawn so for x's flat count).  As in JAX, keep is a weakly
+    typed constant, so it is first rounded to x's dtype (bf16(0.9) is
+    0.8984375); XLA then compiles the division into a float32 multiply by
+    that constant's reciprocal.  The identity unless training with a
+    positive rate and a key."""
+    if not train or rate <= 0.0 or rng is None:
         return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device)).to(x.dtype)
+    if mask is None:
+        mask = dropout_mask(rng, rate, x.shape, x.device, row0)
+    keep = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    inv_keep = float(np.float32(1.0) / np.float32(keep))
+    return torch.where(mask.reshape(x.shape), x * inv_keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -195,17 +218,18 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mha(p, n_heads: int, query: torch.Tensor, key_value: torch.Tensor,
         mask: torch.Tensor | None = None, dropout_rate: float = 0.0,
-        gen: torch.Generator | None = None, train: bool = False,
-        kv_heads: int | None = None):
+        rng=None, train: bool = False, kv_heads: int | None = None,
+        drop_mask: torch.Tensor | None = None):
     """Full (non-incremental) multi-head attention; differentiable.
     query: (B, Tq, D); key_value: (B, Tk, D).  Dropout (when training)
     falls on the attention output before the o projection, not on the
-    probabilities.  Returns (out (B, Tq, D), probs (B, H, Tq, Tk) f32)."""
+    probabilities, with `rng`'s mask (or `drop_mask`; `dropout`).  Returns
+    (out (B, Tq, D), probs (B, H, Tq, Tk) f32)."""
     q = _split_heads(dense(p["q"], query), n_heads)
     k = _split_heads(dense(p["k"], key_value), kv_heads or n_heads)
     v = _split_heads(dense(p["v"], key_value), kv_heads or n_heads)
     out, probs = attention_core(q, k, v, mask)
-    out = dropout(out, dropout_rate, gen, train)
+    out = dropout(out, dropout_rate, rng, train, mask=drop_mask)
     return dense(p["o"], _merge_heads(out)), probs
 
 
@@ -227,11 +251,11 @@ def mha_step(p, n_heads: int, query_1: torch.Tensor, k: torch.Tensor,
     return dense(p["o"], _merge_heads(out)), probs
 
 
-def ffn(p, x: torch.Tensor, dropout_rate: float = 0.0,
-        gen: torch.Generator | None = None, train: bool = False) -> torch.Tensor:
+def ffn(p, x: torch.Tensor, dropout_rate: float = 0.0, rng=None,
+        train: bool = False, row0: int = 0) -> torch.Tensor:
     """Position-wise feed-forward: dense, ReLU, dropout (when training),
     dense."""
-    h = dropout(torch.relu(dense(p["in"], x)), dropout_rate, gen, train)
+    h = dropout(torch.relu(dense(p["in"], x)), dropout_rate, rng, train, row0)
     return dense(p["out"], h)
 
 

@@ -31,6 +31,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_i64, _u32, _u64 = ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint64
 _intp = ctypes.POINTER(ctypes.c_int)
 # C signature of each launcher: all return a cudaError_t as int.
 _SIGNATURES = {
@@ -52,6 +53,9 @@ _SIGNATURES = {
                         _vp, _vp, _vp, _vp],
     # alive, log_probs, batch, k, v, n_out, scores, ids, stream
     "nd_beam_topk": [_vp, _vp, _int, _int, _int, _int, _vp, _vp, _vp],
+    # out, n, key words k0 and k1, counter offset, kind (0 bits, 1 uniform,
+    # 2 bernoulli), lo, hi - lo, p, stream
+    "nd_threefry": [_vp, _i64, _u32, _u32, _u64, _int, _float, _float, _float, _vp],
     # stream: an empty kernel, the launch floor of device-only timings
     "nd_empty_kernel": [_vp],
 }

@@ -24,6 +24,12 @@ result.
     `train.trainer.make_train_step`), and the metrics are summed;
   * validation (`shard_eval_step`): metrics summed over the ranks.
 
+Random draws follow the same rule: every rank holds the same threefry
+keys (the JAX package replicates its key) and draws its rows of the
+global array, the dropout masks of a micro-batch or the sampling noise
+of a batch, at their counter offset (`prng`), as JAX's partitionable
+threefry draws one array whatever the sharding.
+
 Without a process group (one process) every collective is the identity,
 so a plan there runs as one device; in a group of one rank the
 collectives run (NCCL or gloo copies).  Each rank holds one device (the
@@ -175,7 +181,7 @@ class MeshPlan:
         return sharded
 
     def shard_train_step(self, step_fn: Callable) -> Callable:
-        """`step_fn(params, batch, gen, plan=)` from
+        """`step_fn(params, batch, key, plan=)` from
         `train.trainer.make_train_step`, run on this rank's rows of the
         whole host batch with the gradients summed over the ranks."""
         return functools.partial(step_fn, plan=self)

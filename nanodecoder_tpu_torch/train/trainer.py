@@ -22,10 +22,12 @@ all-reduce before the update, which every rank then applies alike.  The
 loss stays the global batch's function: the token count that divides it
 is the whole batch's, and a rank's guided-attention mean over its B/W
 rows is weighted by (B/W)/B, so the summed gradient is one device's.
-Each rank draws its dropout masks from its own generator (seeded with
-`train.seed` plus its rank): with dropout, a data-parallel run differs
-from one device's run; at dropout 0 it equals it within f32 summation
-order.
+Dropout is keyed as the JAX package keys it (`prng`): the trainer's key
+is PRNGKey(train.seed), each step splits off a step key and each
+micro-batch takes one of split(step key, A); every rank holds the same
+keys and draws its rows of the global micro-batch's masks (their counter
+offset), so a data-parallel step equals one device's within f32
+summation order, with dropout too.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Any, Callable, Iterable, Iterator, NamedTuple
 import numpy as np
 import torch
 
+from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import Config
 from nanodecoder_tpu_torch.models.model import (decode_teacher_forced, encode,
                                                 named_leaves)
@@ -59,20 +62,22 @@ def batch_to_device(batch: dict[str, np.ndarray], device: torch.device
 
 
 def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
-    """train_step(params, batch, gen, plan=None) -> metrics summed over
+    """train_step(params, batch, key, plan=None) -> metrics summed over
     micro-batches (0-d tensors); updates params in place through
-    `optimizer`.  With a MeshPlan, this rank's rows and summed gradients
-    and metrics.
+    `optimizer`.  Micro-batch i's dropout takes split(key, A)[i], passed to
+    the encoder and the decoder alike, as in the JAX package.  With a
+    MeshPlan, this rank's rows (their masks drawn at their place in the
+    global micro-batch) and summed gradients and metrics.
     batch: tensors with the accumulation axis,
       signal (A, B, S) f32, sig_lengths (A, B) int,
       tgt_in (A, B, T) int, tgt_out (A, B, T) int."""
     mcfg, tcfg = config.model, config.train
 
-    def micro_loss(params, mb, gen, inv_total, inv_accum: float):
-        mem, mem_len = encode(params, mcfg, mb["signal"], mb["sig_lengths"], gen,
-                              train=True)
+    def micro_loss(params, mb, rng, inv_total, inv_accum: float, row0: int):
+        mem, mem_len = encode(params, mcfg, mb["signal"], mb["sig_lengths"], rng,
+                              train=True, row0=row0)
         log_probs, attn = decode_teacher_forced(params, mcfg, mb["tgt_in"], mem,
-                                                mem_len, gen, train=True)
+                                                mem_len, rng, train=True, row0=row0)
         _loss, metrics = loss_and_metrics(log_probs, mb["tgt_out"],
                                           tcfg.label_smoothing)
         loss = metrics["loss_sum"] * inv_total
@@ -83,21 +88,21 @@ def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
                                       tcfg.guided_attention_sigma)
         return loss, metrics
 
-    def train_step(params, batch: dict[str, torch.Tensor], gen, plan=None):
+    def train_step(params, batch: dict[str, torch.Tensor], key, plan=None):
         accum, bsz = batch["signal"].shape[:2]
         # Token counts are data: the total over all micro-batches (and all
         # ranks' rows) is known before the first backward.
         total = torch.clamp((batch["tgt_out"] != PAD_ID).sum(), min=1).to(torch.float32)
         inv_total = 1.0 / total
-        rows, share = slice(None), 1.0
+        rows, share = slice(0, bsz), 1.0
         if plan is not None:
             rows = plan.row_slice(bsz)
             share = (rows.stop - rows.start) / bsz
         optimizer.zero_grad()
         summed = None
-        for i in range(accum):
+        for i, rng in enumerate(prng.split(key, accum)):
             loss, metrics = micro_loss(params, {k: v[i, rows] for k, v in batch.items()},
-                                       gen, inv_total, share / accum)
+                                       rng, inv_total, share / accum, rows.start)
             loss.backward()
             metrics = {k: metrics[k].detach() for k in METRIC_KEYS}
             summed = metrics if summed is None else \
@@ -142,10 +147,10 @@ class Trainer:
     `train.checkpoint.params_from_numpy`) are trained in place.
     `train_iter` yields numpy batches with the accumulation axis
     (A, B, ...); `valid_iter_fn` returns a fresh finite iterable of
-    (B, ...) batches.  Dropout masks come from one generator on the device
-    seeded with `train.seed`; like the JAX package's, it is not part of a
-    checkpoint, so a resumed run equals an uninterrupted one only with
-    dropout 0.
+    (B, ...) batches.  Dropout is keyed from PRNGKey(train.seed), one key
+    split off a step; like the JAX package's, the key is not part of a
+    checkpoint and a restored trainer starts again from the seed's, so a
+    resumed run equals an uninterrupted one only with dropout 0.
 
     `mesh_plan` (a `parallel.mesh.MeshPlan`): data-parallel steps over its
     ranks (see the module docstring), every rank fed the same batches;
@@ -170,16 +175,14 @@ class Trainer:
         self.step = 0
         self._train_step = make_train_step(config, self.optimizer)
         self._eval_step = make_eval_step(config)
-        seed = config.train.seed
         if mesh_plan is not None:
             mesh_plan.replicate(params)
             self._train_step = mesh_plan.shard_train_step(self._train_step)
             self._eval_step = mesh_plan.shard_eval_step(self._eval_step)
-            seed += mesh_plan.rank
         self.report = report or ReportManager()
         self.checkpointer = checkpointer
         self.early_stopping = early_stopping
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.key = prng.PRNGKey(config.train.seed)
 
     @property
     def state(self) -> TrainState:
@@ -200,9 +203,11 @@ class Trainer:
         self.step = int(state.step)
 
     def train_step(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        """One optimizer step on a numpy (A, B, ...) batch."""
+        """One optimizer step on a numpy (A, B, ...) batch, keyed by the next
+        step key: self.key, step key = split(self.key)."""
+        self.key, step_key = prng.split(self.key)
         metrics = self._train_step(self.params, batch_to_device(batch, self.device),
-                                   self.gen)
+                                   step_key)
         self.step += 1
         return metrics
 

@@ -10,13 +10,11 @@ versions here, JAX's in interpret mode), and the tiny biLSTM + RNN
 decoder of test_torch_rnn.py; each with its generator (and RNN cells)
 scaled up, so rows end by EOS at different steps.
 
-Sampled tokens can equal JAX's only where both sides draw the same
-noise: torch's generators cannot reproduce jax.random.  So the parity
-tests feed the port JAX's own draws through `sample_decode`'s gumbel
-argument, jax.random.gumbel(fold_in(key, t), (B, V)), which is what
-jax.random.categorical adds to the logits at step t.  Every such test
-checks that the winning draw of each live row leads the runner-up by
-more than 1e-6 (the f32 log-probs of both sides agree far closer), so
+The port draws jax.random's noise itself (`nanodecoder_tpu_torch.prng`:
+the same threefry bits, Gumbel values within about 1e-6 of JAX's), keyed
+as the JAX package keys it: sample_decode with a key, Translator and the
+engine from a sampling_seed.  Every sampling parity test checks that the
+winning draw of each live row leads the runner-up by more than 1e-5, so
 an exact-token match is not luck at a near-tie.
 """
 
@@ -33,11 +31,13 @@ import pytest
 import torch
 
 import test_torch_mha as mha
+from nanodecoder_tpu_torch import prng
 import test_torch_models as small
 import test_torch_rnn as rnn
 
 EOS = 2
 MARGIN = 1e-6
+LEAD = 1e-5  # a winning draw's least lead where tokens must equal JAX's
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_NPZ = os.path.join(REPO, "bench_results", "flagship_params.npz")
 FLAGSHIP_CONFIG = os.path.join(REPO, "bench_results", "config.json")
@@ -216,44 +216,50 @@ SAMPLE_CASES = ([("lean_mqa", s) for s in SETTINGS]
                    for s in ("ancestral", "t0.7_k3_p0.9_min2")])
 
 
-def _jax_gumbel(key):
-    def gumbel(t, shape):
-        return _t(np.asarray(jax.random.gumbel(jax.random.fold_in(key, t), shape)))
-    return gumbel
+def _recording_draws(monkeypatch):
+    """Record every draw of the port's sampler: (its key, the lead of the
+    winning noisy score over the runner-up in each row, the drawn
+    tokens)."""
+    calls = []
+    real = prng.categorical
 
-
-def _recording(monkeypatch):
-    """Record the restricted log-probs of each step of the port's sampler."""
-    from nanodecoder_tpu_torch.decode import sampling
-
-    steps = []
-    inner = sampling.restrict_log_probs
-
-    def record(*args):
-        out = inner(*args)
-        steps.append(out.clone())
+    def record(key, logits, row0=0):
+        out = real(key, logits, row0=row0)
+        noisy = logits + prng.gumbel(key, logits.shape, device=logits.device,
+                                     offset=row0 * logits.shape[-1])
+        top2 = torch.topk(noisy, 2, dim=-1).values
+        calls.append((tuple(int(w) for w in key), (top2[:, 0] - top2[:, 1]).numpy(),
+                      out.numpy()))
         return out
-    monkeypatch.setattr(sampling, "restrict_log_probs", record)
-    return steps
+    monkeypatch.setattr(prng, "categorical", record)
+    return calls
 
 
-def _draw_margins(steps, gumbel, tokens) -> float:
-    """The least lead of the winning draw over the runner-up, over the
-    live rows of every step."""
-    least = np.inf
-    for t, lp_r in enumerate(steps):
-        live = np.ones(lp_r.shape[0], bool) if t == 0 else \
-            ~(tokens[:, :t] == EOS).any(axis=1)
-        top2 = torch.topk(lp_r + gumbel(t, tuple(lp_r.shape)), 2, dim=-1).values.numpy()
-        if live.any():
-            least = min(least, float((top2[live, 0] - top2[live, 1]).min()))
+def _least_lead(calls, batch_keys) -> float:
+    """The least lead of a winning draw over the rows still live (no EOS
+    drawn before) at every step of the batches keyed by batch_keys (step
+    t of batch b draws with fold_in(batch_keys[b], t))."""
+    index = {tuple(int(w) for w in prng.fold_in(k, t)): (b, t)
+             for b, k in enumerate(batch_keys) for t in range(64)}
+    live, least = {}, np.inf
+    for key, lead, chosen in calls:
+        b, t = index[key]
+        if t == 0:
+            live[b] = np.ones(len(lead), bool)
+        if live[b].any():
+            least = min(least, float(lead[live[b]].min()))
+        live[b] &= chosen != EOS
     return least
+
+
+def _sampling_keys(seed: int, n: int) -> list:
+    return [prng.fold_in(prng.PRNGKey(seed), b) for b in range(n)]
 
 
 @pytest.mark.parametrize("name,setting", SAMPLE_CASES)
 def test_sample_decode_matches_jax(name, setting, monkeypatch):
-    """JAX's draws fed to the port: tokens, lengths and positions equal,
-    log-probs and scores within 1e-5."""
+    """One key on both sides, the port drawing its own noise: tokens,
+    lengths and positions equal, log-probs and scores within 1e-5."""
     from nanodecoder_tpu.decode.sampling import sample_decode as jsample
     from nanodecoder_tpu_torch.decode.sampling import sample_decode
 
@@ -265,17 +271,16 @@ def test_sample_decode_matches_jax(name, setting, monkeypatch):
     key = jax.random.PRNGKey(11)
     ref = jax.jit(jsample, static_argnums=(1, 2))(jserved, jcfg.model, jd,
                                                    jnp.asarray(mem), jnp.asarray(mlen), key)
-    steps = _recording(monkeypatch)
-    gumbel = _jax_gumbel(key)
+    draws = _recording_draws(monkeypatch)
     res = sample_decode(served, cfg.model, _port_decode(cfg, **kw), _t(mem), _t(mlen),
-                        gumbel=gumbel)
+                        prng.PRNGKey(11))
     for f in ("tokens", "lengths", "attn_pos"):
         np.testing.assert_array_equal(getattr(res, f).numpy(), np.asarray(getattr(ref, f)),
                                       err_msg=f)
     for f in ("token_log_probs", "scores"):
         np.testing.assert_allclose(getattr(res, f).numpy(), np.asarray(getattr(ref, f)),
                                    atol=1e-5, rtol=1e-5, err_msg=f)
-    assert _draw_margins(steps, gumbel, res.tokens.numpy()) > MARGIN
+    assert _least_lead(draws, [prng.PRNGKey(11)]) > LEAD
     lengths = res.lengths.numpy()
     assert len(set(lengths.tolist())) > 1, lengths
     if min_len:
@@ -288,35 +293,34 @@ def test_sample_topk_1_equals_greedy():
     """topk 1 keeps only the argmax: the greedy call, token for token, with
     log-prob 0 for every drawn token."""
     from nanodecoder_tpu_torch.decode.greedy import greedy_decode
-    from nanodecoder_tpu_torch.decode.sampling import batch_generator, sample_decode
+    from nanodecoder_tpu_torch.decode.sampling import sample_decode
 
     _js, _jc, served, cfg, mem, mlen = _decoder("lean_mqa")
     m = dataclasses.replace(cfg.model, staged_decode=False)
     greedy = greedy_decode(served, m, _t(mem), _t(mlen))
     res = sample_decode(served, m, _port_decode(cfg, mode="sample", sampling_topk=1),
-                        _t(mem), _t(mlen), batch_generator(5, 0, torch.device("cpu")))
+                        _t(mem), _t(mlen), prng.PRNGKey(5))
     for f in ("tokens", "lengths", "attn_pos"):
         np.testing.assert_array_equal(getattr(res, f).numpy(), getattr(greedy, f).numpy())
     assert (res.token_log_probs.numpy() == 0.0).all()
 
 
 def test_sample_seeds_reproduce_and_differ():
-    """One seed twice: the same tokens; another seed: other tokens; noise
-    is finite and never draws from U = 0."""
-    from nanodecoder_tpu_torch.decode.sampling import (batch_generator, gumbel_noise,
-                                                       sample_decode)
+    """One key twice: the same tokens; another seed or batch number: other
+    tokens; the noise is finite (never drawn from U = 0) with the Gumbel
+    mean."""
+    from nanodecoder_tpu_torch.decode.sampling import sample_decode
 
     _js, _jc, served, cfg, mem, mlen = _decoder("lean_mqa")
     dcfg = _port_decode(cfg, mode="sample", temperature=1.3)
-    cpu = torch.device("cpu")
 
     def run(seed, batch_no=0):
         return sample_decode(served, cfg.model, dcfg, _t(mem), _t(mlen),
-                             batch_generator(seed, batch_no, cpu)).tokens.numpy()
+                             _sampling_keys(seed, batch_no + 1)[-1]).tokens.numpy()
     a, b, c, d = run(3), run(3), run(4), run(3, 1)
     np.testing.assert_array_equal(a, b)
     assert (a != c).any() and (a != d).any()
-    g = gumbel_noise(batch_generator(0, 0, cpu), (4096, 344), cpu)
+    g = prng.gumbel(prng.PRNGKey(0), (4096, 344), device="cpu")
     assert torch.isfinite(g).all() and abs(float(g.mean()) - 0.5772) < 0.01
 
 
@@ -331,8 +335,8 @@ def _sample_translator(seed=9, **kw):
 
 def test_translator_batches_draw_apart_and_reproduce():
     """Two batches of the same 8 chunks draw apart (each batch has its own
-    generator); a new Translator with the seed reproduces both; a
-    temperature of 0 raises."""
+    key); a new Translator with the seed reproduces both; a temperature of
+    0 raises."""
     sig, lens, _mem, _mlen = small._small_memory(np.random.default_rng(1234), b=8)
     chunks = np.concatenate([sig, sig])
     lengths = np.concatenate([lens, lens])
@@ -348,6 +352,60 @@ def test_translator_batches_draw_apart_and_reproduce():
     assert (other[0] != tokens).any()
     with pytest.raises(ValueError, match="temperature > 0"):
         _sample_translator(temperature=0.0)
+
+
+SAMPLED = {"temperature": 1.0, "sampling_topk": 5}
+
+
+def test_translator_sample_matches_jax(monkeypatch):
+    """Translator in sample mode (lean MQA, T 1.0, top-k 5) from one
+    sampling_seed on both sides, over two dispatched batches: tokens,
+    lengths and positions equal to the JAX package's Translator, log-probs
+    within 1e-5; every live row's winning draw leads by more than 1e-5."""
+    from nanodecoder_tpu.decode.translator import Translator as JTranslator
+
+    sig, lens, _mem, _mlen = small._small_memory(np.random.default_rng(1234), b=8)
+    chunks = np.concatenate([sig, sig[::-1]])
+    lengths = np.concatenate([lens, lens[::-1]])
+    jcfg = dataclasses.replace(small.SMALL, decode=dataclasses.replace(
+        small.SMALL.decode, mode="sample", sampling_seed=21, **SAMPLED))
+    ref = JTranslator(small._small_params(), jcfg).decode_chunk_batch(chunks, lengths)
+    draws = _recording_draws(monkeypatch)
+    tr = _sample_translator(seed=21, **SAMPLED)
+    got = tr.decode_chunk_batch(chunks, lengths)
+    assert tr.sample_batches == 2
+    for i, name in ((0, "tokens"), (1, "lengths"), (4, "positions")):
+        np.testing.assert_array_equal(got[i], np.asarray(ref[i]), err_msg=name)
+    np.testing.assert_allclose(got[2], np.asarray(ref[2]), atol=1e-5, rtol=1e-5)
+    assert _least_lead(draws, _sampling_keys(21, 2)) > LEAD
+    assert len(set(np.asarray(got[1]).tolist())) > 1
+
+
+def test_engine_sample_matches_jax(fast5_files, monkeypatch):
+    """The streaming engine in sample mode (T 1.0, top-k 5) from one
+    sampling_seed: FASTQ ids and sequences equal to the JAX engine's on
+    the same reads (qualities within one character), every live row's
+    winning draw leading by more than 1e-5."""
+    from nanodecoder_tpu.decode.engine import StreamingBasecaller as JEngine
+    from nanodecoder_tpu_torch.decode.engine import StreamingBasecaller
+    from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy
+    from test_torch_engine import _flat, _jcfg, _jparams, _port_cfg, assert_fastq_close
+
+    sampled = {**SAMPLED, "sampling_seed": 6}
+    jcfg = _jcfg("sample")
+    jcfg = dataclasses.replace(jcfg, decode=dataclasses.replace(jcfg.decode, **sampled))
+    want = io.StringIO()
+    JEngine(_jparams(), jcfg).run(fast5_files, want, num_workers=2)
+    cfg = _port_cfg("sample")
+    cfg = dataclasses.replace(cfg, decode=dataclasses.replace(cfg.decode, **sampled))
+    draws = _recording_draws(monkeypatch)
+    eng = StreamingBasecaller(params_from_numpy(_flat(), cfg.model, device="cpu"), cfg,
+                              device="cpu")
+    got = io.StringIO()
+    eng.run(fast5_files, got, num_workers=2)
+    assert eng.batches > 1
+    assert_fastq_close(got.getvalue(), want.getvalue())
+    assert _least_lead(draws, _sampling_keys(6, eng.batches)) > LEAD
 
 
 def test_engine_sample_mode_reproduces_at_any_depth(fast5_files):
@@ -585,7 +643,7 @@ def _tiny_on(dev, lean=True):
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, staged_decode=True, lean_step=lean, use_pallas=True,
         compute_dtype="float32"), decode=dataclasses.replace(cfg.decode, use_pallas=True))
-    params = init_model(torch.Generator(device=dev).manual_seed(3), cfg.model)
+    params = init_model(prng.PRNGKey(3), cfg.model, dev)
     params["generator"]["w"] = params["generator"]["w"] * 3.0
     served = prepare_serving_params(params, cfg.model)
     rng, spec = np.random.default_rng(4), SimSpec()
@@ -616,12 +674,12 @@ def test_path_reorder_equals_physical_on_card(cuda):
 @pytest.mark.cuda
 def test_sample_topk_1_equals_greedy_on_card(cuda):
     from nanodecoder_tpu_torch.decode.greedy import greedy_decode
-    from nanodecoder_tpu_torch.decode.sampling import batch_generator, sample_decode
+    from nanodecoder_tpu_torch.decode.sampling import sample_decode
 
     served, cfg, mem, mlen = _tiny_on(cuda)
     m = dataclasses.replace(cfg.model, staged_decode=False)
     greedy = greedy_decode(served, m, mem, mlen)
     res = sample_decode(served, m, _port_decode(cfg, mode="sample", sampling_topk=1),
-                        mem, mlen, batch_generator(0, 0, cuda))
+                        mem, mlen, prng.PRNGKey(0))
     for f in ("tokens", "lengths", "attn_pos"):
         assert torch.equal(getattr(res, f), getattr(greedy, f)), f

@@ -28,6 +28,7 @@ import torch
 import zstandard
 
 from nanodecoder_tpu_torch.native import zstd
+from nanodecoder_tpu_torch.prng import PRNGKey
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden", "jax_orbax_tiny")
@@ -437,7 +438,7 @@ def _jax_params():
 
     model = Config.from_json(_jax_cfg().to_json()).model
     root: dict = {}
-    flat = params_to_numpy(init_model(torch.Generator().manual_seed(0), model))
+    flat = params_to_numpy(init_model(PRNGKey(0), model))
     for key in sorted(flat, key=lambda k: [(0, int(p), "") if p.isdigit() else (1, 0, p)
                                           for p in k.split("/")]):
         node, parts = root, key.split("/")

@@ -20,9 +20,12 @@ Adam's g / sqrt(v) turns summation-order noise of a near-zero gradient
 into a step of about lr).  The train cases run with guided attention off
 and at 0.3: the second holds the local/global batch weighting of the
 guided-attention mean, without which the summed gradient of that term is
-world times too large.  Sampled tokens cannot equal JAX's (torch's
-generators do not reproduce jax.random), so sample mode is held to one
-process only.  The engine's FASTQ is byte-equal to one process's and
+world times too large.  A third train case runs at dropout 0.1: each
+rank draws its rows of the global micro-batch's masks, so the step is
+one process's (and the JAX package's on the same key chain).  Sample
+mode is held to one process here (each rank draws its rows' noise at
+their place in the batch); test_torch_decode_modes.py holds it to JAX.
+The engine's FASTQ is byte-equal to one process's and
 within one quality character of the JAX engine's
 (`test_torch_engine.assert_fastq_close`).
 """
@@ -101,12 +104,12 @@ def _jax_params(name: str):
     return init_model(jax.random.PRNGKey(0), cfg.model)
 
 
-def _train_cfg(ga: float, base=None):
+def _train_cfg(ga: float, base=None, dropout: float = 0.0):
     """The DP step's config over `base` (the port's tiny config, or the JAX
-    package's): batch 8, SGD at lr 0.1, dropout 0."""
+    package's): batch 8, SGD at lr 0.1, dropout 0 unless given."""
     cfg = base or tiny_test_config()
     return dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, dropout=0.0),
+        cfg, model=dataclasses.replace(cfg.model, dropout=dropout),
         train=dataclasses.replace(cfg.train, batch_size=8, accum_steps=1, optimizer="sgd",
                                   lr_schedule="constant", learning_rate=0.1,
                                   guided_attention_weight=ga))
@@ -258,14 +261,14 @@ def case_train(plan, work):
     from nanodecoder_tpu_torch.utils.statistics import Statistics
 
     out = {}
-    for ga in (0.0, 0.3):
-        cfg = _train_cfg(ga)
+    for ga, dropout in ((0.0, 0.0), (0.3, 0.0), (0.0, 0.1)):
+        cfg = _train_cfg(ga, dropout=dropout)
         trainer = Trainer(cfg, _params(work, "tiny", cfg), mesh_plan=plan)
         metrics = trainer.train_step(_train_batch(work))
-        tag = f"ga{ga}"
+        tag = f"drop{dropout}" if dropout else f"ga{ga}"
         out.update({f"{tag}_{k}": v.numpy() for k, v in metrics.items()})
         out.update({f"{tag}/{k}": v for k, v in params_to_numpy(trainer.params).items()})
-        if ga == 0.0:
+        if ga == 0.0 and not dropout:
             vstats = trainer.validate(_valid_batches(work), 1)
             assert isinstance(vstats, Statistics)
             out["valid"] = np.array([vstats.loss, vstats.n_tokens, vstats.n_correct])
@@ -473,20 +476,23 @@ def _jax_serving():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_train(ga: float, work: str):
+def _jax_train(ga: float, work: str, dropout: float = 0.0):
     """One JAX SGD step (as tests/test_parallel.py's) from the same params
-    on the same batch: (flat params after it, its metrics, the params)."""
+    on the same batch, keyed as the JAX trainer keys its first step
+    (split(PRNGKey(train.seed))[1]): (flat params after it, its metrics,
+    the params)."""
     import jax
     import jax.numpy as jnp
     from nanodecoder_tpu.train.optim import build_optimizer
     from nanodecoder_tpu.train.trainer import TrainState, make_train_step
 
-    jcfg = _train_cfg(ga, _jax_tiny())
+    jcfg = _train_cfg(ga, _jax_tiny(), dropout)
     params = _jax_params("tiny")
     optimizer, _ = build_optimizer(jcfg.train, jcfg.model.d_model)
     state = TrainState(params, optimizer.init(params), jnp.zeros((), jnp.int32))
+    step_key = jax.random.split(jax.random.PRNGKey(jcfg.train.seed))[1]
     state, metrics = jax.jit(make_train_step(jcfg, optimizer))(
-        state, _train_batch(work), jax.random.PRNGKey(5))
+        state, _train_batch(work), step_key)
     return _flat(state.params), {k: np.asarray(v) for k, v in metrics.items()}, state.params
 
 
@@ -567,6 +573,28 @@ def test_dp_train_step_matches_single_device(dp, work, ga):
     assert max(float(np.abs(ref[k] - v).max()) for k, v in start.items()) > 1e-3
 
 
+def test_dp_train_step_with_dropout_matches_single_device(dp, work):
+    """One DP SGD step over two ranks at dropout 0.1: each rank draws its
+    rows of the global masks, so params are within atol 1e-5 / rtol 1e-4
+    of one process's step and of the JAX package's single-device step on
+    its trainer's first step key, token counts equal, the loss sum within
+    rtol 1e-5; and the step differs from the dropout-free one."""
+    ref, ref_metrics, _ = _jax_train(0.0, work, 0.1)
+    single = _single(case_train, work)
+    tag = "drop0.1"
+    for other in (ref_metrics, {k[len(tag) + 1:]: v for k, v in single.items()
+                                if k.startswith(tag + "_")}):
+        assert int(dp[f"{tag}_n_tokens"]) == int(other["n_tokens"])
+        assert int(dp[f"{tag}_n_correct"]) == int(other["n_correct"])
+        np.testing.assert_allclose(dp[f"{tag}_loss_sum"], other["loss_sum"], rtol=1e-5)
+    for key in ref:
+        got = dp[f"{tag}/{key}"]
+        np.testing.assert_allclose(got, ref[key], atol=1e-5, rtol=1e-4, err_msg=key)
+        np.testing.assert_allclose(got, single[f"{tag}/{key}"], atol=1e-5, rtol=1e-4,
+                                   err_msg=key)
+    assert abs(float(dp[f"{tag}_loss_sum"]) - float(dp["ga0.0_loss_sum"])) > 1e-3
+
+
 def test_dp_eval_step_sums_metrics(dp, work):
     """Validation over two ranks after the step: the cross-entropy sum,
     tokens and correct tokens equal JAX's eval step summed over the same
@@ -595,8 +623,9 @@ def test_host_shard_path():
 @pytest.mark.parametrize("mode", ["greedy", "beam", "sample"])
 def test_sharded_serving_config_matches_single_device(dp, work, mode):
     """The served program over two ranks: equal to one process (sample
-    mode too: the noise of the whole batch is drawn on every rank); greedy
-    and beam tokens and lengths equal to the JAX package's single device."""
+    mode too: each rank draws its rows' noise at their place in the
+    batch); greedy and beam tokens and lengths equal to the JAX package's
+    single device."""
     single = _single(case_serving, work)
     key = f"serving/{mode}_"
     for name in ("tokens", "lengths", "pos"):

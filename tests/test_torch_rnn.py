@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from nanodecoder_tpu_torch.models import model as tm
+from nanodecoder_tpu_torch.prng import PRNGKey
 from nanodecoder_tpu_torch.train.checkpoint import params_from_numpy, params_to_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -286,7 +287,7 @@ def test_init_model_and_npz_keys_match_jax(enc, dec):
                 jflat = {k: data[k] for k in data.files}
             want = {k: v.shape for k, v in jflat.items()}
             assert expected_param_shapes(cfg.model) == want
-            ours = tm.init_model(torch.Generator().manual_seed(0), cfg.model)
+            ours = tm.init_model(PRNGKey(0), cfg.model)
             assert {k: v.shape for k, v in params_to_numpy(ours).items()} == want
             assert tm.param_count(ours) == param_count(jp)
             loaded = load_params_npz(jpath, cfg.model, device="cpu")
@@ -733,7 +734,7 @@ def test_rnn_decode_on_card_matches_cpu(cuda, mode):
     base = tiny_test_config()
     model = dataclasses.replace(base.model, encoder_type="lstm", decoder_type="rnn")
     dcfg = dataclasses.replace(base.decode, mode="beam", beam_size=3, use_pallas=True)
-    start = tm.init_model(torch.Generator().manual_seed(4), model)
+    start = tm.init_model(PRNGKey(4), model)
     for cell in start["decoder"]["layers"]:
         cell["wx"], cell["wh"] = cell["wx"] * 3, cell["wh"] * 3
     start["generator"]["w"] = start["generator"]["w"] * 3

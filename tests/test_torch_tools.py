@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from nanodecoder_tpu_torch.prng import PRNGKey
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -243,7 +245,7 @@ def _tiny_mqa_ckpt(tmp_path):
     cfg = tiny_test_config()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dec_kv_heads=1))
     np.savez(tmp_path / "params.npz", **params_to_numpy(
-        init_model(torch.Generator().manual_seed(0), cfg.model)))
+        init_model(PRNGKey(0), cfg.model)))
     (tmp_path / "config.json").write_text(cfg.to_json())
     return str(tmp_path / "params.npz"), cfg
 

@@ -3,10 +3,11 @@ kernels' autograd guard, losses, schedules, optimizer updates, the train
 and eval steps, early stopping, and the trainer's checkpoints.
 
 Each comparison feeds the same numpy inputs (and the JAX package's
-params, carried over by `params_from_numpy`) to the JAX package and to
-the port on the CPU at the tiny config in float32, with dropout 0 where
-values are compared (the port's random streams are torch's, not
-jax.random's).  The tests marked `cuda` hold the card against the CPU
+params, carried over by `params_from_numpy`, or both packages'
+`init_model` from one seed) to the JAX package and to the port on the
+CPU at the tiny config in float32.  The port keys its dropout as the JAX
+package does (`nanodecoder_tpu_torch.prng`), so the steps at dropout 0.1
+are compared too.  The tests marked `cuda` hold the card against the CPU
 and skip where there is none.
 """
 
@@ -20,6 +21,7 @@ import torch
 from nanodecoder_tpu_torch.config import tiny_test_config
 from nanodecoder_tpu_torch.models import model as tm
 from nanodecoder_tpu_torch.models import modules as tnn
+from nanodecoder_tpu_torch.prng import PRNGKey
 from nanodecoder_tpu_torch.train.checkpoint import (CheckpointManager, expected_param_shapes,
                                                     params_from_numpy, params_to_numpy)
 from nanodecoder_tpu_torch.train.trainer import Trainer, make_eval_step
@@ -96,7 +98,7 @@ def test_init_model_keys_shapes_and_count_match_jax(kv_heads):
 
     jcfg, cfg = _cfgs(model={"dec_kv_heads": kv_heads})
     jp = _jax_params(jcfg)
-    params = tm.init_model(torch.Generator().manual_seed(0), cfg.model)
+    params = tm.init_model(PRNGKey(0), cfg.model)
     shapes = {k: v.shape for k, v in params_to_numpy(params).items()}
     assert shapes == {k: v.shape for k, v in _flat(jp).items()}
     assert shapes == expected_param_shapes(cfg.model)
@@ -110,9 +112,9 @@ def test_init_model_statistics_and_determinism():
     std within 10%; the embedding's std is 1/sqrt(D) within 5%; biases 0,
     layer-norm scales 1; the same seed gives the same params."""
     cfg = _replace(tiny_test_config(), model={"d_model": 64, "enc_ffn_dim": 128})
-    flat = params_to_numpy(tm.init_model(torch.Generator().manual_seed(0), cfg.model))
-    again = params_to_numpy(tm.init_model(torch.Generator().manual_seed(0), cfg.model))
-    other = params_to_numpy(tm.init_model(torch.Generator().manual_seed(1), cfg.model))
+    flat = params_to_numpy(tm.init_model(PRNGKey(0), cfg.model))
+    again = params_to_numpy(tm.init_model(PRNGKey(0), cfg.model))
+    other = params_to_numpy(tm.init_model(PRNGKey(1), cfg.model))
     for key, arr in flat.items():
         assert np.array_equal(arr, again[key]), key
         if key.endswith("/b") or key.endswith("/bias"):
@@ -129,50 +131,52 @@ def test_init_model_statistics_and_determinism():
     assert not np.array_equal(flat["generator/w"], other["generator/w"])
     bad = _replace(cfg, model={"vocab_size": 9})
     with pytest.raises(ValueError, match="does not match kmer_k"):
-        tm.init_model(torch.Generator().manual_seed(0), bad.model)
+        tm.init_model(PRNGKey(0), bad.model)
 
 
 def test_dropout_identity_scaling_fraction_and_determinism():
-    """Identity at rate 0, with train False or without a generator; kept
-    elements are x / keep, the rest 0; over 10^6 draws the kept fraction
-    lies within 5 binomial sigmas of keep; one seed gives one mask."""
+    """Identity at rate 0, with train False or without a key; kept
+    elements are x times the float32 reciprocal of keep (XLA's x / keep),
+    the rest 0; over 10^6 draws the kept fraction lies within 5 binomial
+    sigmas of keep; one key gives one mask."""
     x = torch.rand(1000, 1000) + 0.5
-    gen = torch.Generator().manual_seed(0)
-    for args in ((0.0, gen, True), (0.3, gen, False), (0.3, None, True)):
+    key = PRNGKey(0)
+    for args in ((0.0, key, True), (0.3, key, False), (0.3, None, True)):
         assert tnn.dropout(x, *args) is x
-    y = tnn.dropout(x, 0.3, torch.Generator().manual_seed(5), True)
+    y = tnn.dropout(x, 0.3, PRNGKey(5), True)
     kept = y != 0
-    torch.testing.assert_close(y[kept], x[kept] / 0.7, rtol=0, atol=0)
+    torch.testing.assert_close(y[kept], x[kept] * float(np.float32(1) / np.float32(0.7)),
+                               rtol=0, atol=0)
     n, keep = x.numel(), 0.7
     assert abs(kept.sum().item() - n * keep) < 5 * math.sqrt(n * keep * (1 - keep))
-    y2 = tnn.dropout(x, 0.3, torch.Generator().manual_seed(5), True)
+    y2 = tnn.dropout(x, 0.3, PRNGKey(5), True)
     assert torch.equal(y, y2)
     assert y.dtype == x.dtype
-    assert not torch.equal(kept, tnn.dropout(x, 0.3, torch.Generator().manual_seed(6),
+    assert not torch.equal(kept, tnn.dropout(x, 0.3, PRNGKey(6),
                                              True) != 0)
 
 
 def test_dropout_changes_the_training_pass_only():
-    """With dropout on, a training pass depends on the generator's seed
-    and an inference pass is the dropout-free function."""
+    """With dropout on, a training pass depends on the key and an
+    inference pass is the dropout-free function."""
     cfg = _replace(tiny_test_config(), model={"dropout": 0.2})
-    params = tm.init_model(torch.Generator().manual_seed(0), cfg.model)
+    params = tm.init_model(PRNGKey(0), cfg.model)
     from nanodecoder_tpu_torch.train.data import synthetic_batches
 
     b = _t(next(synthetic_batches(cfg, seed=0, accum_axis=False)))
 
-    def run(gen, train):
-        mem, ml = tm.encode(params, cfg.model, b["signal"], b["sig_lengths"], gen, train)
-        return tm.decode_teacher_forced(params, cfg.model, b["tgt_in"], mem, ml, gen,
+    def run(key, train):
+        mem, ml = tm.encode(params, cfg.model, b["signal"], b["sig_lengths"], key, train)
+        return tm.decode_teacher_forced(params, cfg.model, b["tgt_in"], mem, ml, key,
                                         train)[0]
 
-    a = run(torch.Generator().manual_seed(1), True)
-    assert torch.equal(a, run(torch.Generator().manual_seed(1), True))
-    assert not torch.equal(a, run(torch.Generator().manual_seed(2), True))
+    a = run(PRNGKey(1), True)
+    assert torch.equal(a, run(PRNGKey(1), True))
+    assert not torch.equal(a, run(PRNGKey(2), True))
     plain = _replace(cfg, model={"dropout": 0.0})
     mem, ml = tm.encode(params, plain.model, b["signal"], b["sig_lengths"])
     want = tm.decode_teacher_forced(params, plain.model, b["tgt_in"], mem, ml)[0]
-    assert torch.equal(run(torch.Generator().manual_seed(1), False), want)
+    assert torch.equal(run(PRNGKey(1), False), want)
 
 
 # --------------------------------------------------------------------------
@@ -258,15 +262,15 @@ def test_training_pass_never_reaches_the_kernel(monkeypatch):
     weights of every encoder layer get a gradient."""
     _spy_kernel(monkeypatch, fail=True)
     cfg = _replace(tiny_test_config(), model={"use_pallas": True, "dropout": 0.1})
-    params = tm.init_model(torch.Generator().manual_seed(0), cfg.model)
+    params = tm.init_model(PRNGKey(0), cfg.model)
     for t in tm.named_leaves(params).values():
         t.requires_grad_(True)
     from nanodecoder_tpu_torch.train.data import synthetic_batches
 
     b = _t(next(synthetic_batches(cfg, seed=0, accum_axis=False)))
-    gen = torch.Generator().manual_seed(0)
-    mem, ml = tm.encode(params, cfg.model, b["signal"], b["sig_lengths"], gen, train=True)
-    lp, _ = tm.decode_teacher_forced(params, cfg.model, b["tgt_in"], mem, ml, gen, True)
+    key = PRNGKey(0)
+    mem, ml = tm.encode(params, cfg.model, b["signal"], b["sig_lengths"], key, train=True)
+    lp, _ = tm.decode_teacher_forced(params, cfg.model, b["tgt_in"], mem, ml, key, True)
     lp.sum().backward()
     for layer in params["encoder"]["body"]["layers"]:
         for name in "qkvo":
@@ -281,7 +285,7 @@ def test_inference_pass_takes_the_kernel_route_with_use_pallas(monkeypatch, use_
     calls = _spy_kernel(monkeypatch, fail=False)
     cfg = _replace(tiny_test_config(), model={"use_pallas": use_pallas})
     plain = _replace(cfg, model={"use_pallas": False})
-    params = tm.init_model(torch.Generator().manual_seed(0), cfg.model)
+    params = tm.init_model(PRNGKey(0), cfg.model)
     from nanodecoder_tpu_torch.train.data import synthetic_batches
 
     b = _t(next(synthetic_batches(cfg, seed=0, accum_axis=False)))
@@ -532,6 +536,67 @@ def test_train_step_matches_jax(accum, ga, optimizer):
             m.size for m in tiny.values())
 
 
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_steps_with_dropout_match_jax(accum):
+    """Three Adam steps (constant lr 1e-3) at dropout 0.1, each side from
+    its own init_model(PRNGKey(7)) and its trainer's key chain (the step
+    key split off PRNGKey(train.seed) each step, split(step key, A) for
+    the micro-batches): the masks are the JAX package's, so the training
+    row's tolerances hold as at dropout 0 (counts exact, loss sums rtol
+    1e-5, the first step's gradients rtol 1e-4 / atol 1e-6, params atol
+    1e-5 but for the elements whose gradient fell under 1e-6, held to the
+    Adam step bound).  The port's key after the steps is JAX's, and a
+    restored state leaves the key alone (JAX's trainer re-keys from the
+    seed, not from a checkpoint)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from nanodecoder_tpu.train import trainer as jt
+    from nanodecoder_tpu.train.data import synthetic_batches
+    from nanodecoder_tpu.train.optim import build_optimizer
+
+    over = {"accum_steps": accum, "lr_schedule": "constant", "learning_rate": 1e-3,
+            "seed": 7}
+    jcfg, cfg = _cfgs(model={"dropout": 0.1}, train=over)
+    jp = _jax_params(jcfg, seed=7)
+    jopt = optax.chain(_capture(), build_optimizer(jcfg.train, 32)[0])
+    jstate = jt.TrainState(jp, jopt.init(jp), jnp.zeros((), jnp.int32))
+    jstep = jax.jit(jt.make_train_step(jcfg, jopt))
+    trainer = Trainer(cfg, tm.init_model(PRNGKey(7), cfg.model))
+    rng = jax.random.PRNGKey(7)
+    it = synthetic_batches(jcfg, seed=0)
+    tiny = {}
+    for i in range(3):
+        batch = next(it)
+        rng, step_rng = jax.random.split(rng)
+        jstate, jm = jstep(jstate, batch, step_rng)
+        metrics = trainer.train_step(batch)
+        for k in ("n_tokens", "n_correct"):
+            assert int(metrics[k]) == int(jm[k]), k
+        for k in ("loss_sum", "xent_sum"):
+            np.testing.assert_allclose(float(metrics[k]), float(jm[k]), rtol=1e-5)
+        jgrads = _flat(jstate.opt_state[0])
+        for key, g in jgrads.items():
+            tiny[key] = tiny.get(key, False) | ((np.abs(g) < 1e-6) & (g != 0))
+        if i == 0:
+            for key, t in tm.named_leaves(trainer.params).items():
+                np.testing.assert_allclose(_grad_np(key, t), jgrads[key], rtol=1e-4,
+                                           atol=1e-6, err_msg=key)
+    np.testing.assert_array_equal(trainer.key, np.asarray(rng))
+    got, want = params_to_numpy(trainer.params), _flat(jstate.params)
+    start = params_to_numpy(tm.init_model(PRNGKey(7), cfg.model))
+    for key in want:
+        held = ~tiny[key]
+        np.testing.assert_allclose(got[key][held], want[key][held], atol=1e-5, rtol=0,
+                                   err_msg=key)
+        assert np.all(np.abs(got[key] - start[key])[~held] <= 3e-3 * ADAM_STEP), key
+    assert sum(int(m.sum()) for m in tiny.values()) < 0.02 * sum(
+        m.size for m in tiny.values())
+    fresh = Trainer(cfg, tm.init_model(PRNGKey(8), cfg.model))
+    fresh.state = trainer.state
+    np.testing.assert_array_equal(fresh.key, PRNGKey(7))
+
+
 def test_accumulation_equals_one_batch_with_unequal_token_counts():
     """Two micro-batches with very different token counts give the step
     of one batch holding both (SGD, no clip): the objective divides by
@@ -584,7 +649,7 @@ def test_loss_falls_with_dropout():
 
     cfg = _replace(tiny_test_config(), train={"lr_schedule": "constant",
                                               "learning_rate": 1e-3})
-    trainer = Trainer(cfg, tm.init_model(torch.Generator().manual_seed(0), cfg.model))
+    trainer = Trainer(cfg, tm.init_model(PRNGKey(0), cfg.model))
     it = synthetic_batches(cfg, seed=0)
     losses = []
     for _ in range(30):
@@ -628,7 +693,7 @@ def test_trainer_validates_stops_early_and_saves(tmp_path):
 
     cfg = _replace(tiny_test_config(), train={"valid_every": 2, "save_every": 3,
                                               "train_steps": 12})
-    params = tm.init_model(torch.Generator().manual_seed(0), cfg.model)
+    params = tm.init_model(PRNGKey(0), cfg.model)
     ckpt = CheckpointManager(str(tmp_path / "ck"), cfg)
     stop = EarlyStopping(patience=1, metric="accuracy", min_delta=10.0)  # never improves
     trainer = Trainer(cfg, params, checkpointer=ckpt, early_stopping=stop)
@@ -652,7 +717,7 @@ def test_trainer_validates_stops_early_and_saves(tmp_path):
 
 def _tiny_trainer(seed=0, **train):
     cfg = _replace(tiny_test_config(), model={"dropout": 0.0}, train=train)
-    return cfg, Trainer(cfg, tm.init_model(torch.Generator().manual_seed(seed), cfg.model))
+    return cfg, Trainer(cfg, tm.init_model(PRNGKey(seed), cfg.model))
 
 
 def _assert_same_state(a, b, exact=True):
@@ -683,7 +748,7 @@ def test_checkpoint_round_trip_and_max_to_keep(tmp_path):
         ckpt.save(trainer.step, trainer.state)
     assert ckpt.all_steps() == [2, 3] and ckpt.latest_step() == 3
     assert load_config(str(tmp_path)) == cfg
-    fresh = Trainer(cfg, tm.init_model(torch.Generator().manual_seed(9), cfg.model))
+    fresh = Trainer(cfg, tm.init_model(PRNGKey(9), cfg.model))
     fresh.state = ckpt.restore(device="cpu")
     _assert_same_state(fresh.state, trainer.state)
     older = ckpt.restore(step=2, device="cpu")
@@ -808,7 +873,7 @@ def test_train_steps_on_card_match_cpu(cuda):
         return {k: (t.grad if grad else t).detach().cpu().numpy().copy()
                 for k, t in tm.named_leaves(params).items()}
 
-    start = tm.init_model(torch.Generator().manual_seed(0), cfg.model)
+    start = tm.init_model(PRNGKey(0), cfg.model)
     begin = leaves(start)
     card = Trainer(cfg, tm.params_to(start, cuda))
     cpu = Trainer(cfg, start)

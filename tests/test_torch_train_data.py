@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from nanodecoder_tpu_torch.config import tiny_test_config
+from nanodecoder_tpu_torch.prng import PRNGKey
 from nanodecoder_tpu_torch.train import data as td
 from nanodecoder_tpu_torch.train import shards as ts
 
@@ -286,7 +287,7 @@ def test_cli_common_reads_checkpoint_directories(tmp_path):
     from nanodecoder_tpu_torch.train.trainer import Trainer
 
     cfg = tiny_test_config()
-    trainer = Trainer(cfg, init_model(torch.Generator().manual_seed(0), cfg.model))
+    trainer = Trainer(cfg, init_model(PRNGKey(0), cfg.model))
     mgr = CheckpointManager(str(tmp_path / "ck"), cfg)
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         load_params_and_config(str(tmp_path / "ck"), "cpu")
@@ -322,7 +323,7 @@ def test_basecall_cli_serves_a_checkpoint_directory(tmp_path):
     from nanodecoder_tpu_torch.train.trainer import Trainer
 
     cfg = tiny_test_config()
-    trainer = Trainer(cfg, init_model(torch.Generator().manual_seed(0), cfg.model))
+    trainer = Trainer(cfg, init_model(PRNGKey(0), cfg.model))
     CheckpointManager(str(tmp_path / "ck"), cfg).save(1, trainer.state)
     rng = np.random.default_rng(3)
     with h5py.File(tmp_path / "reads.fast5", "w") as f:
