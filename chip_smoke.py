@@ -1520,7 +1520,7 @@ def engine_cli(path: str, fmt: str, tmp: str, root: str, want: set[str]) -> None
         calls = parse_fastq(f.read(), "basecall CLI")
     check(set(calls) == want, f"basecall CLI: {len(calls)} reads, expected {len(want)}")
     stages = [x.split("] ", 1)[-1] for x in res.stderr.splitlines()
-              if "] stage " in x or "ksamples/s" in x]
+              if "] span " in x or "ksamples/s" in x]
     print(f"basecall CLI ({' '.join(cmd[1:3])} ...): {len(calls)} reads, 4 lines a read, "
           f"one record a read, process wall {wall:.1f} s; " + "; ".join(stages))
 

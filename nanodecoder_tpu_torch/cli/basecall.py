@@ -27,6 +27,7 @@ The rendezvous is torchrun's (MASTER_ADDR, MASTER_PORT), or --dist-init.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -85,8 +86,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--parity", action="store_true",
                     help="f32 compute instead of bf16")
     ap.add_argument("--stage-times", action="store_true",
-                    help="log per-stage wall time (ingest-wait, dispatch, "
-                         "backpressure-wait, d2h-wait, stitch+write)")
+                    help="record the engine's spans and log each span name's count, "
+                         "total, mean and self time (the stages ingest-wait, dispatch, "
+                         "backpressure-wait, d2h-wait, stitch+write and the spans "
+                         "inside them)")
     ap.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
                     help="the kernel route (model.use_pallas and decode.use_pallas; "
                          "default: on with the CUDA card, off with --cpu)")
@@ -126,7 +129,7 @@ def _basecall(args, log, device, rank: int, world: int) -> int:
     from nanodecoder_tpu_torch.parallel.multihost import (barrier, host_shard_path,
                                                           merge_host_shards,
                                                           partition_files_for_host)
-    from nanodecoder_tpu_torch.utils.profiling import StageTimer
+    from nanodecoder_tpu_torch.utils import profiling
     from nanodecoder_tpu_torch.utils.report import ReportManager
 
     params, config = load_params_and_config(args.ckpt, device)
@@ -181,20 +184,20 @@ def _basecall(args, log, device, rank: int, world: int) -> int:
 
     caller = StreamingBasecaller(params, config, depth=args.depth,
                                  attn_pos=args.stitch == "attn", device=device)
-    timer = StageTimer() if args.stage_times else None
-    with open(out_path, out_mode) as out, open(done_path, "a") as done_log:
-        meter = caller.run(
-            files, out, stitch_method=args.stitch, skip_read_ids=skip,
-            num_workers=args.workers, write_format=args.format,
-            done_log=done_log, stage_timer=timer,
-        )
+    with profiling.summarized() if args.stage_times else contextlib.nullcontext() as spans:
+        with open(out_path, out_mode) as out, open(done_path, "a") as done_log:
+            meter = caller.run(
+                files, out, stitch_method=args.stitch, skip_read_ids=skip,
+                num_workers=args.workers, write_format=args.format,
+                done_log=done_log,
+            )
     barrier("basecall-done")
     if world > 1:
         merge_host_shards(args.output, world, rank)
-    if timer is not None:
-        for name, st in timer.summary().items():
-            log.info("stage %-17s total %7.3fs  mean %6.2fms  x%d",
-                     name, st["total_sec"], st["mean_sec"] * 1e3, st["count"])
+    if spans is not None:
+        for name, st in spans.summary().items():
+            log.info("span %-20s total %8.3fs  self %8.3fs  mean %8.3fms  x%d", name,
+                     st["total_sec"], st["self_sec"], st["mean_sec"] * 1e3, st["count"])
     ReportManager().report_inference(meter.rates(), {"n_hosts": world, "rank": rank,
                                                      "device": str(device)})
     return 0

@@ -59,6 +59,7 @@ from nanodecoder_tpu_torch.decode.penalties import coverage_penalty, length_pena
 from nanodecoder_tpu_torch.models.model import (decode_step, init_decode_state,
                                                 reorder_decode_state_beam)
 from nanodecoder_tpu_torch.ops.beam_step import NEG_INF, beam_advance
+from nanodecoder_tpu_torch.utils.profiling import span
 from nanodecoder_tpu_torch.vocab import BOS_ID, EOS_ID, PAD_ID
 
 
@@ -198,53 +199,57 @@ def beam_decode(params, cfg: ModelConfig, dcfg: DecodeConfig,
 
     advance = beam_advance if dcfg.use_pallas else advance_top_k
     t = 0
+    stop = b == 0
     for i, st in enumerate(stages):
         scfg = dataclasses.replace(cfg, max_decode_len=st)
-        while t < st and not done():
-            mark("decode step")
-            if need_cov:
-                log_probs, step_attn, attn_mean, state = decode_step(
-                    params, scfg, cur, state, return_attn=True)
-            else:
-                log_probs, step_attn, state = decode_step(params, scfg, cur, state)
-            mark("advance + reorder")
-            if t < dcfg.min_len:  # EOS is no legal continuation yet
-                log_probs[:, EOS_ID] = NEG_INF
-            lp = log_probs.reshape(b, k, v)
-            pen = float(length_penalty(t + 1, dcfg.length_penalty, dcfg.alpha))
-            if need_cov:
-                # A candidate's mass: its origin beam's, plus the origin's
-                # attention row of this step.
-                cov_step = cov + attn_mean.reshape(b, k, -1)
-                top_ids, alive, alive_idx, fin_scores, fin_idx = advance_top_k(
-                    alive, lp, fin_scores, pen, k, v, EOS_ID,
-                    lambda ids: coverage_penalty(_gather(cov_step, ids // v),
-                                                 dcfg.coverage_penalty, dcfg.beta))
-            else:
-                top_ids, alive, alive_idx, fin_scores, fin_idx = advance(
-                    alive, lp, fin_scores, pen, k, v, EOS_ID)
-            top_ids = top_ids.long()
-            tok = top_ids % v
-            origin = top_ids // v
-            is_eos = tok == EOS_ID
-            # Per candidate: its token's log-prob and its origin beam's
-            # attention position.
-            cand_lp = lp.reshape(b, k * v).gather(1, top_ids)
-            cand_pos = step_attn.reshape(b, k).gather(1, origin).to(torch.float32)
-            cand_pack = torch.stack([tok.to(torch.float32), origin.to(torch.float32),
-                                     cand_lp, cand_pos], dim=2)       # (B, 2K, 4)
-            alive_pack = _gather(cand_pack, alive_idx)                # (B, K, 4)
-            hist[:, :, t, :] = alive_pack
-            cur = alive_pack[..., 0].long().reshape(-1)
-            alive_origin = alive_pack[..., 1].long()
-            if need_cov:
-                cov = _gather(cov_step, alive_origin)
-            state = reorder_decode_state_beam(state, alive_origin)
-            cand_meta = torch.stack([
-                torch.full((b, 2 * k), float(t), device=dev), origin.to(torch.float32),
-                is_eos.to(torch.float32), cand_lp, cand_pos], dim=2)  # (B, 2K, 5)
-            fin_meta = _gather(torch.cat([fin_meta, cand_meta], dim=1), fin_idx)
-            t += 1
+        while t < st and not stop:
+            with span("decode.step", step=t):
+                mark("decode step")
+                if need_cov:
+                    log_probs, step_attn, attn_mean, state = decode_step(
+                        params, scfg, cur, state, return_attn=True)
+                else:
+                    log_probs, step_attn, state = decode_step(params, scfg, cur, state)
+                mark("advance + reorder")
+                if t < dcfg.min_len:  # EOS is no legal continuation yet
+                    log_probs[:, EOS_ID] = NEG_INF
+                lp = log_probs.reshape(b, k, v)
+                pen = float(length_penalty(t + 1, dcfg.length_penalty, dcfg.alpha))
+                if need_cov:
+                    # A candidate's mass: its origin beam's, plus the origin's
+                    # attention row of this step.
+                    cov_step = cov + attn_mean.reshape(b, k, -1)
+                    top_ids, alive, alive_idx, fin_scores, fin_idx = advance_top_k(
+                        alive, lp, fin_scores, pen, k, v, EOS_ID,
+                        lambda ids: coverage_penalty(_gather(cov_step, ids // v),
+                                                     dcfg.coverage_penalty, dcfg.beta))
+                else:
+                    top_ids, alive, alive_idx, fin_scores, fin_idx = advance(
+                        alive, lp, fin_scores, pen, k, v, EOS_ID)
+                top_ids = top_ids.long()
+                tok = top_ids % v
+                origin = top_ids // v
+                is_eos = tok == EOS_ID
+                # Per candidate: its token's log-prob and its origin beam's
+                # attention position.
+                cand_lp = lp.reshape(b, k * v).gather(1, top_ids)
+                cand_pos = step_attn.reshape(b, k).gather(1, origin).to(torch.float32)
+                cand_pack = torch.stack([tok.to(torch.float32), origin.to(torch.float32),
+                                         cand_lp, cand_pos], dim=2)       # (B, 2K, 4)
+                alive_pack = _gather(cand_pack, alive_idx)                # (B, K, 4)
+                hist[:, :, t, :] = alive_pack
+                cur = alive_pack[..., 0].long().reshape(-1)
+                alive_origin = alive_pack[..., 1].long()
+                if need_cov:
+                    cov = _gather(cov_step, alive_origin)
+                state = reorder_decode_state_beam(state, alive_origin)
+                cand_meta = torch.stack([
+                    torch.full((b, 2 * k), float(t), device=dev), origin.to(torch.float32),
+                    is_eos.to(torch.float32), cand_lp, cand_pos], dim=2)  # (B, 2K, 5)
+                fin_meta = _gather(torch.cat([fin_meta, cand_meta], dim=1), fin_idx)
+                t += 1
+                with span("decode.sync"):
+                    stop = done()
         if i + 1 < len(stages):
             state = grow_self_cache(state, stages[i + 1])
 

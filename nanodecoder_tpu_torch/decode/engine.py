@@ -38,7 +38,6 @@ from __future__ import annotations
 import collections
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable
 
@@ -49,7 +48,8 @@ from nanodecoder_tpu_torch.config import Config
 from nanodecoder_tpu_torch.decode.finish import _finish_read_task
 from nanodecoder_tpu_torch.decode.translator import Translator
 from nanodecoder_tpu_torch.io.pipeline import AsyncChunkPipeline, _get_ingest_pool
-from nanodecoder_tpu_torch.utils.profiling import StageTimer
+from nanodecoder_tpu_torch.utils import profiling
+from nanodecoder_tpu_torch.utils.profiling import StageTimer, span
 from nanodecoder_tpu_torch.utils.statistics import ThroughputMeter
 
 
@@ -106,9 +106,10 @@ class StreamingBasecaller:
         outs = (tokens, tlens, lps) + ((pos,) if self.attn_pos else ())
         if self.device.type != "cuda":
             return outs, None, stop
-        host = tuple(x.to("cpu", non_blocking=True) for x in outs)
-        event = torch.cuda.Event()
-        event.record()
+        with span("engine.d2h_enqueue"):
+            host = tuple(x.to("cpu", non_blocking=True) for x in outs)
+            event = torch.cuda.Event()
+            event.record()
         return host, event, stop
 
     # -----------------------------------------------------------------
@@ -137,7 +138,11 @@ class StreamingBasecaller:
         and backpressure-wait (blocked on the bounded result queue); on
         the collector thread d2h-wait and stitch+write.  The two chains
         run concurrently; each chain's stages sum to its busy time, and
-        "wall" holds the run's wall time."""
+        "wall" holds the run's wall time.  While the span recorder is on
+        (utils/profiling.py), each stage is also a span, with the batch
+        number `b` (counted from 0 each run), beside the spans inside
+        them (the ingest's, the encode's, each decode step's) and those
+        of the copy waits and of the pool's ingest and finishing calls."""
         timer = stage_timer if stage_timer is not None else StageTimer()
         cfg = self.config
         skip = set(skip_read_ids)
@@ -164,11 +169,11 @@ class StreamingBasecaller:
             parts = per_read.pop(ridx)
             cb = rc.chunks
             stitch_futs.append((
-                stitch_pool.submit(_finish_read_task, rc.read.read_id,
-                                   [parts[ci] for ci in range(cb.n_chunks)],
-                                   cb.starts, cb.lengths, cb.chunk_len,
-                                   cb.chunk_overlap, stitch_method, cfg.model.kmer_k,
-                                   write_format),
+                profiling.submit(stitch_pool, _finish_read_task, rc.read.read_id,
+                                 [parts[ci] for ci in range(cb.n_chunks)],
+                                 cb.starts, cb.lengths, cb.chunk_len,
+                                 cb.chunk_overlap, stitch_method, cfg.model.kmer_k,
+                                 write_format),
                 rc.read.read_id, cb.total_samples, cb.n_chunks,
             ))
 
@@ -176,7 +181,7 @@ class StreamingBasecaller:
             """Write completed records (FIFO).  block=True waits for all."""
             while stitch_futs and (block or stitch_futs[0][0].done()):
                 fut, read_id, n_samples, n_chunks = stitch_futs.popleft()
-                record, n_bases = fut.result()
+                record, n_bases = profiling.received(fut.result(), "finish.read")
                 out.write(record)
                 if done_log is not None:
                     done_log.write(read_id + "\n")
@@ -192,20 +197,21 @@ class StreamingBasecaller:
                                            thread_name_prefix="engine-d2h")
         collector_exc: list[BaseException] = []
 
-        def to_host(host, event):
+        def to_host(host, event, b: int):
             if event is not None:
-                event.synchronize()
+                with span("engine.copy_wait", b=b):
+                    event.synchronize()
             return tuple(x.numpy() for x in host)
 
         def collect_one(item) -> None:
-            fut, packed = item
-            with timer.stage("d2h-wait"):
+            fut, packed, b = item
+            with timer.stage("d2h-wait", b=b):
                 tokens, tlens, lps, *rest = fut.result()
                 # attn_pos=False: positions never crossed; the expansion
                 # still needs a same-shape array (the trim and align
                 # stitchers do not read its values).
                 pos = rest[0] if rest else np.zeros_like(tokens)
-            with timer.stage("stitch+write"):
+            with timer.stage("stitch+write", b=b):
                 for row, (ridx, ci) in enumerate(packed.sources):
                     per_read[ridx][ci] = (tokens[row], int(tlens[row]), lps[row], pos[row])
                     if len(per_read[ridx]) == pipe.reads[ridx].chunks.n_chunks:
@@ -246,35 +252,35 @@ class StreamingBasecaller:
         col_thread = threading.Thread(target=collector, name="engine-collector",
                                       daemon=True)
         col_thread.start()
-        t_wall0 = time.perf_counter()
         stopped = False  # a rank's stop flag came back in a gather
-        try:
-            batches = pipe.batches()
-            # With a mesh plan, a failure leaves the loop through the
-            # flag of the next gather, which every rank joins.
-            while self._sharded or not collector_exc:
-                with timer.stage("ingest-wait"):
-                    packed = next(batches, None)
-                if packed is None:
-                    break
-                with timer.stage("dispatch"):
-                    host, event, stopped = self._decode(packed.chunks, packed.lengths,
-                                                        bool(collector_exc))
-                    fut = None if host is None or stopped else \
-                        transfer_pool.submit(to_host, host, event)
-                if stopped:
-                    break
-                if fut is None:
-                    continue
-                with timer.stage("backpressure-wait"):
-                    result_q.put((fut, packed))
-        finally:
-            result_q.put(None)
-            col_thread.join()
-            transfer_pool.shutdown(wait=False)
-            pipe.stop()
-            timer.totals["wall"] += time.perf_counter() - t_wall0
-            timer.counts["wall"] += 1
+        with timer.stage("wall"):
+            try:
+                batches = pipe.batches()
+                # With a mesh plan, a failure leaves the loop through the
+                # flag of the next gather, which every rank joins.
+                b = -1
+                while self._sharded or not collector_exc:
+                    b += 1
+                    with timer.stage("ingest-wait", b=b):
+                        packed = next(batches, None)
+                    if packed is None:
+                        break
+                    with timer.stage("dispatch", b=b):
+                        host, event, stopped = self._decode(packed.chunks, packed.lengths,
+                                                            bool(collector_exc))
+                        fut = None if host is None or stopped else \
+                            transfer_pool.submit(to_host, host, event, b)
+                    if stopped:
+                        break
+                    if fut is None:
+                        continue
+                    with timer.stage("backpressure-wait", b=b):
+                        result_q.put((fut, packed, b))
+            finally:
+                result_q.put(None)
+                col_thread.join()
+                transfer_pool.shutdown(wait=False)
+                pipe.stop()
         if collector_exc:
             raise collector_exc[0]
         if stopped:

@@ -2,10 +2,12 @@
 
 The port's counterpart of `nanodecoder_tpu.decode.greedy`.  The loop
 runs on the host, one decode step per iteration, and stops early once
-every row has emitted EOS.  On the lean transformer path with
-`staged_decode` the self cache grows through the stages of
-`decode_stage_lengths` (for a max length of 96: 24, 48, 96 rows), so
-each step reads only the live prefix.  The RNN decoder has no cache to
+every row has emitted EOS: each step ends in one blocking read of that
+flag (while the span recorder of utils/profiling.py is on, the
+`decode.sync` span inside the step's `decode.step`).  On the lean
+transformer path with `staged_decode` the self cache grows through the
+stages of `decode_stage_lengths` (for a max length of 96: 24, 48, 96
+rows), so each step reads only the live prefix.  The RNN decoder has no cache to
 grow and runs one stage.
 
 Tie-breaking: torch.argmax returns the lowest index on ties, like
@@ -21,6 +23,7 @@ import torch
 
 from nanodecoder_tpu_torch.config import ModelConfig
 from nanodecoder_tpu_torch.models.model import decode_step, init_decode_state
+from nanodecoder_tpu_torch.utils.profiling import span
 from nanodecoder_tpu_torch.vocab import BOS_ID, EOS_ID, PAD_ID
 
 
@@ -86,24 +89,28 @@ def greedy_decode(params, cfg: ModelConfig, memory: torch.Tensor,
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
     lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
     t = 0
+    done = b == 0
     for i, st in enumerate(stages):
         scfg = dataclasses.replace(cfg, max_decode_len=st)
-        while t < st and not bool(finished.all()):
-            log_probs, attn_pos, state = decode_step(params, scfg, cur, state)
-            if t < min_len:
-                log_probs[:, EOS_ID] = -1e9
-            nxt = log_probs.argmax(dim=-1)
-            lp = log_probs.gather(1, nxt[:, None])[:, 0]
-            # Finished rows keep emitting PAD with zero score.
-            nxt = torch.where(finished, PAD_ID, nxt)
-            lp = torch.where(finished, 0.0, lp)
-            tokens[:, t] = nxt.to(torch.int32)
-            lps[:, t] = lp
-            pos[:, t] = attn_pos
-            lengths = torch.where(finished, lengths, t + 1)
-            finished = finished | (nxt == EOS_ID)
-            cur = nxt
-            t += 1
+        while t < st and not done:
+            with span("decode.step", step=t):
+                log_probs, attn_pos, state = decode_step(params, scfg, cur, state)
+                if t < min_len:
+                    log_probs[:, EOS_ID] = -1e9
+                nxt = log_probs.argmax(dim=-1)
+                lp = log_probs.gather(1, nxt[:, None])[:, 0]
+                # Finished rows keep emitting PAD with zero score.
+                nxt = torch.where(finished, PAD_ID, nxt)
+                lp = torch.where(finished, 0.0, lp)
+                tokens[:, t] = nxt.to(torch.int32)
+                lps[:, t] = lp
+                pos[:, t] = attn_pos
+                lengths = torch.where(finished, lengths, t + 1)
+                finished = finished | (nxt == EOS_ID)
+                cur = nxt
+                t += 1
+                with span("decode.sync"):
+                    done = bool(finished.all())
         if i + 1 < len(stages):
             state = grow_self_cache(state, stages[i + 1])
     # Rows that never emitted EOS have length tmax.

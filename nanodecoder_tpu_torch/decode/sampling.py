@@ -34,6 +34,7 @@ from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import DecodeConfig, ModelConfig
 from nanodecoder_tpu_torch.decode.greedy import GreedyResult
 from nanodecoder_tpu_torch.models.model import decode_step, init_decode_state
+from nanodecoder_tpu_torch.utils.profiling import span
 from nanodecoder_tpu_torch.vocab import BOS_ID, EOS_ID, PAD_ID
 
 NEG_INF = -1.0e9
@@ -82,25 +83,29 @@ def sample_decode(params, cfg: ModelConfig, dcfg: DecodeConfig, memory: torch.Te
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
     lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
     t = 0
-    while t < tmax and not bool(finished.all()):
-        log_probs, attn_pos, state = decode_step(params, cfg, cur, state)
-        if temp != 1.0:
-            log_probs = torch.log_softmax(log_probs * inv_temp, dim=-1)
-        if t < dcfg.min_len:  # EOS is no legal continuation yet
-            log_probs[:, EOS_ID] = NEG_INF
-        lp_r = restrict_log_probs(log_probs, dcfg.sampling_topk, dcfg.sampling_topp)
-        nxt = prng.categorical(prng.fold_in(key, t), lp_r, row0=row0)
-        lp = lp_r.gather(1, nxt[:, None])[:, 0]
-        # Finished rows keep emitting PAD with zero score.
-        nxt = torch.where(finished, PAD_ID, nxt)
-        lp = torch.where(finished, 0.0, lp)
-        tokens[:, t] = nxt.to(torch.int32)
-        lps[:, t] = lp
-        pos[:, t] = attn_pos
-        lengths = torch.where(finished, lengths, t + 1)
-        finished = finished | (nxt == EOS_ID)
-        cur = nxt
-        t += 1
+    done = b == 0
+    while t < tmax and not done:
+        with span("decode.step", step=t):
+            log_probs, attn_pos, state = decode_step(params, cfg, cur, state)
+            if temp != 1.0:
+                log_probs = torch.log_softmax(log_probs * inv_temp, dim=-1)
+            if t < dcfg.min_len:  # EOS is no legal continuation yet
+                log_probs[:, EOS_ID] = NEG_INF
+            lp_r = restrict_log_probs(log_probs, dcfg.sampling_topk, dcfg.sampling_topp)
+            nxt = prng.categorical(prng.fold_in(key, t), lp_r, row0=row0)
+            lp = lp_r.gather(1, nxt[:, None])[:, 0]
+            # Finished rows keep emitting PAD with zero score.
+            nxt = torch.where(finished, PAD_ID, nxt)
+            lp = torch.where(finished, 0.0, lp)
+            tokens[:, t] = nxt.to(torch.int32)
+            lps[:, t] = lp
+            pos[:, t] = attn_pos
+            lengths = torch.where(finished, lengths, t + 1)
+            finished = finished | (nxt == EOS_ID)
+            cur = nxt
+            t += 1
+            with span("decode.sync"):
+                done = bool(finished.all())
     # Rows that never emitted EOS have length tmax.
     lengths = torch.where(finished, lengths, tmax)
     return GreedyResult(tokens=tokens, lengths=lengths, token_log_probs=lps,

@@ -33,6 +33,7 @@ from nanodecoder_tpu_torch.io.signal import (chunk_signal, convert_h2d,
                                              normalize_signal, wire_to_f32)
 from nanodecoder_tpu_torch.models.model import encode, params_to, prepare_serving_params
 from nanodecoder_tpu_torch.utils.logging import get_logger
+from nanodecoder_tpu_torch.utils.profiling import span
 from nanodecoder_tpu_torch.vocab import make_vocab
 
 
@@ -102,11 +103,13 @@ class Translator:
                 sample_pos.to(torch.int16))
 
     def _encode(self, wire: np.ndarray, lengths: np.ndarray):
-        signal = wire_to_f32(torch.from_numpy(wire).to(self.device), self._h2d,
-                             self.config.signal.clip_sigma,
-                             self.config.signal.chunk_len)
-        lens = torch.from_numpy(lengths.astype(np.int32)).to(self.device)
-        return encode(self.params, self.config.model, signal, lens)
+        with span("translator.h2d"):
+            signal = wire_to_f32(torch.from_numpy(wire).to(self.device), self._h2d,
+                                 self.config.signal.clip_sigma,
+                                 self.config.signal.chunk_len)
+            lens = torch.from_numpy(lengths.astype(np.int32)).to(self.device)
+        with span("model.encode"):
+            return encode(self.params, self.config.model, signal, lens)
 
     def _beam(self, wire: np.ndarray, lengths: np.ndarray):
         res = beam_decode(self.params, self.config.model, self.config.decode,

@@ -30,6 +30,7 @@ from nanodecoder_tpu_torch.io.fast5 import RawRead, list_signal_files, read_fast
 from nanodecoder_tpu_torch.io.signal import (_PACKED_WIRES, ChunkBatch, chunk_signal,
                                              convert_h2d, normalize_signal, wire_columns,
                                              wire_np_dtype)
+from nanodecoder_tpu_torch.utils import profiling
 from nanodecoder_tpu_torch.utils.logging import get_logger
 
 log = get_logger("pipeline")
@@ -255,13 +256,13 @@ class AsyncChunkPipeline:
         def submit_next() -> None:
             path = next(it, None)
             if path is not None:
-                futs.append(pool.submit(_ingest_file_worker, path,
-                                        self.scfg, h2d_name))
+                futs.append(profiling.submit(pool, _ingest_file_worker, path,
+                                             self.scfg, h2d_name))
 
         for _ in range(2 * self.num_workers):
             submit_next()
         while futs and not self._stop.is_set():
-            result = futs.popleft().result()
+            result = profiling.received(futs.popleft().result(), "ingest.file", reads=len)
             submit_next()
             for rc in result:
                 if not self._put(rc):
@@ -288,7 +289,8 @@ class AsyncChunkPipeline:
         if self._producer_thread is None:
             self.start()
         while True:
-            item = self.read_queue.get()
+            with profiling.span("ingest.queue_wait"):
+                item = self.read_queue.get()
             if item is _SENTINEL:
                 return
             if isinstance(item, Exception):
@@ -305,6 +307,10 @@ class AsyncChunkPipeline:
         buf_src: list[tuple[int, int]] = []
 
         def flush() -> PackedBatch:
+            with profiling.span("ingest.pack"):
+                return pack()
+
+        def pack() -> PackedBatch:
             n_real = len(buf_chunks)
             chunks = np.zeros((bsz, self.wire_cols), self.h2d_dtype)
             lengths = np.zeros((bsz,), np.int32)

@@ -12,6 +12,7 @@ midpoint falls inside it as targets; batches are dicts of numpy arrays,
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 from typing import Iterator
@@ -20,6 +21,7 @@ import numpy as np
 
 from nanodecoder_tpu_torch.config import Config
 from nanodecoder_tpu_torch.io.signal import normalize_signal
+from nanodecoder_tpu_torch.utils.profiling import span
 from nanodecoder_tpu_torch.vocab import BOS_ID, EOS_ID, PAD_ID, make_vocab
 
 
@@ -153,7 +155,9 @@ def prefetch_batches(it: Iterator[dict[str, np.ndarray]], depth: int = 4
     """The batches of `it`, in order, made ahead by one daemon thread into
     a queue of `depth`.  An error of the source is raised in the consumer
     (not turned into the end of the stream); the thread stops when the
-    consumer does."""
+    consumer does.  The consumer's waits are `train.data_wait` spans, the
+    step number counting the batches taken, while the span recorder of
+    utils/profiling.py is on."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     done = object()
@@ -169,8 +173,9 @@ def prefetch_batches(it: Iterator[dict[str, np.ndarray]], depth: int = 4
 
     threading.Thread(target=producer, daemon=True, name="batch-prefetch").start()
     try:
-        while True:
-            batch = q.get()
+        for n in itertools.count():
+            with span("train.data_wait", step=n):
+                batch = q.get()
             if batch is done:
                 return
             if isinstance(batch, BaseException):

@@ -28,6 +28,12 @@ micro-batch takes one of split(step key, A); every rank holds the same
 keys and draws its rows of the global micro-batch's masks (their counter
 offset), so a data-parallel step equals one device's within f32
 summation order, with dropout too.
+
+While the span recorder of utils/profiling.py is on, each step is a
+`train.step` span (with the trainer's step number) holding `train.h2d`
+(the batch's copy to the device), `train.forward` and `train.backward`
+(one each a micro-batch) and `train.update` (the clip and the
+optimizer's update).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from nanodecoder_tpu_torch.models.model import (decode_teacher_forced, encode,
                                                 named_leaves)
 from nanodecoder_tpu_torch.train.loss import guided_attention_loss, loss_and_metrics
 from nanodecoder_tpu_torch.train.optim import Optimizer, build_optimizer, host_lr
+from nanodecoder_tpu_torch.utils.profiling import span
 from nanodecoder_tpu_torch.utils.report import ReportManager
 from nanodecoder_tpu_torch.utils.statistics import Statistics
 from nanodecoder_tpu_torch.vocab import PAD_ID
@@ -101,16 +108,19 @@ def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
         optimizer.zero_grad()
         summed = None
         for i, rng in enumerate(prng.split(key, accum)):
-            loss, metrics = micro_loss(params, {k: v[i, rows] for k, v in batch.items()},
-                                       rng, inv_total, share / accum, rows.start)
-            loss.backward()
+            with span("train.forward"):
+                loss, metrics = micro_loss(params, {k: v[i, rows] for k, v in batch.items()},
+                                           rng, inv_total, share / accum, rows.start)
+            with span("train.backward"):
+                loss.backward()
             metrics = {k: metrics[k].detach() for k in METRIC_KEYS}
             summed = metrics if summed is None else \
                 {k: summed[k] + metrics[k] for k in METRIC_KEYS}
         if plan is not None:
             plan.all_reduce_grads(optimizer.params.values())
             summed = plan.sum_metrics(summed)
-        optimizer.step()
+        with span("train.update"):
+            optimizer.step()
         return summed
 
     return train_step
@@ -206,8 +216,10 @@ class Trainer:
         """One optimizer step on a numpy (A, B, ...) batch, keyed by the next
         step key: self.key, step key = split(self.key)."""
         self.key, step_key = prng.split(self.key)
-        metrics = self._train_step(self.params, batch_to_device(batch, self.device),
-                                   step_key)
+        with span("train.step", step=self.step):
+            with span("train.h2d"):
+                batch = batch_to_device(batch, self.device)
+            metrics = self._train_step(self.params, batch, step_key)
         self.step += 1
         return metrics
 

@@ -27,12 +27,6 @@ class Statistics:
         self.n_correct += int(n_correct)
         self.n_batches += 1
 
-    def merge(self, other: "Statistics") -> None:
-        self.loss += other.loss
-        self.n_tokens += other.n_tokens
-        self.n_correct += other.n_correct
-        self.n_batches += other.n_batches
-
     @property
     def accuracy(self) -> float:
         return self.n_correct / self.n_tokens if self.n_tokens else 0.0

@@ -220,6 +220,63 @@ def test_engine_stage_timer(fast5_files):
     assert summary["wall"]["count"] == 1
 
 
+def test_engine_spans(fast5_files, monkeypatch):
+    """With the span recorder on: every batch has its dispatch, upload,
+    encode and decode-step spans; one decode.step a counted step, each
+    holding one decode.sync; one ingest.file a file, run in another
+    process between its submit and its receipt, their reads the reads
+    given; one finish.read a read."""
+    import collections
+    import time
+
+    from nanodecoder_tpu_torch.io import pipeline
+    from nanodecoder_tpu_torch.utils import profiling
+
+    sent = []
+    pool_of = pipeline._get_ingest_pool
+
+    class TimedPool:
+        def __init__(self, pool):
+            self.pool = pool
+
+        def submit(self, fn, *args):
+            t = [time.perf_counter_ns(), None]
+            fut = self.pool.submit(fn, *args)
+            fut.add_done_callback(lambda _f: t.__setitem__(1, time.perf_counter_ns()))
+            sent.append(t)
+            return fut
+
+    monkeypatch.setattr(pipeline, "_get_ingest_pool", lambda n: TimedPool(pool_of(n)))
+    engine = _port_engine()
+    profiling.drain()
+    profiling.enable()
+    try:
+        engine.run(fast5_files, io.StringIO(), num_workers=2)
+    finally:
+        profiling.disable()
+    spans = profiling.drain()
+    by_name = collections.defaultdict(list)
+    for sp in spans:
+        by_name[sp.name].append(sp)
+    assert engine.batches > 1
+    for b in range(engine.batches):
+        names = {sp.name for sp in spans if sp.b == b}
+        assert {"ingest-wait", "dispatch", "translator.h2d", "model.encode",
+                "decode.step", "decode.sync", "stitch+write"} <= names, b
+    steps = by_name["decode.step"]
+    assert len(steps) == engine.decode_steps
+    assert sorted(sp.parent for sp in by_name["decode.sync"]) == sorted(sp.id for sp in steps)
+    files = by_name["ingest.file"]
+    assert len(files) == len(sent) == N_FILES
+    for sp, (t_submit, t_receipt) in zip(files, sent):
+        assert sp.pid != os.getpid()
+        assert t_submit <= sp.start_ns < sp.end_ns <= t_receipt
+    assert sum(sp.reads for sp in files) == N_FILES * READS_PER_FILE
+    assert len(by_name["finish.read"]) == N_FILES * READS_PER_FILE
+    assert all(sp.pid != os.getpid() for sp in by_name["finish.read"])
+    assert len(by_name["wall"]) == 1
+
+
 def _boom_finish_task(*args, **kwargs):
     raise RuntimeError("boom")
 

@@ -597,6 +597,35 @@ def test_train_steps_with_dropout_match_jax(accum):
     np.testing.assert_array_equal(fresh.key, PRNGKey(7))
 
 
+def test_train_step_spans():
+    """With the span recorder on, each step fed by prefetch_batches has its
+    data wait and a train.step span holding the batch's copy, a forward
+    and a backward a micro-batch and the update, all with its number."""
+    from nanodecoder_tpu_torch.train.data import prefetch_batches, synthetic_batches
+    from nanodecoder_tpu_torch.utils import profiling
+
+    cfg = _replace(tiny_test_config(), train={"accum_steps": 2})
+    trainer = Trainer(cfg, tm.init_model(PRNGKey(7), cfg.model))
+    feed = prefetch_batches(synthetic_batches(cfg, seed=0), depth=2)
+    profiling.drain()
+    profiling.enable()
+    try:
+        for _ in range(3):
+            trainer.train_step(next(feed))
+    finally:
+        profiling.disable()
+        feed.close()
+    spans = profiling.drain()
+    for step in range(3):
+        mine = [s for s in spans if s.step == step]
+        names = sorted(s.name for s in mine)
+        assert names == sorted(["train.data_wait", "train.step", "train.h2d", "train.update"]
+                               + ["train.forward", "train.backward"] * 2), step
+        (outer,) = [s for s in mine if s.name == "train.step"]
+        assert all(s.parent == outer.id for s in mine if s.name not in
+                   ("train.step", "train.data_wait"))
+
+
 def test_accumulation_equals_one_batch_with_unequal_token_counts():
     """Two micro-batches with very different token counts give the step
     of one batch holding both (SGD, no clip): the objective divides by
