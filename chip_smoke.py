@@ -93,9 +93,11 @@ Phases, in order; any failure exits non-zero before the last line:
      ksamples/s, target tokens/s, peak memory, the host's wait for data;
      3 more steps under torch.profiler: device busy ms, idle share,
      kernels a step, the costliest kernels), then 10 bf16 steps
-     (finite), all at the committed dropout 0.1; the training steps
-     launch no kernel but R1, one launch a dropout draw (3 an encoder
-     layer, 4 a decoder layer);
+     (finite), all at the committed dropout 0.1; (b)'s trainers capture
+     their step as a CUDA graph at the second step and replay it after,
+     (a)'s are held eager; the training steps launch no kernel but R1,
+     one launch a dropout draw (3 an encoder layer, 4 a decoder layer) of
+     each step that is not replayed (an eager step, a capture);
      (c) validation of (a)'s params on 4 batches of 32 with K5 and
      without (K5 launches
      6 x 4 and 0, xent_sum within rtol 1e-4, n_correct within 0.1% of
@@ -209,8 +211,11 @@ Phases, in order; any failure exits non-zero before the last line:
      1024) timed per call and device-only beside their bound (the built
      kernel's SASS instructions per element on the SM's busiest pipe at
      the card's SM count and highest clock, mask bytes against 3.35 TB/s),
-     the plain version and torch.rand; R1 launched on the train, sample,
-     dp_rank0 and dp_rank1 paths and on no other;
+     the plain version and torch.rand, and the table-keyed kernel (its key
+     read from a device key table, as the train step's captured graph
+     draws) beside the scalar-keyed one, equal to it, per call and
+     device-only; R1 launched on the train, sample, dp_rank0 and dp_rank1
+     paths and on no other;
  19. a `kernels` JSON line: launches on each path (greedy, phases 3-4;
      beam, 5-6; mha, 7; unfolded, 8; no_pallas, 9; tiny, 11; engine,
      12; train, 13 (a)-(c); train_serve, 13 (d); rnn, 14 (a)-(b);
@@ -222,8 +227,8 @@ Phases, in order; any failure exits non-zero before the last line:
      errors, times; R1's times at the train step's mask shapes;
  20. the last line: {"ok": true, "device": {...}}.
 
-`--kernels` runs phase 1 and the named kernels' phase 2 only and prints
-their numbers as one JSON line; with `--root` it imports (and builds) the
+`--kernels` runs phase 1 and the named kernels' phase 2 only (R1: its
+phase 18) and prints their numbers as one JSON line; with `--root` it imports (and builds) the
 package of another checkout, such as an older tree unpacked into a
 git-ignored directory, to compare two versions in one call.
 """
@@ -1670,6 +1675,9 @@ def train_parity(dev, model=None, flat=None, label="train parity", dropout=0.0,
             else params_from_numpy(flat, cfg.model, device)
 
     card, cpu = quiet_trainer(cfg, start(dev)), quiet_trainer(cfg, start("cpu"))
+    # Held eager: each step is checked against the CPU's from the same
+    # state, and the ReLU inputs are read on the host inside the forward.
+    card._graphs = None
     replay = {k: v.requires_grad_(True) for k, v in host_leaves(card.params).items()}
     replay_opt = Optimizer(replay, cfg.train, cfg.model.d_model)
     t0 = time.perf_counter()
@@ -1954,19 +1962,30 @@ def phase_train(dev, reset, counts, phase4: dict, root: str) -> tuple[dict, dict
           f"{PARITY_LR:.0e}, then {DROPOUT_PARITY_STEPS} at dropout 0.1; learning batch "
           f"32 {LEARN_STEPS} f32 steps + {BF16_STEPS} bf16 steps at dropout "
           f"{train_config(32).model.dropout}")
+    from nanodecoder_tpu_torch.utils.profiling import counters
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         reset()
+        graphs0 = counters()
         card, batches = train_parity(dev)
         train_parity(dev, label="train parity, dropout 0.1", dropout=0.1,
                      steps=DROPOUT_PARITY_STEPS)
         numbers = train_learning(dev)
-        # The training steps launch no kernel but R1, once a dropout draw.
+        # The training steps launch no kernel but R1, once a dropout draw
+        # of a step that is not replayed.
         stepped = counts()
+        graphs = {k: counters().get(f"train.graph_{k}", 0) - graphs0.get(f"train.graph_{k}", 0)
+                  for k in ("captures", "replays")}
+        steps = DROPOUT_PARITY_STEPS + LEARN_STEPS + PROFILED_STEPS + BF16_STEPS
         want = train_draws(train_config(32).model) * (
-            DROPOUT_PARITY_STEPS + LEARN_STEPS + PROFILED_STEPS + BF16_STEPS)
-        print(f"training steps: R1 launched {stepped['R1']} times ({want} expected: "
-              f"{train_draws(train_config(32).model)} dropout draws a step)")
+            steps - graphs["replays"] + graphs["captures"])
+        print(f"training steps: {graphs['captures']} graphs captured, {graphs['replays']} "
+              f"replays; R1 launched {stepped['R1']} times ({want} expected: "
+              f"{train_draws(train_config(32).model)} dropout draws a step not replayed)")
+        check(graphs == {"captures": 2, "replays": LEARN_STEPS + PROFILED_STEPS + BF16_STEPS - 2},
+              f"training steps: graphs {graphs}, expected (b)'s two trainers to capture at "
+              "their second step and replay every later one")
         check(stepped["R1"] == want and all(n == 0 for k, n in stepped.items() if k != "R1"),
               f"training steps launched {stepped}, expected R1 {want} and nothing else")
         numbers.update(train_validation(card.params, dev, reset, counts))
@@ -3611,7 +3630,8 @@ def phase_prng(dev) -> dict:
     version's, torch.rand's for as many floats (a yardstick: another
     function), the bound.  Returns the numbers."""
     from nanodecoder_tpu_torch import prng
-    from nanodecoder_tpu_torch.ops.threefry import threefry_draw, threefry_draw_plain
+    from nanodecoder_tpu_torch.ops.threefry import (threefry_draw, threefry_draw_plain,
+                                                    threefry_draw_table)
 
     with np.load(PRNG_FIXTURE) as f:
         saved = {k: f[k] for k in f.files}
@@ -3648,13 +3668,21 @@ def phase_prng(dev) -> dict:
     print(f"R1's SASS per element (pipe: instructions): {sass}; "
           f"{sm_per_s / 1e9:.1f} G SM clocks a second")
     shapes = {}
+    table = torch.from_numpy(np.asarray(key, np.uint32).reshape(1, 2).view(np.int32)).to(dev)
     for shape in PRNG_SHAPES:
         n = math.prod(shape)
 
         def draw(n=n):
             return threefry_draw(key, n, "bernoulli", p=PRNG_KEEP, device=dev)
+
+        def draw_table(n=n):
+            return threefry_draw_table(table, 0, n, "bernoulli", p=PRNG_KEEP)
+        check(torch.equal(draw_table(), draw()),
+              f"R1 bernoulli {shape}: the table-keyed kernel differs from the scalar-keyed")
         call_ms = cuda_ms(draw)
         device_ms = graph_ms(draw, n=20)
+        table_call_ms = cuda_ms(draw_table)
+        table_device_ms = graph_ms(draw_table, n=20)
         plain_ms = cuda_ms(lambda: threefry_draw_plain(key, n, "bernoulli", p=PRNG_KEEP,
                                                        device=dev), reps=5, warmup=1)
         rand_ms = graph_ms(lambda: torch.rand(n, device=dev), n=20)
@@ -3662,11 +3690,14 @@ def phase_prng(dev) -> dict:
         shapes["x".join(map(str, shape))] = {
             "call_ms": call_ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "torch_rand_ms": rand_ms, "bound_ms": bound_ms, "bound_by": by,
-            "bound_share": bound_ms / device_ms}
+            "bound_share": bound_ms / device_ms, "table_call_ms": table_call_ms,
+            "table_device_ms": table_device_ms}
         print(f"R1 bernoulli {shape} ({n} draws): {call_ms:.4f} ms a call, "
               f"{device_ms:.4f} ms device-only, bound {bound_ms:.4f} ms ({by}; share "
               f"{bound_ms / device_ms:.2f}); plain {plain_ms:.3f} ms; torch.rand of "
-              f"{n} floats {rand_ms:.4f} ms device-only (a yardstick: another function)")
+              f"{n} floats {rand_ms:.4f} ms device-only (a yardstick: another function); "
+              f"table-keyed {table_call_ms:.4f} ms a call, {table_device_ms:.4f} ms "
+              f"device-only")
     per_step = {name: ms for name, ms in zip(
         ("enc_d", "enc_ffn", "dec_d", "dec_ffn"),
         (v["device_ms"] for v in shapes.values()))}
@@ -3707,8 +3738,10 @@ def kernel_times(names: list[str]) -> int:
                                for c in (256, 1536) for dt in F32_BF16}
             elif name == "K7":
                 stats[name] = {"float32": phase_k7(dev)}
+            elif name == "R1":
+                stats[name] = phase_prng(dev)
             else:
-                raise SmokeError(f"--kernels takes K4a, K3, K2 and K7, not {name}")
+                raise SmokeError(f"--kernels takes K4a, K3, K2, K7 and R1, not {name}")
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3719,7 +3752,7 @@ def kernel_times(names: list[str]) -> int:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="",
-                    help="comma-separated K4a, K3, K2, K7: time only these kernels "
+                    help="comma-separated K4a, K3, K2, K7, R1: time only these kernels "
                          "and stop")
     ap.add_argument("--root", default=REPO,
                     help="the checkout whose nanodecoder_tpu_torch to import")

@@ -19,7 +19,11 @@
 //
 // Design: one thread per counter pair, no shared memory, the key and the
 // offset passed by value, one instance per output kind; rotations are
-// funnel shifts (one instruction each).  The multiply-add of "uniform" is
+// funnel shifts (one instruction each).  A second launcher,
+// nd_threefry_table, reads the two key words from device memory (a row
+// of a key table) instead: the same hash and output, for draws captured
+// in a CUDA graph whose keys change from one replay to the next (the
+// train step's dropout), the table written before each replay.  The multiply-add of "uniform" is
 // one fused multiply-add (__fmaf_rn): XLA compiles JAX's
 // `floats * (hi - lo) + lo` into an FMA on the CPU, and the two roundings
 // of __fmul_rn / __fadd_rn differ from it in about half the values at
@@ -60,11 +64,9 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
 // 2: bernoulli (bool bytes, uniform on [0, 1) below p).  One instance per
 // kind keeps each one's code straight-line.
 template <int kKind>
-__global__ void __launch_bounds__(kThreads)
-threefry_kernel(void* __restrict__ out, long long n, uint32_t k0, uint32_t k1,
-                unsigned long long offset, float lo, float span, float p) {
-  const long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (j >= n) return;
+__device__ __forceinline__ void draw(void* __restrict__ out, long long j, uint32_t k0,
+                                     uint32_t k1, unsigned long long offset, float lo,
+                                     float span, float p) {
   const uint32_t word = threefry_bits(k0, k1, offset + static_cast<unsigned long long>(j));
   if constexpr (kKind == 0) {
     static_cast<uint32_t*>(out)[j] = word;
@@ -75,6 +77,25 @@ threefry_kernel(void* __restrict__ out, long long n, uint32_t k0, uint32_t k1,
     else
       static_cast<uint8_t*>(out)[j] = f < p;
   }
+}
+
+template <int kKind>
+__global__ void __launch_bounds__(kThreads)
+threefry_kernel(void* __restrict__ out, long long n, uint32_t k0, uint32_t k1,
+                unsigned long long offset, float lo, float span, float p) {
+  const long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= n) return;
+  draw<kKind>(out, j, k0, k1, offset, lo, span, p);
+}
+
+// The key words at `key` (two uint32, k0 then k1), read by every thread.
+template <int kKind>
+__global__ void __launch_bounds__(kThreads)
+threefry_table_kernel(void* __restrict__ out, long long n, const uint32_t* __restrict__ key,
+                      unsigned long long offset, float lo, float span, float p) {
+  const long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= n) return;
+  draw<kKind>(out, j, __ldg(key), __ldg(key + 1), offset, lo, span, p);
 }
 
 }  // namespace
@@ -90,5 +111,19 @@ extern "C" int nd_threefry(void* out, long long n, unsigned int k0, unsigned int
                       : kind == 1 ? threefry_kernel<1> : threefry_kernel<2>;
   launch<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       out, n, k0, k1, offset, lo, span, p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nd_threefry_table(void* out, long long n, const void* key,
+                                 unsigned long long offset, int kind, float lo, float span,
+                                 float p, void* stream) {
+  if (n <= 0) return 0;
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const auto launch = kind == 0 ? threefry_table_kernel<0>
+                      : kind == 1 ? threefry_table_kernel<1> : threefry_table_kernel<2>;
+  launch<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, n, static_cast<const uint32_t*>(key), offset, lo, span, p);
   return (int)cudaGetLastError();
 }

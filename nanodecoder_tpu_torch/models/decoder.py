@@ -76,6 +76,17 @@ def init_transformer_decoder(key, cfg: ModelConfig, device: torch.device | str =
     return {"layers": layers, "ln_out": nn.init_layer_norm(d, device)}
 
 
+def dropout_keys(cfg: ModelConfig, rng) -> list[tuple]:
+    """The transformer decoder's dropout keys under `rng`, (r1, r2, r3) a
+    layer: rng, r1, r2, r3 = split(rng, 4) in turn, as the JAX package
+    splits."""
+    keys = []
+    for _ in range(cfg.dec_layers):
+        rng, r1, r2, r3 = prng.split(rng, 4)
+        keys.append((r1, r2, r3))
+    return keys
+
+
 def transformer_decoder_forced(p, cfg: ModelConfig, y: torch.Tensor,
                                memory: torch.Tensor, mem_lengths: torch.Tensor,
                                rng=None, train: bool = False, row0: int = 0):
@@ -94,10 +105,9 @@ def transformer_decoder_forced(p, cfg: ModelConfig, y: torch.Tensor,
     cross_mask = nn.length_mask(mem_lengths, s)[:, None, None, :]
     rate = cfg.dropout
     probs = None
-    for layer in p["layers"]:
-        r1 = r2 = r3 = None
-        if train and rng is not None:
-            rng, r1, r2, r3 = prng.split(rng, 4)
+    keys = dropout_keys(cfg, rng) if train and rng is not None else \
+        [(None, None, None)] * len(p["layers"])
+    for layer, (r1, r2, r3) in zip(p["layers"], keys):
         h = nn.layer_norm(layer["ln1"], y)
         a, _ = nn.mha(layer["self_attn"], cfg.dec_heads, h, h, self_mask,
                       kv_heads=cfg.dec_kv)
@@ -407,8 +417,9 @@ def global_attention(p, query: torch.Tensor, memory: torch.Tensor,
                           )[..., 0].to(torch.float32)
     else:
         raise ValueError(f"unknown attention score {score!r}")
-    scores = torch.where(mem_mask, scores, torch.tensor(nn.NEG_INF, dtype=scores.dtype,
-                                                        device=scores.device))
+    # A Python scalar: no copy to the device inside the RNN decoder's
+    # training pass, which a CUDA graph captures.
+    scores = torch.where(mem_mask, scores, nn.NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.bmm(probs.to(memory.dtype)[:, None, :], memory)[:, 0]
     return torch.tanh(nn.dense(p["wo"], torch.cat([ctx, query], dim=-1))), probs

@@ -112,6 +112,16 @@ def conv_frontend(p, cfg: ModelConfig, signal: torch.Tensor,
     return x, out_lengths
 
 
+def dropout_keys(cfg: ModelConfig, rng) -> list[tuple]:
+    """The transformer encoder's dropout keys under `rng`, (r1, r2) a
+    layer: rng, r1, r2 = split(rng, 3) in turn, as the JAX package splits."""
+    keys = []
+    for _ in range(cfg.enc_layers):
+        rng, r1, r2 = prng.split(rng, 3)
+        keys.append((r1, r2))
+    return keys
+
+
 def transformer_encoder(p, cfg: ModelConfig, x: torch.Tensor,
                         enc_lengths: torch.Tensor, rng=None, train: bool = False,
                         row0: int = 0) -> torch.Tensor:
@@ -129,11 +139,10 @@ def transformer_encoder(p, cfg: ModelConfig, x: torch.Tensor,
     attn_mask = valid[:, None, None, :]
     lengths32 = enc_lengths.to(torch.int32).contiguous()
     rate = cfg.dropout
-    for layer in p["layers"]:
-        r1 = r2 = m1 = None
-        if train and rng is not None:
-            rng, r1, r2 = prng.split(rng, 3)
-            m1 = nn.dropout_mask(r1, rate, (b, t, d), x.device, row0)
+    keys = dropout_keys(cfg, rng) if train and rng is not None else \
+        [(None, None)] * len(p["layers"])
+    for layer, (r1, r2) in zip(p["layers"], keys):
+        m1 = nn.dropout_mask(r1, rate, (b, t, d), x.device, row0)
         h = nn.layer_norm(layer["ln1"], x)
         ap = layer["attn"]
         if cfg.use_pallas and not train:

@@ -24,6 +24,7 @@ from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import ModelConfig
 from nanodecoder_tpu_torch.models import decoder as dec
 from nanodecoder_tpu_torch.models import modules as nn
+from nanodecoder_tpu_torch.models import encoder as enc
 from nanodecoder_tpu_torch.models.encoder import (compute_dtype, encoder_apply,
                                                   encoder_apply_lean,
                                                   fold_encoder_lean, init_encoder)
@@ -107,6 +108,26 @@ def encode(params, cfg: ModelConfig, signal: torch.Tensor, lengths: torch.Tensor
     return encoder_apply(params["encoder"], cfg, signal, lengths, rng, train, row0)
 
 
+def dropout_draw_keys(cfg: ModelConfig, rng) -> list:
+    """The key of each dropout draw (each launch of R1) that `encode` then
+    `decode_teacher_forced` make in a training pass under `rng`, in launch
+    order: a transformer encoder layer draws r1 (the attention output's
+    mask, which its residual shares), then r2 twice (the FFN's hidden
+    layer, its residual); a transformer decoder layer r1, r2 (the
+    attention residuals), then r3 twice.  The biLSTM encoder and the RNN
+    decoder draw nothing, nor does a rate of 0."""
+    if rng is None or cfg.dropout <= 0.0:
+        return []
+    keys = []
+    if cfg.encoder_type == "transformer":
+        for r1, r2 in enc.dropout_keys(cfg, rng):
+            keys += [r1, r2, r2]
+    if cfg.decoder_type == "transformer":
+        for r1, r2, r3 in dec.dropout_keys(cfg, rng):
+            keys += [r1, r2, r3, r3]
+    return keys
+
+
 def init_decode_state(params, cfg: ModelConfig, memory: torch.Tensor,
                       mem_lengths: torch.Tensor, beam_k: int = 1) -> dict[str, Any]:
     """Decode state for the (B, S, D) memory bank.  beam_k > 1 (transformer
@@ -154,8 +175,10 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
     `position` for a one-token step (the RNN decoder gets none)."""
     dtype = compute_dtype(cfg)
     y = nn.embed(params["tgt_embed"], tokens, dtype)
-    y = y * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=dtype,
-                         device=y.device)
+    # sqrt(d) rounded to the compute dtype on the host, as a 0-d tensor of
+    # that dtype would hold it, then multiplied as a Python scalar: no copy
+    # to the device, which would wait for the stream.
+    y = y * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=dtype).item()
     if cfg.decoder_type == "rnn":
         return y
     pe = nn.sinusoidal_positions(cfg.max_decode_len + 1, cfg.d_model,

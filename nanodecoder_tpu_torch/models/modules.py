@@ -203,8 +203,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
         logits = logits.reshape(b, hq, tq, tk)
     if mask is not None:
-        logits = torch.where(mask, logits, torch.tensor(
-            NEG_INF, dtype=logits.dtype, device=logits.device))
+        # A Python scalar takes the logits' dtype without a copy to the device.
+        logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     pv = probs.to(v.dtype)
     if hk == hq:

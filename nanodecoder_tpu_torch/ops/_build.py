@@ -56,6 +56,9 @@ _SIGNATURES = {
     # out, n, key words k0 and k1, counter offset, kind (0 bits, 1 uniform,
     # 2 bernoulli), lo, hi - lo, p, stream
     "nd_threefry": [_vp, _i64, _u32, _u32, _u64, _int, _float, _float, _float, _vp],
+    # out, n, the key table row (two uint32 words in device memory), then
+    # as nd_threefry
+    "nd_threefry_table": [_vp, _i64, _vp, _u64, _int, _float, _float, _float, _vp],
     # stream: an empty kernel, the launch floor of device-only timings
     "nd_empty_kernel": [_vp],
 }

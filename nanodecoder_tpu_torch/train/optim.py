@@ -9,7 +9,11 @@ decay, not torch's 1e-2) or plain SGD, then the step scaled by
 -lr(count), the schedule read at the count before the increment (0 at
 the first update).  Its state is plain tensors (`count`, and `mu`/`nu`
 keyed by param path for Adam and AdamW) that a checkpoint writes to
-`.npz`.
+`.npz`.  A step is `prepare` (on the host: lr(count) and the bias
+corrections written into 0-d float32 tensors on the params' device),
+`update` (on the device: the clip and the update, reading those tensors,
+so a CUDA graph may capture it and replay it under each step's values),
+then `advance` (the count, kept on the host).
 
 `host_lr` is the value reports print.  It is the JAX package's separate
 formula, whose cosine branch counts steps from 1, unlike optax's
@@ -107,6 +111,11 @@ class Optimizer:
             for name in ("mu", "nu"):
                 self.state[name] = {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
                                     for k, p in self.params.items()}
+        # -lr(count) and the bias corrections of the next update, which
+        # `prepare` writes and `update` reads.
+        device = next(iter(self.params.values())).device
+        self._neg_lr, self._bc1, self._bc2 = torch.zeros(
+            3, dtype=torch.float32, device=device).unbind()
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -119,34 +128,51 @@ class Optimizer:
         return torch._foreach_mul(grads, scale)
 
     @torch.no_grad()
-    def step(self) -> None:
+    def prepare(self) -> None:
+        """On the host: write -lr(count) and the bias corrections of the next
+        update into the device scalars that `update` reads, each rounded to
+        float32 (three fills; no read of the device)."""
+        count = int(self.state["count"])
+        self._neg_lr.fill_(-self.schedule(count))
+        if self.kind != "sgd":
+            # Bias corrections in float32, as optax computes decay ** count.
+            t = np.float32(count + 1)
+            self._bc1.fill_(float(np.float32(1) - np.float32(self.b1) ** t))
+            self._bc2.fill_(float(np.float32(1) - np.float32(self.b2) ** t))
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """On the device: the clip and the update under the scalars that
+        `prepare` wrote; launches only, with nothing read on the host."""
         params = list(self.params.values())
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if self.grad_clip > 0:
             grads = self._clip(grads)
-        count = int(self.state["count"])
-        lr = self.schedule(count)
         if self.kind == "sgd":
-            updates = grads
+            updates = torch._foreach_mul(grads, self._neg_lr)
         else:
             mu, nu = (list(self.state[name].values()) for name in ("mu", "nu"))
             torch._foreach_mul_(mu, self.b1)
             torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
             torch._foreach_mul_(nu, self.b2)
             torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-            # Bias corrections in float32, as optax computes decay ** count.
-            t = np.float32(count + 1)
-            bc1 = float(np.float32(1) - np.float32(self.b1) ** t)
-            bc2 = float(np.float32(1) - np.float32(self.b2) ** t)
-            denom = torch._foreach_div(nu, bc2)
+            denom = torch._foreach_div(nu, self._bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, ADAM_EPS)
-            updates = torch._foreach_div(mu, bc1)
+            updates = torch._foreach_div(mu, self._bc1)
             torch._foreach_div_(updates, denom)
             if self.kind == "adamw":
                 torch._foreach_add_(updates, params, alpha=ADAMW_WEIGHT_DECAY)
-        torch._foreach_add_(params, updates, alpha=-lr)
+            torch._foreach_mul_(updates, self._neg_lr)
+        torch._foreach_add_(params, updates)
+
+    def advance(self) -> None:
         self.state["count"] += 1
+
+    def step(self) -> None:
+        self.prepare()
+        self.update()
+        self.advance()
 
     @torch.no_grad()
     def load_state(self, state: dict) -> None:

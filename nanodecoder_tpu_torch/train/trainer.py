@@ -29,11 +29,30 @@ keys and draws its rows of the global micro-batch's masks (their counter
 offset), so a data-parallel step equals one device's within f32
 summation order, with dropout too.
 
+On a CUDA device without a mesh plan the trainer captures the whole
+step (every micro-batch's forward, loss and backward, the clip and the
+update) as one CUDA graph a batch shape and replays it, as the JAX
+package compiles its step into one program.  A shape's first step runs
+eagerly, on the stream the capture then uses (the warm-up: a real step
+with its own key); its second is captured and replayed, and every later
+one replayed.  Before a replay the host copies the batch from pinned
+staging (two buffers, taken in turn) into the graph's static inputs,
+writes the step's dropout keys (`step_draw_keys`, in R1's launch order)
+into the graph's key table, which R1's table-keyed kernel reads, and
+the optimizer's lr and bias corrections into its device scalars; the
+step reads nothing back on the host.  The metrics are returned as
+copies that the next replay does not overwrite.  Data-parallel steps
+and steps on the CPU stay eager.
+
 While the span recorder of utils/profiling.py is on, each step is a
 `train.step` span (with the trainer's step number) holding `train.h2d`
-(the batch's copy to the device), `train.forward` and `train.backward`
-(one each a micro-batch) and `train.update` (the clip and the
-optimizer's update).
+(the batch's copy to the device, or into the graph's inputs), then on
+an eager step `train.forward` and `train.backward` (one each a
+micro-batch) and `train.update` (the clip and the optimizer's update),
+on a captured one `train.capture` (holding the captured step's
+forward, backward and update spans) and `train.replay`, and on a
+replayed one `train.replay`.  `graph_captures` and `graph_replays`
+count them, on the trainer and in utils/profiling's counters.
 """
 
 from __future__ import annotations
@@ -45,11 +64,12 @@ import torch
 
 from nanodecoder_tpu_torch import prng
 from nanodecoder_tpu_torch.config import Config
-from nanodecoder_tpu_torch.models.model import (decode_teacher_forced, encode,
-                                                named_leaves)
+from nanodecoder_tpu_torch.models.model import (decode_teacher_forced, dropout_draw_keys,
+                                                encode, named_leaves)
+from nanodecoder_tpu_torch.ops.threefry import key_words, keys_from_table
 from nanodecoder_tpu_torch.train.loss import guided_attention_loss, loss_and_metrics
 from nanodecoder_tpu_torch.train.optim import Optimizer, build_optimizer, host_lr
-from nanodecoder_tpu_torch.utils.profiling import span
+from nanodecoder_tpu_torch.utils.profiling import count, span
 from nanodecoder_tpu_torch.utils.report import ReportManager
 from nanodecoder_tpu_torch.utils.statistics import Statistics
 from nanodecoder_tpu_torch.vocab import PAD_ID
@@ -68,16 +88,22 @@ def batch_to_device(batch: dict[str, np.ndarray], device: torch.device
     return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
-def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
-    """train_step(params, batch, key, plan=None) -> metrics summed over
-    micro-batches (0-d tensors); updates params in place through
-    `optimizer`.  Micro-batch i's dropout takes split(key, A)[i], passed to
-    the encoder and the decoder alike, as in the JAX package.  With a
-    MeshPlan, this rank's rows (their masks drawn at their place in the
-    global micro-batch) and summed gradients and metrics.
-    batch: tensors with the accumulation axis,
-      signal (A, B, S) f32, sig_lengths (A, B) int,
-      tgt_in (A, B, T) int, tgt_out (A, B, T) int."""
+def step_draw_keys(config: Config, key, accum: int) -> np.ndarray:
+    """The key of each dropout draw of a train step under the step key
+    `key` with `accum` micro-batches, in launch order: micro-batch i's
+    draws under split(key, accum)[i] (`dropout_draw_keys`).  (draws, 2)
+    uint32."""
+    keys = [k for rng in prng.split(key, accum)
+            for k in dropout_draw_keys(config.model, rng)]
+    return np.array(keys, dtype=np.uint32).reshape(len(keys), 2)
+
+
+def make_step_body(config: Config, optimizer: Optimizer) -> Callable:
+    """body(params, batch, key, plan=None): a train step's device work, the
+    forward and backward of each micro-batch, then (with a MeshPlan) the
+    all-reduce, then `optimizer.update()`; it reads nothing on the host,
+    so a CUDA graph may capture it.  Returns the metrics summed over
+    micro-batches (0-d tensors).  Arguments as `make_train_step`'s."""
     mcfg, tcfg = config.model, config.train
 
     def micro_loss(params, mb, rng, inv_total, inv_accum: float, row0: int):
@@ -95,7 +121,7 @@ def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
                                       tcfg.guided_attention_sigma)
         return loss, metrics
 
-    def train_step(params, batch: dict[str, torch.Tensor], key, plan=None):
+    def body(params, batch: dict[str, torch.Tensor], key, plan=None):
         accum, bsz = batch["signal"].shape[:2]
         # Token counts are data: the total over all micro-batches (and all
         # ranks' rows) is known before the first backward.
@@ -120,10 +146,79 @@ def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
             plan.all_reduce_grads(optimizer.params.values())
             summed = plan.sum_metrics(summed)
         with span("train.update"):
-            optimizer.step()
+            optimizer.update()
+        return summed
+
+    return body
+
+
+def make_train_step(config: Config, optimizer: Optimizer) -> Callable:
+    """train_step(params, batch, key, plan=None) -> metrics summed over
+    micro-batches (0-d tensors); updates params in place through
+    `optimizer`.  Micro-batch i's dropout takes split(key, A)[i], passed to
+    the encoder and the decoder alike, as in the JAX package.  With a
+    MeshPlan, this rank's rows (their masks drawn at their place in the
+    global micro-batch) and summed gradients and metrics.
+    batch: tensors with the accumulation axis,
+      signal (A, B, S) f32, sig_lengths (A, B) int,
+      tgt_in (A, B, T) int, tgt_out (A, B, T) int."""
+    body = make_step_body(config, optimizer)
+
+    def train_step(params, batch: dict[str, torch.Tensor], key, plan=None):
+        optimizer.prepare()
+        summed = body(params, batch, key, plan)
+        optimizer.advance()
         return summed
 
     return train_step
+
+
+class _StepGraph:
+    """A train step captured for one batch shape: the static device inputs
+    (the batch and the key table), two pinned staging buffers that feed
+    them in turn, the graph and its static metrics."""
+
+    def __init__(self, batch: dict[str, np.ndarray], n_keys: int, device: torch.device):
+        self.static = batch_to_device(batch, device)
+        self.table = torch.zeros((n_keys, 2), dtype=torch.int32, device=device)
+        self.staging = [({k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                          for k, v in self.static.items()},
+                         torch.empty((n_keys, 2), dtype=torch.int32, pin_memory=True),
+                         torch.cuda.Event()) for _ in range(2)]
+        self.turn = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.metrics: dict[str, torch.Tensor] = {}
+
+    def load(self, batch: dict[str, np.ndarray], keys: np.ndarray) -> None:
+        """Copy a step's batch and keys into the static inputs, through the
+        next staging buffer, once the copies that last read it are done."""
+        host, table, done = self.staging[self.turn]
+        self.turn ^= 1
+        done.synchronize()
+        for k, v in batch.items():
+            np.copyto(host[k].numpy(), v)
+            self.static[k].copy_(host[k], non_blocking=True)
+        np.copyto(table.numpy(), keys.view(np.int32))
+        self.table.copy_(table, non_blocking=True)
+        done.record()
+
+    def capture(self, body: Callable, params, key, keys: np.ndarray,
+                stream: torch.cuda.Stream) -> None:
+        """Capture body(params, the static batch, key) on `stream`, its
+        draws keyed by the table's rows; raises if the draws it made were
+        not keyed as `keys`, the table the host writes for them."""
+        graph = torch.cuda.CUDAGraph()
+        with keys_from_table(self.table) as drawn:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                self.metrics = body(params, self.static, key)
+        if drawn != [key_words(k) for k in keys]:
+            raise RuntimeError(f"the captured step drew {len(drawn)} times under keys other "
+                               f"than the {len(keys)} of step_draw_keys")
+        self.graph = graph
+
+
+def _batch_shape(batch: dict[str, np.ndarray]) -> tuple:
+    return tuple((k, np.shape(v), np.asarray(v).dtype.str) for k, v in sorted(batch.items()))
 
 
 def make_eval_step(config: Config) -> Callable:
@@ -183,8 +278,15 @@ class Trainer:
         self.optimizer, self.schedule = build_optimizer(config.train,
                                                         config.model.d_model, self._leaves)
         self.step = 0
+        self._step_body = make_step_body(config, self.optimizer)
         self._train_step = make_train_step(config, self.optimizer)
         self._eval_step = make_eval_step(config)
+        # The captured steps by batch shape (None: seen once, eager so far);
+        # None for a trainer whose steps all stay eager.
+        self._graphs: dict | None = \
+            {} if self.device.type == "cuda" and mesh_plan is None else None
+        self._stream: torch.cuda.Stream | None = None
+        self.graph_captures = self.graph_replays = 0
         if mesh_plan is not None:
             mesh_plan.replicate(params)
             self._train_step = mesh_plan.shard_train_step(self._train_step)
@@ -214,13 +316,52 @@ class Trainer:
 
     def train_step(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         """One optimizer step on a numpy (A, B, ...) batch, keyed by the next
-        step key: self.key, step key = split(self.key)."""
+        step key: self.key, step key = split(self.key).  Eager, or through
+        the batch shape's CUDA graph (the module docstring)."""
         self.key, step_key = prng.split(self.key)
         with span("train.step", step=self.step):
-            with span("train.h2d"):
-                batch = batch_to_device(batch, self.device)
-            metrics = self._train_step(self.params, batch, step_key)
+            if self._graphs is None:
+                metrics = self._eager_step(batch, step_key)
+            else:
+                metrics = self._graph_step(batch, step_key)
         self.step += 1
+        return metrics
+
+    def _eager_step(self, batch: dict[str, np.ndarray], step_key) -> dict[str, torch.Tensor]:
+        with span("train.h2d"):
+            batch = batch_to_device(batch, self.device)
+        return self._train_step(self.params, batch, step_key)
+
+    def _graph_step(self, batch: dict[str, np.ndarray], step_key) -> dict[str, torch.Tensor]:
+        shape = _batch_shape(batch)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        if shape not in self._graphs:  # the warm-up: eager, on the capture's stream
+            self._graphs[shape] = None
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                metrics = self._eager_step(batch, step_key)
+            main.wait_stream(self._stream)
+            return metrics
+        keys = step_draw_keys(self.config, step_key, np.shape(batch["signal"])[0])
+        graph = self._graphs[shape]
+        if graph is None:
+            graph = self._graphs[shape] = _StepGraph(batch, len(keys), self.device)
+        with span("train.h2d"):
+            graph.load(batch, keys)
+        if graph.graph is None:
+            with span("train.capture"):
+                graph.capture(self._step_body, self.params, step_key, keys, self._stream)
+            self.graph_captures += 1
+            count("train.graph_captures")
+        with span("train.replay"):
+            self.optimizer.prepare()
+            graph.graph.replay()
+            self.optimizer.advance()
+            metrics = {k: v.clone() for k, v in graph.metrics.items()}
+        self.graph_replays += 1
+        count("train.graph_replays")
         return metrics
 
     def train(self, train_iter: Iterator, valid_iter_fn: Callable[[], Iterable] | None = None,

@@ -17,6 +17,10 @@ one shared do-nothing context.  Work run in a process pool is timed by
 `timed_call` in the worker, submitted through `submit` and recorded by
 `received` where its result comes back.  Nothing here touches the device
 or the profiler: the spans never reach a device trace.
+
+Counters are process-wide and always on: `count(name)` adds to one,
+`counters()` reads them all (the trainer's `train.graph_captures` and
+`train.graph_replays`).
 """
 
 from __future__ import annotations
@@ -76,6 +80,18 @@ def enable() -> None:
 
 def disable() -> None:
     _REC.on = False
+
+
+_COUNTS: dict[str, int] = defaultdict(int)
+
+
+def count(name: str, n: int = 1) -> None:
+    _COUNTS[name] += n
+
+
+def counters() -> dict[str, int]:
+    """A copy of every counter, by name."""
+    return dict(_COUNTS)
 
 
 def drain() -> list[Span]:

@@ -34,7 +34,9 @@ import pytest
 import torch
 
 from nanodecoder_tpu_torch import prng
-from nanodecoder_tpu_torch.ops.threefry import threefry_draw, threefry_draw_plain
+from nanodecoder_tpu_torch.ops.threefry import (keys_from_table, threefry_draw,
+                                                threefry_draw_plain, threefry_draw_table,
+                                                threefry_draw_table_plain)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "golden", "jax_prng.npz")
@@ -457,6 +459,31 @@ def test_dropout_values_match_jax_jitted(dtype, rate):
     np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
 
 
+TABLE_KEYS = np.array([[0, 7], [0xDEADBEEF, 0x80000001], [0xFFFFFFFF, 0]], np.uint32)
+DRAW_KW = {"bits": {}, "uniform": {"lo": -0.0684, "hi": 0.0684}, "bernoulli": {"p": 0.9}}
+
+
+@pytest.mark.parametrize("kind", ["bits", "uniform", "bernoulli"])
+@pytest.mark.parametrize("offset", [0, OFFSET], ids=["from_0", "past_2^32"])
+def test_table_keyed_plain_twin_equals_the_scalar_keyed_plain(kind, offset):
+    """R1's table-keyed plain version (the key words read as tensors from a
+    row of an int32 key table, words past 2^31 included) equals the plain
+    version under the same key, for every kind, and so does the launcher
+    on the CPU."""
+    table = torch.from_numpy(TABLE_KEYS.view(np.int32).copy())
+    n = 1000 + 3
+    for row, key in enumerate(TABLE_KEYS):
+        want = threefry_draw_plain(key, n, kind, offset=offset, **DRAW_KW[kind])
+        got = threefry_draw_table_plain(table, row, n, kind, offset=offset, **DRAW_KW[kind])
+        assert got.dtype == want.dtype and torch.equal(got, want), row
+        assert torch.equal(threefry_draw_table(table, row, n, kind, offset=offset,
+                                               **DRAW_KW[kind]), want)
+    with pytest.raises(IndexError):
+        threefry_draw_table(table, 3, n, kind)
+    with pytest.raises(ValueError, match="key table"):
+        threefry_draw_table(table.long(), 0, n, kind)
+
+
 # --- R1 on the card --------------------------------------------------------------------
 
 
@@ -500,3 +527,31 @@ def test_threefry_kernel_matches_the_jax_fixture_on_card(cuda):
                      saved[pre + "normal"]) <= NORMAL_ULPS
         assert np.abs(prng.gumbel(key, (n,), **draw).cpu().numpy()
                       - saved[pre + "gumbel"]).max() <= GUMBEL_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bits", "uniform", "bernoulli"])
+def test_table_keyed_kernel_matches_the_scalar_kernel_on_card(cuda, kind):
+    """R1's table-keyed kernel under each row of a key table equals the
+    scalar-keyed kernel under that key; inside `keys_from_table`, draws
+    captured in a CUDA graph take the table's rows in turn, collect the
+    keys they were handed, and draw under whatever the table holds when
+    the graph is replayed."""
+    n = (1 << 20) + 3
+    kw = DRAW_KW[kind]
+    table = torch.from_numpy(TABLE_KEYS.view(np.int32).copy()).to(cuda)
+    for row, key in enumerate(TABLE_KEYS):
+        got = threefry_draw_table(table, row, n, kind, offset=OFFSET, **kw)
+        assert torch.equal(got, threefry_draw(key, n, kind, offset=OFFSET, device=cuda, **kw))
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with keys_from_table(table) as handed:
+        with torch.cuda.graph(graph, stream=stream):
+            outs = [threefry_draw(prng.PRNGKey(i), n, kind, device=cuda, **kw) for i in range(2)]
+    assert handed == [(0, 0), (0, 1)]
+    for keys in (TABLE_KEYS, TABLE_KEYS[::-1].copy()):
+        table.copy_(torch.from_numpy(keys.view(np.int32).copy()))
+        graph.replay()
+        for row, out in enumerate(outs):
+            assert torch.equal(out, threefry_draw(keys[row], n, kind, device=cuda, **kw))

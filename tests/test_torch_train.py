@@ -869,6 +869,75 @@ def test_jax_reads_the_port_params_and_decodes_alike(tmp_path):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(jax.device_get(ref[0])))
 
 
+def _flagship_config(accum: int, kv_heads: int):
+    """The committed flagship config (bench_results/config.json) at dropout
+    0.1, with `accum` micro-batches of 2 rows and `kv_heads` KV heads."""
+    import os
+
+    from nanodecoder_tpu_torch.config import Config
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "bench_results", "config.json")
+    with open(path) as f:
+        cfg = Config.from_json(f.read())
+    return _replace(cfg, model={"dropout": 0.1, "dec_kv_heads": kv_heads},
+                    train={"accum_steps": accum, "batch_size": 2})
+
+
+@pytest.mark.parametrize("accum,kv_heads", [(1, 1), (2, 1), (1, 0)],
+                         ids=["flagship", "flagship_accum2", "mha_decoder"])
+def test_step_draw_keys_are_the_keys_the_eager_step_draws_under(monkeypatch, accum, kv_heads):
+    """The table the host writes for a captured step (`step_draw_keys`)
+    holds, row by row, the key that the eager step hands to R1 at each of
+    its draws, in order: three a flagship encoder layer and four a decoder
+    layer, each micro-batch's under its own key."""
+    from nanodecoder_tpu_torch import prng
+    from nanodecoder_tpu_torch.ops.threefry import key_words
+    from nanodecoder_tpu_torch.train.trainer import step_draw_keys
+
+    cfg = _flagship_config(accum, kv_heads)
+    flat = {k: np.zeros(shape, np.float32)
+            for k, shape in expected_param_shapes(cfg.model).items()}
+    trainer = Trainer(cfg, params_from_numpy(flat, cfg.model, "cpu"))
+    drawn, real = [], prng.threefry_draw
+
+    def recorded(key, *args, **kw):
+        drawn.append(key_words(key))
+        return real(key, *args, **kw)
+    monkeypatch.setattr(prng, "threefry_draw", recorded)
+    rng = np.random.default_rng(0)
+    s, t = 64, 8
+    batch = {"signal": rng.standard_normal((accum, 2, s)).astype(np.float32),
+             "sig_lengths": np.full((accum, 2), s, np.int32),
+             "tgt_in": rng.integers(4, cfg.model.vocab_size, (accum, 2, t)).astype(np.int32),
+             "tgt_out": rng.integers(4, cfg.model.vocab_size, (accum, 2, t)).astype(np.int32)}
+    _, step_key = prng.split(trainer.key)
+    trainer.train_step(batch)
+    table = step_draw_keys(cfg, step_key, accum)
+    m = cfg.model
+    assert len(drawn) == table.shape[0] == accum * (3 * m.enc_layers + 4 * m.dec_layers)
+    assert table.dtype == np.uint32
+    np.testing.assert_array_equal(np.array(drawn, np.uint32), table)
+
+
+def test_trainer_never_captures_on_the_cpu():
+    """On the CPU every step is eager: no capture, no replay, on the
+    trainer or in the process's counters."""
+    from nanodecoder_tpu_torch.train.data import synthetic_batches
+    from nanodecoder_tpu_torch.utils import profiling
+
+    cfg = tiny_test_config()
+    before = profiling.counters()
+    trainer = Trainer(cfg, tm.init_model(PRNGKey(0), cfg.model))
+    it = synthetic_batches(cfg, seed=0)
+    for _ in range(3):
+        trainer.train_step(next(it))
+    assert trainer.graph_captures == trainer.graph_replays == 0
+    after = profiling.counters()
+    for name in ("train.graph_captures", "train.graph_replays"):
+        assert after.get(name, 0) == before.get(name, 0)
+
+
 # --------------------------------------------------------------------------
 # the card
 
@@ -944,3 +1013,81 @@ def test_encoder_kernel_guard_on_card(cuda):
         got = ea.flash_encoder_attention_nld(q, k, v, lens, 2)
         want = ea.encoder_attention_nld_plain(q, k, v, lens, 2)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _change_gap(a: dict, b: dict, start: dict) -> float:
+    """The benchmark's `change_gap` of params `a` against `b` from `start`:
+    the worst leaf's |‖a - start‖ - ‖b - start‖| over the larger of
+    ‖b - start‖ and the median leaf's."""
+    moved = {k: float(np.linalg.norm(b[k] - start[k])) for k in b}
+    med = float(np.median(list(moved.values())))
+    return max(abs(float(np.linalg.norm(a[k] - start[k])) - moved[k]) / max(moved[k], med)
+               for k in b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [{}, {"encoder_type": "lstm", "decoder_type": "rnn"}],
+                         ids=["transformer", "rnn"])
+def test_graph_steps_match_eager_steps_on_card(cuda, monkeypatch, model):
+    """Five steps at the tiny config (dropout 0.1, guided attention, Adam
+    under the cosine schedule; the transformer, and the biLSTM encoder
+    with the RNN decoder, which draw nothing) by a trainer that captures
+    its step and by one held eager, from the same params, batches and
+    seed: the first step eager, the second captured, every step after it
+    replayed; losses within 1e-6 relative, params within the benchmark's
+    change_gap limit (4e-3).  The dropout masks of two replays differ,
+    and each is the scalar-keyed kernel's mask under that step's key.  A
+    replayed step makes no synchronizing call."""
+    from nanodecoder_tpu_torch import prng
+    from nanodecoder_tpu_torch.ops.threefry import threefry_draw
+    from nanodecoder_tpu_torch.train.data import synthetic_batches
+    from nanodecoder_tpu_torch.train.trainer import step_draw_keys
+
+    steps = 5
+    cfg = _replace(tiny_test_config(), model={"dropout": 0.1, **model},
+                   train={"guided_attention_weight": 0.3, "lr_schedule": "cosine"})
+    start = tm.init_model(PRNGKey(0), cfg.model)
+    begin = params_to_numpy(start)
+    graphed = Trainer(cfg, tm.params_to(start, cuda))
+    eager = Trainer(cfg, tm.params_to(start, cuda))
+    eager._graphs = None
+    masks = []  # (shape, mask) of each draw made while capturing
+    real = tnn.dropout_mask
+
+    def kept(rng, rate, shape, device, row0=0):
+        m = real(rng, rate, shape, device, row0)
+        if m is not None and torch.cuda.is_current_stream_capturing():
+            masks.append((tuple(shape), m))
+        return m
+    monkeypatch.setattr(tnn, "dropout_mask", kept)
+    it = synthetic_batches(cfg, seed=0)
+    batches = [next(it) for _ in range(steps)]
+    losses, held = [], []
+    for i, b in enumerate(batches):
+        step_key = prng.split(graphed.key)[1]
+        if i == 3:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            mg = graphed.train_step(b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        me = eager.train_step(b)
+        losses.append((float(mg["loss_sum"]), float(me["loss_sum"])))
+        if i in (1, 2) and masks:
+            held.append((step_key, masks[0][1].clone()))
+    assert graphed.graph_captures == 1 and graphed.graph_replays == steps - 1
+    assert eager.graph_captures == eager.graph_replays == 0
+    for lg, le in losses:
+        assert abs(lg - le) <= 1e-6 * abs(le), (lg, le)
+    assert _change_gap(params_to_numpy(graphed.params), params_to_numpy(eager.params),
+                       begin) <= 4e-3
+    if model:
+        assert not masks and not held
+        return
+    (k2, m2), (k3, m3) = held
+    assert not torch.equal(m2, m3)
+    shape = masks[0][0]
+    for key, m in held:
+        row = step_draw_keys(cfg, key, 1)[0]
+        want = threefry_draw(row, math.prod(shape), "bernoulli", p=0.9, device=cuda)
+        assert torch.equal(m.reshape(-1), want)
