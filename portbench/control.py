@@ -1,7 +1,7 @@
 """The readings that the limits of `correct` are set from.
 
     python3 -m portbench.control --workload <name> --seeds 1,2,3 [--seconds 4]
-        [--route kernels|plain] [--config <name>] [--control float8|tf32]
+        [--route kernels|plain] [--config <name>|<path>.json] [--control float8|tf32]
         [--fault state_unchanged|token_altered|half_batch]
 
 For each seed, in one process (one set-up for a serving cell): the
@@ -10,12 +10,14 @@ numbers the cell compares, as a run of the program gives them, and with
 at the precision below the configuration's (serving: float8, the gap of
 the token it puts first; training: TF32).  A serving window here is
 short, at the cell's load: the stream runs on until it has given the
-compared reads.  --route
-plain runs the program with use_pallas false; --config serves another
-configuration on the cell's traffic (the MHA diagnosis: the same
-function in MQA form).  --fault plants one of the faults the checks must
-catch, in the program (serving) or in the reference put in its place
-(training's half batch).  One JSON line a seed.
+compared reads.  --route plain runs the program with use_pallas false;
+--config runs another configuration on the cell's traffic and limits: a
+name under portbench/configs/ (the MHA diagnosis: the same function in
+MQA form), or the path of a configuration file from the checkout's root
+(one that BENCHMARK.json does not list yet).  --fault plants one of the
+faults the checks must catch, in the program (serving) or in the
+reference put in its place (training's half batch).  One JSON line a
+seed.
 """
 
 from __future__ import annotations
@@ -138,7 +140,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     run.set_cache_dirs()
     spec = run.cell_spec(args.workload)
-    if args.config:
+    if args.config and args.config.endswith(".json"):
+        spec["config"] = run.load_json(run.ROOT, args.config)
+    elif args.config:
         spec["config"] = run.load_json(run.BENCH, "configs", args.config + ".json")
     seeds = [int(s) for s in args.seeds.split(",")]
     head = {"workload": args.workload, "route": args.route,

@@ -1,7 +1,11 @@
-"""Milliseconds a training step spends copying its batch to the device:
-the mean of the program's `train.h2d` spans over the window's steps
-outside the profiled ones (the profiler's start and stop take most of a
-traced window, so few steps lie after it)."""
+"""Milliseconds a training step spends in the program's `train.h2d` span:
+the mean over the window's steps outside the profiled ones (the
+profiler's start and stop take most of a traced window, so few steps lie
+after it).  On an eager step the span is the batch's copy to the device.
+On a step replayed through its CUDA graph it is the wait for the staging
+buffer's last copies, which the card reaches only after the replays
+queued before them, and then the copy: there it reads the card's step
+time as the host sees it, not the copy's cost."""
 
 from portbench import spans
 

@@ -1,5 +1,9 @@
 """The basecaller's plain forward pass: conv front-end, pre-norm
-transformer encoder, teacher-forced transformer decoder, generator.
+transformer encoder, teacher-forced transformer decoder, generator; the
+names and shapes of its parameters (`param_shapes`) and the operations a
+training step and a served batch need (`train_step_flops`,
+`serve_batch_flops`).  A configuration without a "reference" key is
+judged and counted by this module (`reference.module`).
 
 Plain PyTorch over the flat `.npz` parameter names, float32 and no
 kernel, importing nothing of the program.  `precision` puts every matrix
@@ -10,6 +14,13 @@ tensor, as an fp8 GEMM takes it), the control that must fail the
 comparison.  `tile_kv_heads` turns the MQA decoder into the same
 function in MHA form.  Training passes a threefry key: dropout then
 falls where the program's trainer drops, with the same masks.
+
+Serving counts the work the chunks needed: the encoder over every real
+chunk's positions (attention over each chunk's valid positions), the
+cross K/V projection once a chunk, and the decoder once for each served
+token.  Training counts the forward pass over the whole batch shape
+(causal self attention over its lower triangle) and twice that for the
+backward pass.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from portbench import work
 from portbench.reference import threefry
 
 NEG = -1e9
@@ -120,17 +132,23 @@ class Ref:
         return self.dense(name + "/o", out), probs
 
     # -- the model ----------------------------------------------------
-    def encode(self, signal, lengths, key=None):
-        """signal (B, S) f32, lengths (B,) -> (memory (B, T, D), enc lengths)."""
-        m = self.m
+    def frontend(self, signal, lengths):
+        """signal (B, S) f32, lengths (B,) -> (the conv front-end's output
+        (B, T, D) after its projection and layer norm, enc lengths)."""
         x = signal[:, None, :]
         lens = lengths.to(torch.int64)
-        for i, stride in enumerate(m["conv_strides"]):
+        for i, stride in enumerate(self.m["conv_strides"]):
             w = self.p[f"encoder/frontend/convs/{i}/w"].permute(2, 1, 0)
             x = F.conv1d(self.rnd(x), self.rnd(w), stride=stride, padding=w.shape[2] // 2)
             x = torch.relu(x + self.p[f"encoder/frontend/convs/{i}/b"][None, :, None])
             lens = torch.div(lens + stride - 1, stride, rounding_mode="floor")
-        x = self.ln("encoder/frontend/ln", self.dense("encoder/frontend/proj", x.transpose(1, 2)))
+        x = self.dense("encoder/frontend/proj", x.transpose(1, 2))
+        return self.ln("encoder/frontend/ln", x), lens
+
+    def encode(self, signal, lengths, key=None):
+        """signal (B, S) f32, lengths (B,) -> (memory (B, T, D), enc lengths)."""
+        m = self.m
+        x, lens = self.frontend(signal, lengths)
         t, d = x.shape[1], x.shape[2]
         x = x + positions(t, d, x.device)[None]
         valid = torch.arange(t, device=x.device)[None, :] < lens[:, None]
@@ -189,3 +207,120 @@ def positions(n: int, d: int, device) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
+
+
+# ---------------------------------------------------------------------------
+# parameters and work
+
+
+def frontend_shapes(model: dict) -> dict[str, tuple[int, ...]]:
+    """The conv front-end's flat names and stored shapes (a conv weight
+    (W, I, O)), its projection and layer norm, the target embedding and
+    the generator: what every family has."""
+    d, v = model["d_model"], model["vocab_size"]
+    shapes: dict[str, tuple[int, ...]] = {}
+    cin = 1
+    for i, (ch, ker) in enumerate(zip(model["conv_channels"], model["conv_kernels"])):
+        shapes[f"encoder/frontend/convs/{i}/w"] = (ker, cin, ch)
+        shapes[f"encoder/frontend/convs/{i}/b"] = (ch,)
+        cin = ch
+    shapes.update(dense_shapes("encoder/frontend/proj", cin, d))
+    shapes.update(ln_shapes("encoder/frontend/ln", d))
+    shapes["tgt_embed/table"] = (v, d)
+    shapes.update(dense_shapes("generator", d, v))
+    return shapes
+
+
+def dense_shapes(name: str, n_in: int, n_out: int) -> dict[str, tuple[int, ...]]:
+    return {name + "/w": (n_in, n_out), name + "/b": (n_out,)}
+
+
+def ln_shapes(name: str, d: int) -> dict[str, tuple[int, ...]]:
+    return {name + "/scale": (d,), name + "/bias": (d,)}
+
+
+def param_shapes(model: dict) -> dict[str, tuple[int, ...]]:
+    """Flat name -> stored shape of the transformer encoder and decoder."""
+    d, f = model["d_model"], model["enc_ffn_dim"]
+    dk = d // model["dec_heads"] * (model["dec_kv_heads"] or model["dec_heads"])
+    shapes = frontend_shapes(model)
+    for i in range(model["enc_layers"]):
+        pre = f"encoder/body/layers/{i}"
+        shapes.update(ln_shapes(pre + "/ln1", d))
+        shapes.update(ln_shapes(pre + "/ln2", d))
+        for name in "qkvo":
+            shapes.update(dense_shapes(f"{pre}/attn/{name}", d, d))
+        shapes.update(dense_shapes(pre + "/ffn/in", d, f))
+        shapes.update(dense_shapes(pre + "/ffn/out", f, d))
+    shapes.update(ln_shapes("encoder/body/ln_out", d))
+    for i in range(model["dec_layers"]):
+        pre = f"decoder/layers/{i}"
+        for ln in ("ln1", "ln2", "ln3"):
+            shapes.update(ln_shapes(f"{pre}/{ln}", d))
+        for attn in ("self_attn", "cross_attn"):
+            for name, width in (("q", d), ("k", dk), ("v", dk), ("o", d)):
+                shapes.update(dense_shapes(f"{pre}/{attn}/{name}", d, width))
+        shapes.update(dense_shapes(pre + "/ffn/in", d, model["dec_ffn_dim"]))
+        shapes.update(dense_shapes(pre + "/ffn/out", model["dec_ffn_dim"], d))
+    shapes.update(ln_shapes("decoder/ln_out", d))
+    return shapes
+
+
+def encoder_flops(model: dict, samples: int, lengths: np.ndarray) -> float:
+    """The conv front-end, projection and transformer body over chunks of
+    `samples` samples with these valid lengths (one per chunk)."""
+    d, f = model["d_model"], model["enc_ffn_dim"]
+    n = len(lengths)
+    s = work.enc_positions(model, samples)
+    per_chunk = work.frontend_flops(model, samples)
+    per_chunk += model["enc_layers"] * s * (2.0 * 4 * d * d + 2.0 * 2 * d * f)
+    keys = work.enc_lengths(model, lengths)
+    keys = np.where(keys > 0, keys, s).astype(np.float64)
+    attn = model["enc_layers"] * 4.0 * s * d * keys.sum()
+    return n * per_chunk + attn
+
+
+def decoder_token_flops(model: dict, t: np.ndarray, mem: np.ndarray) -> float:
+    """Decoder steps at positions t (0-based) over memories of `mem` valid
+    positions, the generator included: summed over the arrays."""
+    d, f, v = model["d_model"], model["dec_ffn_dim"], model["vocab_size"]
+    dk = d // model["dec_heads"] * (model["dec_kv_heads"] or model["dec_heads"])
+    t = np.asarray(t, np.float64)
+    mem = np.asarray(mem, np.float64)
+    dense = model["dec_layers"] * (2.0 * d * (d + 2 * dk) + 3 * 2.0 * d * d
+                                   + 2.0 * 2 * d * f) + 2.0 * d * v
+    attn = model["dec_layers"] * 4.0 * d * ((t + 1) + mem)
+    return float(dense * t.size + attn.sum())
+
+
+def cross_kv_flops(model: dict, samples: int, n_chunks: int) -> float:
+    d = model["d_model"]
+    dk = d // model["dec_heads"] * (model["dec_kv_heads"] or model["dec_heads"])
+    s = work.enc_positions(model, samples)
+    return model["dec_layers"] * 2.0 * s * d * 2 * dk * n_chunks
+
+
+def serve_batch_flops(model: dict, samples: int, lengths: np.ndarray,
+                      decoded: np.ndarray) -> float:
+    """One greedy batch's needed operations: `lengths` of its real chunks
+    and the served tokens of each."""
+    mem = work.enc_lengths(model, lengths)
+    total = encoder_flops(model, samples, lengths) + cross_kv_flops(model, samples, len(lengths))
+    t = np.concatenate([np.arange(n) for n in decoded]) if len(decoded) else np.zeros(0)
+    m = np.repeat(mem, decoded)
+    return total + decoder_token_flops(model, t, m)
+
+
+def train_step_flops(model: dict, batch: int, samples: int, tmax: int) -> float:
+    """Forward and backward of one step at the batch shape."""
+    s = work.enc_positions(model, samples)
+    lengths = np.full(batch, samples)
+    fwd = encoder_flops(model, samples, lengths) + cross_kv_flops(model, samples, batch)
+    d, f, v = model["d_model"], model["dec_ffn_dim"], model["vocab_size"]
+    dk = d // model["dec_heads"] * (model["dec_kv_heads"] or model["dec_heads"])
+    per_tok = model["dec_layers"] * (2.0 * d * (d + 2 * dk) + 3 * 2.0 * d * d
+                                     + 2.0 * 2 * d * f) + 2.0 * d * v
+    causal = model["dec_layers"] * 4.0 * d * (tmax * (tmax + 1) / 2)
+    cross = model["dec_layers"] * 4.0 * d * tmax * s
+    fwd += batch * (per_tok * tmax + causal + cross)
+    return 3.0 * fwd

@@ -3,9 +3,10 @@ with the trainer's dropout masks, the label-smoothed loss and the
 guided-attention penalty, autograd's backward pass, the clip by global
 norm and Adam with optax's formulas and the warm-up cosine schedule.
 
-Plain PyTorch over the flat `.npz` parameters, importing nothing of the
-program.  The keys follow the trainer: PRNGKey(seed); each step splits
-off a step key, key, step = split(key), and the one micro-batch takes
+Plain PyTorch over the flat parameters, importing nothing of the
+program; the forward pass is the configuration's reference module's.
+The keys follow the trainer: PRNGKey(seed); each step splits off a step
+key, key, step = split(key), and the one micro-batch takes
 split(step, 1)[0] for both the encoder and the decoder.
 """
 
@@ -17,7 +18,6 @@ import numpy as np
 import torch
 
 from portbench.reference import threefry
-from portbench.reference.model import Ref
 from portbench.reference.signal import PAD
 
 
@@ -62,12 +62,14 @@ def lr_at(train: dict, count: int, d_model: int) -> float:
 
 
 class RefTrainer:
-    """Steps of the reference from float32 `flat` parameters (trained in
-    place).  `half_batch` plants a fault for the benchmark's checks: each
-    step trains on the first half of the rows only."""
+    """Steps of the reference `ref_cls` (a reference module's `Ref`) from
+    float32 `flat` parameters (trained in place).  `half_batch` plants a
+    fault for the benchmark's checks: each step trains on the first half
+    of the rows only."""
 
-    def __init__(self, flat: dict, model: dict, train: dict, seed: int,
+    def __init__(self, ref_cls, flat: dict, model: dict, train: dict, seed: int,
                  half_batch: bool = False):
+        self.ref_cls = ref_cls
         self.p = {k: v.clone().requires_grad_(True) for k, v in flat.items()}
         self.model, self.train = model, train
         self.key = threefry.prng_key(seed)
@@ -83,7 +85,7 @@ class RefTrainer:
         micro = threefry.split(step_key, 1)[0]
         if self.half:
             batch = {k: v[:v.shape[0] // 2] for k, v in batch.items()}
-        ref = Ref(self.p, self.model, dropout=self.model["dropout"])
+        ref = self.ref_cls(self.p, self.model, dropout=self.model["dropout"])
         mem, mlen = ref.encode(batch["signal"], batch["sig_lengths"], key=micro)
         lp, attn = ref.decode(batch["tgt_in"].long(), mem, mlen, key=micro)
         loss_sum, n_tok = smoothed_loss_sum(lp, batch["tgt_out"], tr["label_smoothing"])
@@ -112,4 +114,5 @@ class RefTrainer:
                 upd = (self.mu[k] / bc1) / ((self.nu[k] / bc2).sqrt() + 1e-8)
                 self.p[k].add_(upd, alpha=-lr)
         self.count += 1
-        return float(loss_sum.detach() / n_tok.clamp_min(1)), {k: g.detach() for k, g in zip(names, grads)}
+        grads = {k: g.detach() for k, g in zip(names, grads)}
+        return float(loss_sum.detach() / n_tok.clamp_min(1)), grads

@@ -8,7 +8,11 @@ The cell is looked up by name in BENCHMARK.json; its configuration
 and, with --trace 1, the per-layer metrics BENCHMARK.json lists for it
 (portbench/metrics/<name>.py, or for a name `<stem>.<part>` without a
 file of its own the shared portbench/metrics/<stem>.py; each a
-`read(ctx)` that returns a number or None) are found by name.
+`read(ctx)` that returns a number or None) are found by name.  The
+configuration file names its reference module ("reference", default
+`reference/model.py`) and its weights ("params": an `.npz` or a draw,
+`portbench/weights.py`).  With --trace 1 the program's span recorder runs
+from before set-up to the window's end, and the readers get its spans.
 Without a CUDA card, or with fewer cards than the cell asks for, it exits
 with code 2 and prints no result.  After the window it exits with code 3
 and no result where JAX or the JAX package was loaded into this process.
@@ -91,24 +95,40 @@ def forbidden_modules() -> list[str]:
 
 
 def load_flat(config: dict) -> dict:
-    import numpy as np
+    from portbench.weights import flat_params
 
-    with np.load(os.path.join(ROOT, config["params"])) as data:
-        return {k: np.asarray(data[k], np.float32) for k in data.files}
+    return flat_params(config, ROOT)
 
 
 def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "cuda",
              control: str | None = None) -> dict:
     """One run of a cell: set-up, window, the comparison; the result line
-    as a dict.  `device` "cpu" serves the benchmark's own tests."""
+    as a dict.  `device` "cpu" serves the benchmark's own tests.  With
+    `trace` the program's span recorder runs from before set-up to the
+    window's end, and is off again however the run ends."""
+    from nanodecoder_tpu_torch.utils import profiling
+
+    if trace:
+        profiling.enable()
+    try:
+        return _run_cell(spec, seed, seconds, trace, device, control)
+    finally:
+        if trace:
+            profiling.disable()
+
+
+def _run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str,
+              control: str | None) -> dict:
     import torch
 
+    from nanodecoder_tpu_torch.utils import profiling
+    from portbench import reference
     from portbench.trace import Tracer
 
     config, traffic, limits = spec["config"], spec["traffic"], spec["limits"]
     flat = load_flat(config)
     tracer = Tracer() if trace else None
-    ctx: dict = {"kind": traffic["kind"]}
+    ctx: dict = {"kind": traffic["kind"], "reference": reference.module(config)}
     t_start = time.perf_counter() - process_age_s()
     if traffic["kind"] == "serve":
         from portbench import serve
@@ -122,6 +142,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "
         win = cell.window(seed, seconds, tracer=tracer,
                           trace_batches=range(*traffic["trace_batches"]) if trace else range(0),
                           plan=plan)
+        profiling.disable()
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         cell.free()
         checks, identity, ctl, extra = serve.judge(cell, win, config, device, control)
@@ -145,6 +166,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "
         steps, window_s = cell.window(seconds, tracer=tracer,
                                       trace_steps=range(*traffic["trace_steps"]) if trace
                                       else range(0))
+        profiling.disable()
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         prog = (cell.losses, cell.grad1, cell.params3)
         data_wait = cell.data_wait_s
@@ -163,7 +185,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: str = "
     e2e["setup_s"] = t_window - t_start
     units = {m["name"]: m["unit"] for m in spec["end_to_end"] + spec["per_layer"]}
     if trace:
-        ctx["trace"] = tracer.trace
+        ctx.update(trace=tracer.trace, spans=profiling.drain())
         metrics = {}
         for m in spec["per_layer"]:
             v = metric_reader(m["name"])(ctx)

@@ -2,8 +2,8 @@
 reads greedily for a fixed window, and the comparison that decides
 `correct`.
 
-Set-up builds one `StreamingBasecaller` on the card from the committed
-weights (the configuration's decoder K/V tiled by the benchmark's own
+Set-up builds one `StreamingBasecaller` on the card from the
+configuration's weights (its decoder K/V tiled by the benchmark's own
 copy where it asks for MHA) and runs it once over a fixed warm-up stream
 of reads, which starts the ingest processes, builds the kernels and
 meets every shape the window uses (full and partial batches, every
@@ -47,11 +47,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from portbench import sim
+from portbench import reference, sim
 from portbench.feed import Feed, simulated_ingest
 from portbench.identity import Identity
 from portbench.reference import signal as rsig
-from portbench.reference.model import Ref, tile_kv_heads
+from portbench.reference.model import tile_kv_heads
 
 WARM_SEED = 7
 BLOCK_CHUNKS = 64
@@ -294,14 +294,16 @@ def record_matches(rec: tuple[str, str], rr: ReadRef, parts, itos, chunk_len: in
 
 
 @torch.no_grad()
-def token_gaps(flat_t: dict, model: dict, rows: list, device, precision: str | None):
-    """Teacher-force the float32 reference over each chunk's served tokens.
+def token_gaps(ref_cls, flat_t: dict, model: dict, rows: list, device,
+               precision: str | None):
+    """Teacher-force the float32 reference (`ref_cls`, a reference
+    module's `Ref`) over each chunk's served tokens.
     rows: [(signal (chunk_len,), length, tokens (T,), n tokens)].
     Returns (the widest gap below the reference's best of the served
     tokens, and with `precision`, the widest such gap of the token that
     this precision's reference, put in the program's place, puts first)."""
-    ref = Ref(flat_t, model)
-    ctl = Ref(flat_t, model, precision) if precision else None
+    ref = ref_cls(flat_t, model)
+    ctl = ref_cls(flat_t, model, precision) if precision else None
     tok_gap = ctl_tok = 0.0
     tmax = model["max_decode_len"]
     for lo in range(0, len(rows), BLOCK_CHUNKS):
@@ -359,7 +361,8 @@ def judge(cell: ServeCell, win: Window, config: dict, device, control: str | Non
             rows.append((c, int(ln), tokens, n))
     flat_t = {k: torch.from_numpy(np.asarray(v, np.float32)).to(device)
               for k, v in cell.flat.items()}
-    tok_gap, ctl_tok = token_gaps(flat_t, cell.model, rows, device, control)
+    tok_gap, ctl_tok = token_gaps(reference.module(config).Ref, flat_t, cell.model, rows,
+                                  device, control)
     checks = {"reads_not_once": not_once, "records_mismatched": mismatched,
               "token_gap_max": tok_gap}
     ctl = {"token_gap_max": ctl_tok} if control else None

@@ -1,12 +1,12 @@
 """The program's spans as the per-layer readers see them.
 
-A traced run with the program's span recorder on
-(`nanodecoder_tpu_torch.utils.profiling`) hands its readers
-`ctx["spans"]`, every span the recorder drained after the run (set-up and
-window), and `ctx["trace"]` with the fields `spanrun.ClockedTracer` adds
-to the device trace: `t0_ns` and `t1_ns`, the profiled window on the
-spans' clock (`time.perf_counter_ns`), and `busy_ns`, the merged
-intervals in which an operation ran on the device, on that clock.
+A traced run (`portbench.run --trace 1`) runs the program's span recorder
+(`nanodecoder_tpu_torch.utils.profiling`) from before set-up to the end
+of the window and hands its readers `ctx["spans"]`, every span it
+recorded (set-up and window), and `ctx["trace"]` (`trace.Trace`) with
+the profiled window on the spans' clock (`time.perf_counter_ns`), `t0_ns`
+and `t1_ns`, and `busy_ns`, the merged intervals in which an operation
+ran on the device, on that clock.
 
 Intervals are sorted lists of disjoint (start, end) pairs in ns.
 """
@@ -81,7 +81,7 @@ def profiled(ctx) -> tuple[int, int, list] | None:
     """(t0, t1, the device's busy intervals in between) of the profiled
     window on the spans' clock, or None where the trace lacks them."""
     trace = ctx.get("trace")
-    if trace is None or getattr(trace, "busy_ns", None) is None or not trace.n_device_ops:
+    if trace is None or not trace.n_device_ops:
         return None
     t0, t1 = trace.t0_ns, trace.t1_ns
     return t0, t1, intersect(merge(trace.busy_ns), [(t0, t1)])
@@ -93,7 +93,7 @@ def outside_decode_steps(ctx) -> list[tuple]:
     not slow)."""
     trace = ctx.get("trace")
     steps, _wall = window_run(ctx, "decode.step")
-    if getattr(trace, "t0_ns", None) is None or not steps:
+    if trace is None or not steps:
         return []
     t0, t1 = trace.t0_ns, trace.t1_ns
     syncs: dict[int, list] = {}
@@ -121,7 +121,7 @@ def outside_train_steps(ctx, *names) -> list:
     """The spans named of the training window's steps (after the set-up's
     READ_STEPS) that lie outside the profiled window."""
     trace = ctx.get("trace")
-    if trace is None or getattr(trace, "t0_ns", None) is None:
+    if trace is None:
         return []
     return [s for s in of(ctx, *names) if s.step is not None and s.step >= READ_STEPS
             and (s.end_ns <= trace.t0_ns or s.start_ns >= trace.t1_ns)]

@@ -60,7 +60,11 @@ def test_cell_files_load_by_name(workload):
     assert spec["config"]["name"] == spec["workload"]["config"]
     assert spec["traffic"]["kind"] in ("serve", "train")
     assert set(spec["limits"]) and all(v >= 0 for v in spec["limits"].values())
-    assert os.path.exists(os.path.join(run.ROOT, spec["config"]["params"]))
+    params = spec["config"]["params"]
+    if isinstance(params, str):      # a path to an .npz, or a draw from a fixed seed
+        assert os.path.exists(os.path.join(run.ROOT, params))
+    else:
+        assert params["draw"] == "glorot" and isinstance(params["seed"], int)
     # every cell reports setup_s, another end-to-end metric and a per-layer one
     assert {m["name"] for m in spec["end_to_end"]} - {"setup_s"}
     assert "setup_s" in {m["name"] for m in spec["end_to_end"]}

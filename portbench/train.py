@@ -1,7 +1,7 @@
 """Training cells: the program's trainer stepping for a fixed window on
 simulated batches, and the comparison that decides `correct`.
 
-Set-up builds one `Trainer` on the card from the committed weights (the
+Set-up builds one `Trainer` on the card from the configuration's weights (the
 configuration's train section, the batch of the traffic file, the
 dropout keyed from the run's seed) and feeds it the seed's batches
 through the program's `prefetch_batches`.  Its first three steps, which
@@ -116,6 +116,7 @@ def reference_readings(config: dict, traffic: dict, flat: dict, seed: int, devic
                        tf32: bool = False, half_batch: bool = False):
     """The reference's three steps: (losses, first clipped gradients,
     parameters after three steps), as numpy by flat name."""
+    from portbench import reference
     from portbench.reference.train import RefTrainer
 
     m, tr = config["config"]["model"], config["config"]["train"]
@@ -124,7 +125,8 @@ def reference_readings(config: dict, traffic: dict, flat: dict, seed: int, devic
     try:
         flat_t = {k: torch.from_numpy(np.asarray(v, np.float32)).to(device)
                   for k, v in flat.items()}
-        rt = RefTrainer(flat_t, m, tr, seed, half_batch=half_batch)
+        rt = RefTrainer(reference.module(config).Ref, flat_t, m, tr, seed,
+                        half_batch=half_batch)
         losses, grad1 = [], {}
         it = batches(seed, traffic, config)
         for i in range(READ_STEPS):
